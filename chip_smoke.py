@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+Runs the paper's 26-neighbour halo exchange plus 26-point stencil at full
+width on one card, through the hand-written CUDA pack/unpack kernels:
+
+1. build   the kernels under ``src/repro_torch/kernels/csrc`` with nvcc,
+           all sources at once (seconds printed);
+2. kernels hold each of the four kernels against its plain PyTorch
+           version on the card, bit-exact: on a subset of the CPU test
+           sweeps, on planes that share rows, and on the 26 send and 26
+           receive types of the full-width halo, 8 ranks per launch;
+3. main    8 ranks on a periodic 2x2x2 grid, 256^3 float32 interior per
+           rank, radius 2, all ranks in one (8, 260, 260, 260) tensor.
+           One exchange under ``tempi``, ``rows``, ``dma`` and
+           ``baseline``: every cell equals the periodic global field
+           bit-exactly and the transport's byte count equals the plan's
+           (and ``plan.wire_bytes`` in 7 wire ops under the exact
+           schedule).  Then 5 iterations of exchange + 2 stencil
+           applications against a ``torch.roll`` periodic oracle
+           (rtol = atol = 1e-5: float32 sums in another order).  Kernel
+           launch counts are zeroed just before this phase and read just
+           after it; every kernel must have run;
+4. timing  CUDA-event times of each kernel at the x-, y- and z-face
+           shapes (L2 flushed before every call), beside its plain
+           version, one PyTorch strided copy (``library_ms``) and its
+           bound (bytes read + written at 3.35 TB/s); host-clock ms per
+           exchange and CUDA-event ms per stencil application.
+
+Prints one JSON line ``{"kernels": [...]}``, the card's name and power
+limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
+failed check ends the run with a non-zero exit and no result line.
+Needs one card; run from the repository root: ``python3 chip_smoke.py``.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+SENTINEL = -1.0e30
+FLUSH_BYTES = 256 << 20    # > the 50 MB L2
+SLEEP_CYCLES = 2_000_000   # keeps the card busy while the host enqueues a timed call
+REPS = 20
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip()
+    if not out:
+        fail("nvidia-smi printed nothing")
+    return out.splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# timing
+# ---------------------------------------------------------------------------
+
+class Timer:
+    """Device time of one call, L2 flushed before it, the host's enqueue
+    hidden behind a spin kernel; median of ``REPS`` calls."""
+
+    def __init__(self, torch, dev):
+        self.torch = torch
+        self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+
+    def ms(self, fn, reps: int = REPS) -> float:
+        torch = self.torch
+        fn()
+        pairs = []
+        for _ in range(reps):
+            self.flush.zero_()
+            torch.cuda._sleep(SLEEP_CYCLES)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+
+def wall_ms(torch, fn, reps: int) -> float:
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+KERNEL_INFO = {
+    "pack_rows": ("src/repro_torch/kernels/csrc/pack.cu", "src/repro/kernels/pack.py:100"),
+    "pack_dma": ("src/repro_torch/kernels/csrc/pack.cu", "src/repro/kernels/pack.py:143"),
+    "unpack_rows": ("src/repro_torch/kernels/csrc/unpack.cu", "src/repro/kernels/unpack.py:77"),
+    "unpack_dma": ("src/repro_torch/kernels/csrc/unpack.cu", "src/repro/kernels/unpack.py:113"),
+}
+
+
+def phase_build():
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.build()
+    secs = time.perf_counter() - t0
+    for name in build.SOURCES:
+        build.library(name)
+    regs = sorted({ln.split("Used ")[1].split(",")[0] for log in build.BUILD_LOG.values()
+                   for ln in log.splitlines() if "Used " in ln})
+    print(f"[build] {len(build.SOURCES)} sources in {secs:.2f} s; ptxas registers: {regs}")
+    return secs
+
+
+class KernelCheck:
+    """Holds every kernel against its plain version; keeps the largest
+    difference seen per kernel (0 when bit-exact)."""
+
+    def __init__(self, torch, dev):
+        from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
+        from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
+
+        self.torch, self.dev = torch, dev
+        self.pack = {"pack_rows": pack_rows, "pack_dma": pack_dma}
+        self.unpack = {"unpack_rows": unpack_rows, "unpack_dma": unpack_dma}
+        self.pack_plain, self.unpack_plain = pack_plain, unpack_plain
+        self.err = dict.fromkeys(KERNEL_INFO, 0.0)
+        self.checks = 0
+
+    def _diff(self, name, got, want, what):
+        d = (got.to(self.torch.int16) - want.to(self.torch.int16)).abs().max().item()
+        self.err[name] = max(self.err[name], float(d))
+        self.checks += 1
+        if d != 0 or not self.torch.equal(got, want):
+            fail(f"{name} differs from its plain version on {what}")
+
+    def pack_side(self, src, geom, what):
+        torch = self.torch
+        want = self.pack_plain(src, geom, torch.empty((src.shape[0], geom.packed_bytes),
+                                                      dtype=torch.uint8, device=self.dev))
+        for name, fn in self.pack.items():
+            self._diff(name, fn(src, geom), want, what)
+        return want
+
+    def unpack_side(self, dst, packed, geom, what):
+        want = self.unpack_plain(dst.clone(), packed, geom)
+        for name, fn in self.unpack.items():
+            if name == "unpack_rows" and geom.interleaved:
+                continue  # the rows kernel takes disjoint planes only
+            got = dst.clone()
+            fn(got, packed, geom)
+            self._diff(name, got, want, what)
+
+
+def sweep_blocks():
+    from repro_torch.core import BYTE, FLOAT, INT16, StridedBlock, Subarray, TypeRegistry, Vector
+
+    reg = TypeRegistry()
+    types = [
+        Vector(13, 100, 512, BYTE), Vector(64, 128, 512, BYTE), Vector(24, 24, 160, FLOAT),
+        Vector(24, 48, 320, INT16), Subarray((256, 40), (100, 24), (3, 7), BYTE),
+        Subarray((256, 40), (100, 24), (64, 7), BYTE),
+        Subarray((64, 32, 16), (40, 13, 7), (8, 3, 2), BYTE),
+        Subarray((512, 4, 4), (12, 3, 2), (64, 1, 1), BYTE),
+        Subarray((32, 32, 32), (2, 32, 32), (0, 0, 0), FLOAT),
+        Subarray((32, 32, 32), (2, 2, 2), (30, 30, 30), FLOAT),
+    ]
+    blocks = [reg.commit(t).block for t in types]
+    # planes that share rows (the last plane wins)
+    blocks += [StridedBlock(4, (8, 6, 3), (1, 16, 32)), StridedBlock(1, (5, 4, 5), (1, 7, 7)),
+               StridedBlock(2, (6, 3, 4), (1, 10, 20))]
+    return blocks
+
+
+def phase_kernels(torch, dev, spec, check):
+    from repro_torch.comm import Communicator
+    from repro_torch.halo import make_halo_types
+    from repro_torch.kernels.geometry import plan_geometry
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    for sb in sweep_blocks():
+        geom = plan_geometry(sb)
+        if geom is None:
+            fail(f"no kernel geometry for sweep block {sb}")
+        n = (geom.span_bytes + 13 + 7) // 8 * 8
+        for batch in (1, 8):
+            src = torch.randint(0, 256, (batch, n), dtype=torch.uint8, device=dev, generator=gen)
+            packed = check.pack_side(src, geom, f"{sb} batch {batch}")
+            dst = torch.randint(0, 256, (batch, n), dtype=torch.uint8, device=dev, generator=gen)
+            check.unpack_side(dst, packed, geom, f"{sb} batch {batch}")
+    # the 52 region types of the full-width halo, all 8 ranks per launch
+    types = make_halo_types(spec, Communicator(device=dev))
+    state = torch.randint(0, 256, (spec.nranks, 4 * int(torch.tensor(spec.alloc).prod())),
+                          dtype=torch.uint8, device=dev, generator=gen)
+    for d, (send_ct, recv_ct) in types.items():
+        packed = check.pack_side(state, plan_geometry(send_ct.block), f"send {d}")
+        check.unpack_side(state, packed, plan_geometry(recv_ct.block), f"recv {d}")
+    torch.cuda.synchronize()
+    del state
+    print(f"[kernels] {check.checks} comparisons, all bit-exact; "
+          f"max |diff| per kernel {check.err}")
+
+
+def global_layout(torch, spec, dev):
+    """The seeded global field, every rank's block with poisoned halos,
+    and every cell as the periodic field has it (the exchange oracle)."""
+    r = spec.radius
+    n = spec.interior
+    g_shape = tuple(p * k for p, k in zip(spec.grid, n))
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn(g_shape, generator=gen, device=dev, dtype=torch.float32)
+    start = torch.full((spec.nranks,) + spec.alloc, SENTINEL, device=dev)
+    want = torch.empty_like(start)
+    for rank in range(spec.nranks):
+        c = spec.coords(rank)
+        start[rank, r:r + n[0], r:r + n[1], r:r + n[2]] = g[
+            c[0] * n[0]:(c[0] + 1) * n[0], c[1] * n[1]:(c[1] + 1) * n[1],
+            c[2] * n[2]:(c[2] + 1) * n[2]]
+        idx = [(torch.arange(a, device=dev) - r + ci * k) % gk
+               for a, ci, k, gk in zip(spec.alloc, c, n, g_shape)]
+        want[rank] = g.index_select(0, idx[0]).index_select(1, idx[1]).index_select(2, idx[2])
+    return g, start, want
+
+
+def stencil_roll(torch, g, op):
+    acc = torch.zeros_like(g)
+    for dz, dy, dx in op.offsets:
+        acc += torch.roll(g, (-dz, -dy, -dx), (0, 1, 2))
+    return (1 - op.weight) * g + (op.weight / op.nneighbors) * acc
+
+
+def phase_main(torch, dev, spec, timings):
+    from repro_torch.comm import Communicator, FixedPolicy, policy_for_mode
+    from repro_torch.halo import STENCIL26, make_halo_step, stencil_iterations
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    g, start, want = global_layout(torch, spec, dev)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    per_mode = {}
+    for mode in ("tempi", "rows", "dma", "baseline"):
+        before = launch_counts()
+        comm = Communicator(policy=policy_for_mode(mode), device=dev)
+        step = make_halo_step(spec, comm, device=dev)
+        local = start.clone()
+        t0 = time.perf_counter()
+        step(local)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        if not torch.equal(local, want):
+            bad = (local != want).sum().item()
+            fail(f"{mode}: {bad} cells differ from the periodic global field")
+        if comm.wire_payload_bytes != step.plan.wire.issued_bytes:
+            fail(f"{mode}: transport counted {comm.wire_payload_bytes} bytes, plan "
+                 f"issues {step.plan.wire.issued_bytes}")
+        if mode == "baseline":
+            ms = first_ms  # per-block copies are slow on purpose: one exchange
+        else:
+            ms = wall_ms(torch, lambda: step(local), 5)
+        timings[f"exchange_ms_{mode}"] = ms
+        per_mode[mode] = {k: launch_counts()[k] - before[k] for k in before}
+        print(f"[main] {mode}: exchange bit-exact, schedule {step.plan.wire.schedule}, "
+              f"{step.plan.wire.issued_bytes} bytes/rank issued, "
+              f"strategies {sorted({s.name for s in step.plan.strategies})}, "
+              f"{ms:.3f} ms/exchange (host clock), launches {per_mode[mode]}")
+        del local
+
+    comm = Communicator(policy=FixedPolicy("rows"), device=dev)
+    step = make_halo_step(spec, comm, device=dev, schedule_policy="exact")
+    local = start.clone()
+    step(local)
+    torch.cuda.synchronize()
+    if not torch.equal(local, want):
+        fail("exact schedule: exchange differs from the periodic global field")
+    if (comm.wire_ops, comm.wire_payload_bytes) != (7, step.plan.wire_bytes):
+        fail(f"exact schedule: {comm.wire_ops} ops, {comm.wire_payload_bytes} bytes; "
+             f"want 7 ops, {step.plan.wire_bytes} bytes")
+    print(f"[main] exact schedule: 7 wire ops, {comm.wire_payload_bytes} bytes/rank "
+          f"== plan.wire_bytes")
+    del local, want
+
+    # 5 iterations of exchange + 2 stencil applications under tempi
+    step = make_halo_step(spec, device=dev)
+    local = start.clone()
+    del start
+    iters, steps = 5, 2
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        step(local)
+        stencil_iterations(local, spec, steps=steps)
+    torch.cuda.synchronize()
+    timings["iteration_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    for _ in range(iters * steps):
+        g = stencil_roll(torch, g, STENCIL26)
+    r, n = spec.radius, spec.interior
+    err = 0.0
+    for rank in range(spec.nranks):
+        c = spec.coords(rank)
+        got = local[rank, r:r + n[0], r:r + n[1], r:r + n[2]]
+        ref = g[c[0] * n[0]:(c[0] + 1) * n[0], c[1] * n[1]:(c[1] + 1) * n[1],
+                c[2] * n[2]:(c[2] + 1) * n[2]]
+        if not torch.isfinite(got).all():
+            fail(f"rank {rank}: non-finite values after {iters} iterations")
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        err = max(err, (got - ref).abs().max().item())
+    timings["stencil_max_abs_err"] = err
+    print(f"[main] {iters} iterations of exchange + {steps} stencil applications match "
+          f"the roll oracle, max |err| {err:.3e}; {timings['iteration_ms']:.3f} ms/iteration")
+    counts = launch_counts()
+    zero = [k for k, v in counts.items() if v == 0]
+    if zero:
+        fail(f"kernels never launched on the main path: {zero}")
+    print(json.dumps({"launches": counts, "launches_by_mode": per_mode}))
+
+    # stencil application alone (device time)
+    timer = Timer(torch, dev)
+    from repro_torch.halo import stencil_apply
+    timings["stencil_apply_ms"] = timer.ms(lambda: stencil_apply(local, spec, valid=1), reps=5)
+    timings["stencil_iterations2_ms"] = timer.ms(
+        lambda: stencil_iterations(local, spec, steps=2), reps=5)
+    del local, g, timer
+    torch.cuda.empty_cache()
+    return counts
+
+
+def face_shapes(spec, dev):
+    """The x-, y- and z-face send and receive geometries of the full-width
+    halo (directions (0,0,1), (0,1,0), (1,0,0))."""
+    from repro_torch.comm import Communicator
+    from repro_torch.halo import make_halo_types
+    from repro_torch.kernels.geometry import plan_geometry
+
+    types = make_halo_types(spec, Communicator(device=dev))
+    faces = {}
+    for name, d in (("x", (0, 0, 1)), ("y", (0, 1, 0)), ("z", (1, 0, 0))):
+        send_ct, recv_ct = types[d]
+        faces[name] = (plan_geometry(send_ct.block), plan_geometry(recv_ct.block))
+    return faces
+
+
+def phase_timing(torch, dev, spec, check):
+    from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
+    from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
+
+    timer = Timer(torch, dev)
+    R = spec.nranks
+    words = torch.randn((R,) + spec.alloc, device=dev).view(R, -1)  # float32 state
+    state = words.view(torch.uint8)
+    rows = []
+    for face, (sg, rg) in face_shapes(spec, dev).items():
+        for kernel in KERNEL_INFO:
+            geom = sg if kernel.startswith("pack") else rg
+            w = geom.word_bytes
+            nbytes = R * geom.packed_bytes
+            packed = torch.empty((R, geom.packed_bytes), dtype=torch.uint8, device=dev)
+            strided = words.view(torch.int32).as_strided(
+                (R, geom.planes, geom.rows, geom.lanes),
+                (words.stride(0), geom.plane_rows * geom.pitch, geom.pitch, 1),
+                geom.q * geom.pitch + geom.r,
+            ) if w == 4 else None
+            if strided is None:
+                fail(f"{face} face: word {w}, expected 4-byte words")
+            pk_words = packed.view(torch.int32).view(R, geom.planes, geom.rows, geom.lanes)
+            if kernel == "pack_rows":
+                fns = (lambda: pack_rows(state, geom, packed),
+                       lambda: pack_plain(state, geom, packed),
+                       lambda: strided.contiguous())
+            elif kernel == "pack_dma":
+                fns = (lambda: pack_dma(state, geom, packed),
+                       lambda: pack_plain(state, geom, packed),
+                       lambda: strided.contiguous())
+            elif kernel == "unpack_rows":
+                fns = (lambda: unpack_rows(state, packed, geom),
+                       lambda: unpack_plain(state, packed, geom),
+                       lambda: strided.copy_(pk_words))
+            else:
+                fns = (lambda: unpack_dma(state, packed, geom),
+                       lambda: unpack_plain(state, packed, geom),
+                       lambda: strided.copy_(pk_words))
+            ms, plain_ms, library_ms = (timer.ms(f) for f in fns)
+            rows.append({
+                "kernel": kernel, "face": face, "lanes": geom.lanes, "rows": geom.rows,
+                "planes": geom.planes, "pitch": geom.pitch, "batch": R,
+                "bytes": 2 * nbytes, "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+            })
+    del words, state, timer
+    torch.cuda.empty_cache()
+    return rows
+
+
+def main() -> int:
+    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
+        print("chip_smoke: src/repro_torch is not beside this script; run it from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    from repro_torch.halo import HaloSpec
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    name = torch.cuda.get_device_name(0)
+    card = card_line()
+    print(f"[device] {name}; {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    timings = {"build_s": phase_build()}
+    spec = HaloSpec(grid=(2, 2, 2), interior=(256, 256, 256), radius=2)
+    check = KernelCheck(torch, dev)
+    phase_kernels(torch, dev, spec, check)
+    counts = phase_main(torch, dev, spec, timings)
+    faces = phase_timing(torch, dev, spec, check)
+
+    kernels = []
+    for kernel, (source, replaces) in KERNEL_INFO.items():
+        mine = [f for f in faces if f["kernel"] == kernel]
+        kernels.append({
+            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": counts[kernel], "max_abs_err": check.err[kernel],
+            "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),
+            "bound_ms": sum(f["bound_ms"] for f in mine), "bound_by": "bytes",
+            "library_ms": sum(f["library_ms"] for f in mine),
+        })
+    for f in faces:
+        print(json.dumps({"face": f, "card": card}))
+    timings["total_s"] = time.perf_counter() - t_start
+    print(json.dumps({"timings": timings, "card": card}))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,823 @@
+"""The Communicator API: pluggable datatype strategies, request-based
+transfers, and the fused neighborhood collective.
+
+This module is the single home of every strategy and mode name of the
+port, and the names are the reference's (``rows``, ``dma``, ``xla``,
+``ref``, ``auto``, ``bounding``; modes ``baseline`` and ``tempi``), so a
+decision made here compares one to one with ``repro.comm.api``:
+
+* a :class:`Strategy` bundles the §5 cost model terms (``model_pack`` /
+  ``model_unpack`` / ``wire_bytes`` -> :meth:`Strategy.plan`) with the
+  execution paths (``pack`` / ``unpack`` / ``unpack_wire`` and the leaf
+  kernels ``pack_leaf`` / ``unpack_leaf`` that
+  ``repro_torch.kernels.ops`` drives);
+* a :class:`StrategyRegistry` holds the installed strategies, and the
+  :class:`~repro_torch.comm.perfmodel.PerfModel` selects among whatever
+  is registered;
+* a :class:`Communicator` binds a transport and a model and exposes
+  MPI-shaped entry points: ``commit``, ``pack``/``unpack``,
+  ``isend``/``irecv``/``sendrecv``, and the fused
+  :meth:`Communicator.neighbor_alltoallv` — the paper's
+  ``MPI_Alltoallv`` halo transport — which packs every region at its
+  exact wire extent into one flat buffer laid out by a
+  :class:`~repro_torch.comm.wireplan.WirePlan` and hands it to the
+  transport under the plan's schedule.
+
+Buffers carry the ranks on their leading dimension (the local-mesh
+transport keeps all R ranks in one tensor), so every Communicator entry
+point moves a datatype for all ranks at once.  Unpacks write in place.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+
+from repro_torch.comm.perfmodel import (
+    H100_ANALYTIC,
+    PerfModel,
+    StrategyEstimate,
+    SystemParams,
+)
+from repro_torch.comm.transport import LocalMeshTransport
+from repro_torch.comm.wireplan import WireGroup, WirePlan, plan_wire
+from repro_torch.core.commit import CommittedType, TypeRegistry, WireSegment
+from repro_torch.core.datatypes import Datatype
+from repro_torch.core.strided_block import StridedBlock
+from repro_torch.device import resolve_device
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as refk
+from repro_torch.kernels.geometry import PackGeometry, plan_geometry
+from repro_torch.kernels.pack import pack_dma, pack_ragged, pack_rows
+from repro_torch.kernels.unpack import unpack_dma, unpack_ragged, unpack_rows
+
+__all__ = [
+    "Strategy",
+    "StrategyRegistry",
+    "default_registry",
+    "register_strategy",
+    "resolve_strategy",
+    "static_choice",
+    "Policy",
+    "ModelPolicy",
+    "BaselinePolicy",
+    "FixedPolicy",
+    "policy_for_mode",
+    "MODES",
+    "Request",
+    "SendRequest",
+    "NeighborRequest",
+    "Communicator",
+    "WirePlan",
+    "WireGroup",
+    "DEFAULT_SCHEDULE_POLICY",
+]
+
+StrategyLike = Union[str, "Strategy", None]
+
+#: the baseline's per-block copies degrade to the gather path past this
+#: many blocks (the reference's cap, kept so baseline decisions compare)
+BASELINE_BLOCK_CAP = 1024
+
+
+# ===========================================================================
+# Strategy protocol
+# ===========================================================================
+
+class Strategy:
+    """One way to move a committed datatype: cost model + execution.
+
+    Override points:
+
+    ``applicable``    can this strategy handle the type at all?
+    ``model_pack`` /  the §5 cost terms (seconds); ``plan`` assembles the
+    ``model_unpack``  full T = T_pack + T_link + T_unpack estimate
+    ``wire_bytes``    bytes this strategy puts on the wire
+    ``pack``          produce the wire payload from the user buffer
+    ``unpack``        scatter *packed member bytes* into the buffer
+    ``unpack_wire``   consume the wire payload (differs from ``unpack``
+                      only when the wire format isn't the packed bytes,
+                      e.g. :class:`Bounding`'s contiguous window)
+    ``pack_leaf`` /   per-repetition 2D/3D kernel dispatch on ``(B, n)``
+    ``unpack_leaf``   byte rows, used by ``repro_torch.kernels.ops``
+    """
+
+    name: str = "abstract"
+    #: only meaningful when bytes cross the wire (no local pack/unpack)
+    wire_only: bool = False
+    #: participates in automatic PerfModel selection
+    selectable: bool = True
+    #: measured tables never answer for more blocks than this (None =
+    #: unbounded); kept for the measurement step
+    calibration_cap: Optional[int] = None
+
+    def applicable(self, ct: CommittedType) -> bool:
+        return True
+
+    # -- §5 cost model ----------------------------------------------------
+    def model_pack(self, model: PerfModel, ct: CommittedType, incount: int) -> float:
+        raise NotImplementedError
+
+    def model_unpack(self, model: PerfModel, ct: CommittedType, incount: int) -> float:
+        sb = ct.block
+        if sb is not None and self._table_covers(sb, incount):
+            m = model.measured_unpack(self.name, sb.counts[0], ct.size * incount)
+            if m is not None:
+                return m
+        # no measured unpack table: strided writes are slower than pack
+        # (paper §6.3 observes the same pack/unpack asymmetry)
+        return 1.5 * self.model_pack(model, ct, incount)
+
+    def _table_covers(self, sb: StridedBlock, incount: int) -> bool:
+        cap = self.calibration_cap
+        return cap is None or sb.num_blocks * incount <= cap
+
+    def wire_bytes(self, ct: CommittedType, incount: int = 1) -> int:
+        return ct.packed_extent(incount)
+
+    def wire_segment(
+        self, ct: CommittedType, incount: int = 1, offset: int = 0
+    ) -> WireSegment:
+        return ct.wire_segment(
+            offset=offset, incount=incount, nbytes=self.wire_bytes(ct, incount)
+        )
+
+    def plan(
+        self, model: PerfModel, ct: CommittedType, incount: int, hops: int = 1
+    ) -> StrategyEstimate:
+        """Full strategy estimate (paper Eqs. 1-3 analogue), priced on
+        the exact wire-segment extent."""
+        seg = self.wire_segment(ct, incount)
+        return StrategyEstimate(
+            self.name,
+            self.model_pack(model, ct, incount),
+            model.t_link(seg.nbytes, hops),
+            self.model_unpack(model, ct, incount),
+            wire_bytes=seg.nbytes,
+        )
+
+    # -- execution --------------------------------------------------------
+    def pack(self, buf, ct, incount=1, *, out=None, batched=False):
+        return ops.pack(buf, ct, incount, self, out=out, batched=batched)
+
+    def unpack(self, buf, packed, ct, incount=1, *, batched=False):
+        return ops.unpack(buf, packed, ct, incount, self, batched=batched)
+
+    def unpack_wire(self, comm: "Communicator", dst, wire, recv_ct,
+                    send_ct=None, incount=1):
+        """Consume received wire bytes (``(R, n)``) into ``dst`` in
+        place.  Default: the wire carries packed member bytes; scatter
+        them with the strategy the communicator selects for the receive
+        type."""
+        u = comm.select(recv_ct, incount, wire=False)
+        return u.unpack(dst, wire, recv_ct, incount, batched=True)
+
+    def pack_leaf(self, b, sb: StridedBlock, geom: Optional[PackGeometry], out):
+        raise TypeError(f"strategy {self.name!r} has no local pack kernel")
+
+    def unpack_leaf(self, b, packed, sb: StridedBlock, geom: Optional[PackGeometry]):
+        raise TypeError(f"strategy {self.name!r} has no local unpack kernel")
+
+    def __repr__(self) -> str:  # pragma: no cover - debugging aid
+        return f"<Strategy {self.name}>"
+
+
+def _analytic_prologue(model, strategy, ct, incount):
+    """Shared cost-model prologue: generic-type fallback and measured
+    pack-table lookup.  Returns (params, size, block, measured|None)."""
+    p = model.params
+    size = ct.size * incount
+    sb = ct.block
+    if sb is None:
+        return p, size, None, p.kernel_launch + 2 * size / p.hbm_bw
+    if not strategy._table_covers(sb, incount):
+        return p, size, sb, None
+    return p, size, sb, model.measured(strategy.name, sb.counts[0], size)
+
+
+class Rows(Strategy):
+    """SIMT row kernel, then one contiguous send ≙ the paper's "device"
+    method."""
+
+    name = "rows"
+
+    def applicable(self, ct):
+        return ct.block is not None and plan_geometry(ct.block) is not None
+
+    def model_pack(self, model, ct, incount):
+        p, size, sb, m = _analytic_prologue(model, self, ct, incount)
+        if sb is None or m is not None:
+            return m
+        geom = plan_geometry(sb)
+        over = geom.overfetch if geom else 1.0
+        touched = size * over + size  # pitched read + contiguous write
+        return p.kernel_launch + touched / p.hbm_bw
+
+    def pack_leaf(self, b, sb, geom, out):
+        if geom is None:
+            return refk.pack_ref(b, sb, out=out)
+        return ops.run_pack_kernel(b, sb, geom, pack_rows, out)
+
+    def unpack_leaf(self, b, packed, sb, geom):
+        if geom is None:
+            return refk.unpack_ref(b, packed, sb)
+        # interleaved planes: the planes' rows overlap and must land in
+        # order, which the staged kernel does (the reference's rule)
+        kernel = unpack_dma if geom.interleaved else unpack_rows
+        return ops.run_unpack_kernel(b, packed, sb, geom, kernel)
+
+
+class Dma(Strategy):
+    """Staged-tile kernel ≙ the paper's "staged" method."""
+
+    name = "dma"
+
+    def applicable(self, ct):
+        return ct.block is not None and plan_geometry(ct.block) is not None
+
+    def model_pack(self, model, ct, incount):
+        p, size, sb, m = _analytic_prologue(model, self, ct, incount)
+        if sb is None or m is not None:
+            return m
+        nblocks = sb.num_blocks * incount
+        chunks = max(nblocks // 128, 1)  # tiles per ~128-row chunk
+        return p.kernel_launch + chunks * p.dma_setup + 2 * size / p.hbm_bw
+
+    def pack_leaf(self, b, sb, geom, out):
+        if geom is None:
+            return refk.pack_ref(b, sb, out=out)
+        return ops.run_pack_kernel(b, sb, geom, pack_dma, out)
+
+    def unpack_leaf(self, b, packed, sb, geom):
+        if geom is None:
+            return refk.unpack_ref(b, packed, sb)
+        return ops.run_unpack_kernel(b, packed, sb, geom, unpack_dma)
+
+
+class XlaBlocks(Strategy):
+    """One copy per contiguous block — the naive CUDA-aware-MPI baseline
+    every implementation shares (the reference's ``xla`` strategy)."""
+
+    name = "xla"
+    calibration_cap = 512
+
+    def model_pack(self, model, ct, incount):
+        p, size, sb, m = _analytic_prologue(model, self, ct, incount)
+        if sb is None or m is not None:
+            return m
+        nblocks = sb.num_blocks * incount
+        return nblocks * p.xla_copy_overhead + 2 * size / p.hbm_bw
+
+    def pack_leaf(self, b, sb, geom, out):
+        if geom is None:
+            return refk.pack_ref(b, sb, out=out)
+        return refk.pack_xla_blocks(b, sb, out=out)
+
+    def unpack_leaf(self, b, packed, sb, geom):
+        if geom is None:
+            return refk.unpack_ref(b, packed, sb)
+        return refk.unpack_xla_blocks(b, packed, sb)
+
+
+class Gather(Strategy):
+    """Oracle gather/scatter (offset-list walk).  Correct for every
+    type; never auto-selected."""
+
+    name = "ref"
+    selectable = False
+
+    def model_pack(self, model, ct, incount):
+        p, size, sb, m = _analytic_prologue(model, self, ct, incount)
+        if sb is None or m is not None:
+            return m
+        return sb.num_blocks * incount * p.xla_copy_overhead + 2 * size / p.hbm_bw
+
+    def pack_leaf(self, b, sb, geom, out):
+        return refk.pack_ref(b, sb, out=out)
+
+    def unpack_leaf(self, b, packed, sb, geom):
+        return refk.unpack_ref(b, packed, sb)
+
+
+class Auto(Strategy):
+    """Static geometry heuristic used when no model drives the choice:
+    defers to :func:`static_choice` per leaf."""
+
+    name = "auto"
+    selectable = False
+
+    def model_pack(self, model, ct, incount):
+        geom = plan_geometry(ct.block) if ct.block is not None else None
+        return static_choice(geom).model_pack(model, ct, incount)
+
+    def pack_leaf(self, b, sb, geom, out):
+        return static_choice(geom).pack_leaf(b, sb, geom, out)
+
+    def unpack_leaf(self, b, packed, sb, geom):
+        return static_choice(geom).unpack_leaf(b, packed, sb, geom)
+
+
+class Bounding(Strategy):
+    """The paper's "one-shot" analogue: ship the contiguous bounding
+    window of the object with no sender-side pack; the receiver extracts
+    the member bytes.  Wins when the object is dense in its extent."""
+
+    name = "bounding"
+    wire_only = True
+
+    def applicable(self, ct):
+        return ct.block is not None
+
+    def model_pack(self, model, ct, incount):
+        return 0.0
+
+    def model_unpack(self, model, ct, incount):
+        return 0.0  # extraction is priced in plan(), not here
+
+    def wire_bytes(self, ct, incount=1):
+        sb = ct.block
+        if sb is None:
+            return ct.extent * incount
+        return sb.extent + (incount - 1) * ct.extent
+
+    def plan(self, model, ct, incount, hops=1):
+        sb = ct.block
+        if sb is not None and sb.size == sb.extent:
+            t_extract = 0.0  # fully dense: the wire bytes ARE the data
+        else:
+            # receiver extracts the member bytes from the window and
+            # splices them into the destination (two kernels)
+            t_extract = ROWS.model_pack(model, ct, incount) + ROWS.model_unpack(
+                model, ct, incount
+            )
+        nbytes = self.wire_bytes(ct, incount)
+        return StrategyEstimate(
+            self.name, 0.0, model.t_link(nbytes, hops), t_extract,
+            wire_bytes=nbytes,
+        )
+
+    def pack(self, buf, ct, incount=1, *, out=None, batched=False):
+        sb = ct.block
+        if sb is None:
+            raise ValueError(f"{self.name} needs a strided block")
+        b = ops.batch_bytes(buf, batched)
+        window = b[:, sb.start : sb.start + self.wire_bytes(ct, incount)]
+        if out is None:
+            return window.clone() if batched else window[0].clone()
+        ops._rows_out(out, b.shape[0], window.shape[1]).copy_(window)
+        return out
+
+    def unpack_wire(self, comm, dst, wire, recv_ct, send_ct=None, incount=1):
+        # extract member bytes from the received window: same geometry
+        # as the send type, rebased to start 0
+        send_ct = send_ct or recv_ct
+        sb = send_ct.block
+        rb = StridedBlock(0, sb.counts, sb.strides)
+        packed = torch.empty((wire.shape[0], sb.size * incount),
+                             dtype=torch.uint8, device=wire.device)
+        for r in range(incount):
+            start = r * send_ct.extent
+            ops.pack_block(
+                wire[:, start : start + sb.extent], rb, batched=True,
+                out=packed[:, r * sb.size : (r + 1) * sb.size],
+            )
+        u = comm.select(recv_ct, incount, wire=False)
+        return u.unpack(dst, packed, recv_ct, incount, batched=True)
+
+    def unpack(self, buf, packed, ct, incount=1, *, batched=False):
+        raise TypeError(
+            f"{self.name} has no local unpack; use unpack_wire on the "
+            "received window"
+        )
+
+
+# ===========================================================================
+# registry
+# ===========================================================================
+
+class StrategyRegistry:
+    """Installed strategies, by name."""
+
+    def __init__(self, strategies: Sequence[Strategy] = ()):
+        self._by_name: Dict[str, Strategy] = {}
+        self._version = 0  # bumped on mutation; invalidates model caches
+        for s in strategies:
+            self.register(s)
+
+    @property
+    def version(self) -> int:
+        return self._version
+
+    def register(self, strategy: Union[Strategy, type]) -> Strategy:
+        if isinstance(strategy, type):
+            strategy = strategy()
+        if not strategy.name or strategy.name == Strategy.name:
+            raise ValueError("strategy needs a distinct .name")
+        if strategy.name in self._by_name:
+            raise ValueError(f"strategy {strategy.name!r} already registered")
+        self._by_name[strategy.name] = strategy
+        self._version += 1
+        return strategy
+
+    def get(self, name: StrategyLike) -> Strategy:
+        if isinstance(name, Strategy):
+            return name
+        if name is None:
+            name = Auto.name
+        s = self._by_name.get(name)
+        if s is None:
+            raise ValueError(f"unknown strategy {name!r}; registered: {self.names()}")
+        return s
+
+    def names(self) -> Tuple[str, ...]:
+        return tuple(self._by_name)
+
+    def selectable(self) -> Tuple[Strategy, ...]:
+        return tuple(s for s in self._by_name.values() if s.selectable)
+
+    def __iter__(self):
+        return iter(self._by_name.values())
+
+    def __contains__(self, name: object) -> bool:
+        return name in self._by_name
+
+    def __len__(self) -> int:
+        return len(self._by_name)
+
+
+ROWS = Rows()
+DMA = Dma()
+XLA = XlaBlocks()
+REF = Gather()
+AUTO = Auto()
+BOUNDING = Bounding()
+
+_DEFAULT_REGISTRY = StrategyRegistry((ROWS, DMA, XLA, REF, AUTO, BOUNDING))
+
+
+def default_registry() -> StrategyRegistry:
+    """The process-global strategy registry."""
+    return _DEFAULT_REGISTRY
+
+
+def register_strategy(strategy: Union[Strategy, type]) -> Strategy:
+    """Install a strategy plugin into the default registry."""
+    return _DEFAULT_REGISTRY.register(strategy)
+
+
+def resolve_strategy(
+    strategy: StrategyLike, registry: Optional[StrategyRegistry] = None
+) -> Strategy:
+    """Name -> Strategy (None resolves to the static-auto strategy)."""
+    return (registry or _DEFAULT_REGISTRY).get(strategy)
+
+
+def static_choice(geom: Optional[PackGeometry]) -> Strategy:
+    """Geometry-only kernel choice used by :class:`Auto`: the row kernel
+    while a full-pitch read would over-fetch at most 4x, else dma (the
+    reference's crossover, kept so the choices compare)."""
+    if geom is None:
+        return REF
+    return ROWS if geom.overfetch <= 4.0 else DMA
+
+
+# ===========================================================================
+# policies (strategy-selection behaviours)
+# ===========================================================================
+
+class Policy:
+    """Decides the strategy per (committed type, incount, wire?) call."""
+
+    def select(self, comm: "Communicator", ct: CommittedType, incount: int,
+               wire: bool) -> Strategy:
+        raise NotImplementedError
+
+
+class ModelPolicy(Policy):
+    """Performance-model selection over the registered strategies (§5) —
+    the paper's TEMPI behaviour."""
+
+    def select(self, comm, ct, incount, wire):
+        est = comm.model.select(ct, incount, allow_bounding=wire,
+                                registry=comm.strategies)
+        return comm.strategies.get(est.strategy)
+
+
+class BaselinePolicy(Policy):
+    """Naive per-block copies, degrading to the gather path past the
+    block cap."""
+
+    def __init__(self, block_cap: int = BASELINE_BLOCK_CAP):
+        self.block_cap = block_cap
+
+    def select(self, comm, ct, incount, wire):
+        if ct.block is not None and ct.block.num_blocks * incount > self.block_cap:
+            return comm.strategies.get(REF.name)
+        return comm.strategies.get(XLA.name)
+
+
+class FixedPolicy(Policy):
+    """Force one strategy.  Wire-only strategies (bounding) cannot serve
+    local pack/unpack calls; those fall back to the static-auto choice."""
+
+    def __init__(self, strategy: StrategyLike):
+        self.strategy = resolve_strategy(strategy)
+
+    def select(self, comm, ct, incount, wire):
+        s = comm.strategies.get(self.strategy)
+        if s.wire_only and not wire:
+            return comm.strategies.get(AUTO.name)
+        return s
+
+
+#: mode names (CLI flags and the benchmark's comparison)
+MODES = ("baseline", "tempi", Rows.name, Dma.name, XlaBlocks.name, Gather.name)
+
+
+def policy_for_mode(mode: str) -> Policy:
+    """Map a mode string to a Policy (ValueError on unknown)."""
+    if mode == "baseline":
+        return BaselinePolicy()
+    if mode == "tempi":
+        return ModelPolicy()
+    if mode in MODES:
+        return FixedPolicy(mode)
+    raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+
+
+# ===========================================================================
+# requests
+# ===========================================================================
+
+_PENDING = object()
+
+
+class Request:
+    """Handle to a pending communication: the wire op was issued when
+    the request was made; :meth:`wait` runs the receive-side unpack."""
+
+    def __init__(self, thunk: Optional[Callable[[], torch.Tensor]] = None,
+                 value=_PENDING):
+        self._thunk = thunk
+        self._value = value
+
+    @property
+    def completed(self) -> bool:
+        return self._value is not _PENDING
+
+    def wait(self) -> torch.Tensor:
+        if self._value is _PENDING:
+            self._value = self._thunk()
+            self._thunk = None
+        return self._value
+
+
+class SendRequest(Request):
+    """An issued wire transfer: the received ``(R, n)`` payload plus what
+    ``irecv`` needs to unpack it; ``segment`` is the exact wire segment
+    the payload occupied."""
+
+    def __init__(self, wire: torch.Tensor, strategy: Strategy,
+                 send_ct: CommittedType, incount: int,
+                 segment: Optional[WireSegment] = None):
+        super().__init__(value=wire)
+        self.strategy = strategy
+        self.send_ct = send_ct
+        self.incount = incount
+        self.segment = segment
+
+
+class NeighborRequest(Request):
+    """The request :meth:`Communicator.ineighbor_alltoallv` returns: one
+    received payload per delta class, each with exactly the unpacks that
+    consume it.  :meth:`wait` drains every class into the buffer (in
+    place, in plan order) and returns it."""
+
+    def __init__(self, buf: torch.Tensor, classes, plan: WirePlan):
+        super().__init__()
+        self._buf = buf
+        self.classes = tuple(classes)  # (payload, unpack(dst, payload))
+        self.plan = plan
+        self.drained = 0
+
+    def wait(self) -> torch.Tensor:
+        while self.drained < len(self.classes):
+            payload, unpack = self.classes[self.drained]
+            unpack(self._buf, payload)
+            self.drained += 1
+        self._value = self._buf
+        return self._buf
+
+
+# ===========================================================================
+# the Communicator
+# ===========================================================================
+
+#: how :meth:`Communicator.plan_neighbor` picks a wire schedule when the
+#: caller does not say: ``"model"`` prices the candidates; ``"exact"`` is
+#: the byte-exact ladder
+DEFAULT_SCHEDULE_POLICY = "model"
+
+
+class Communicator:
+    """Datatype-aware communication endpoint.
+
+    Parameters
+    ----------
+    params: system parameter table for the performance model.
+    registry: datatype commit cache (``MPI_Type_commit`` analogue).
+    strategies: strategy registry; defaults to the process-global one.
+    policy: strategy-selection behaviour; defaults to model selection.
+    transport: what moves the wire bytes; defaults to the local mesh on
+        ``device``.
+    device: where the buffers live: ``"cuda"`` (the default; raises when
+        no card is present) or ``"cpu"``.
+    """
+
+    def __init__(
+        self,
+        params: SystemParams = H100_ANALYTIC,
+        registry: Optional[TypeRegistry] = None,
+        strategies: Optional[StrategyRegistry] = None,
+        policy: Optional[Policy] = None,
+        transport=None,
+        device="cuda",
+    ):
+        self.device = resolve_device(device)
+        self.transport = transport or LocalMeshTransport(self.device)
+        self.registry = registry or TypeRegistry()
+        self.strategies = strategies or default_registry()
+        self.model = PerfModel(params)
+        self.policy = policy or ModelPolicy()
+
+    @property
+    def wire_ops(self) -> int:
+        """Wire ops the transport issued for this communicator."""
+        return self.transport.ops
+
+    @property
+    def wire_payload_bytes(self) -> int:
+        """Bytes each rank put on the wire, as the transport counted."""
+        return self.transport.bytes
+
+    def _check(self, *bufs: torch.Tensor) -> None:
+        for b in bufs:
+            if b.device != self.device:
+                raise ValueError(f"buffer on {b.device}; communicator on {self.device}")
+
+    # -- commit / selection ---------------------------------------------
+    def commit(self, dt: Datatype) -> CommittedType:
+        return self.registry.commit(dt)
+
+    def select(self, ct: CommittedType, incount: int = 1, wire: bool = True) -> Strategy:
+        """The strategy the active policy picks for this call site."""
+        return self.policy.select(self, ct, incount, wire)
+
+    # -- MPI_Pack / MPI_Unpack on every rank of the buffer ----------------
+    def pack(self, buf: torch.Tensor, ct: CommittedType, incount: int = 1) -> torch.Tensor:
+        self._check(buf)
+        return self.select(ct, incount, wire=False).pack(buf, ct, incount, batched=True)
+
+    def unpack(self, buf: torch.Tensor, packed: torch.Tensor, ct: CommittedType,
+               incount: int = 1) -> torch.Tensor:
+        self._check(buf, packed)
+        return self.select(ct, incount, wire=False).unpack(
+            buf, packed, ct, incount, batched=True
+        )
+
+    # -- point-to-point (requests; paper §6.3) ----------------------------
+    def isend(self, buf: torch.Tensor, ct: CommittedType,
+              perm: Sequence[Tuple[int, int]], incount: int = 1) -> SendRequest:
+        """Pack ``ct`` out of every rank of ``buf`` and send along
+        ``perm`` now; the request carries the received payload."""
+        self._check(buf)
+        s = self.select(ct, incount, wire=True)
+        seg = s.wire_segment(ct, incount)
+        payload = s.pack(buf, ct, incount, batched=True)
+        wire = self.transport.permute(payload, perm)
+        return SendRequest(wire, s, ct, incount, segment=seg)
+
+    def irecv(self, buf: torch.Tensor, ct: CommittedType, send_req: SendRequest,
+              incount: Optional[int] = None) -> Request:
+        """Bind a destination buffer + receive type to an issued send;
+        ``wait()`` unpacks into ``buf`` in place."""
+        inc = send_req.incount if incount is None else incount
+        return Request(
+            thunk=lambda: send_req.strategy.unpack_wire(
+                self, buf, send_req.wait(), ct, send_req.send_ct, inc
+            )
+        )
+
+    def sendrecv(self, src_buf, dst_buf, send_ct, perm, recv_ct=None, incount=1):
+        """Blocking pack -> send -> unpack; returns ``dst_buf``, updated
+        in place."""
+        req = self.isend(src_buf, send_ct, perm, incount)
+        return self.irecv(dst_buf, recv_ct or send_ct, req).wait()
+
+    # -- fused neighborhood alltoallv (the paper's MPI_Alltoallv) ----------
+    def plan_neighbor(
+        self,
+        send_cts: Sequence[CommittedType],
+        perms: Sequence[Sequence[Tuple[int, int]]],
+        strategies: Optional[Sequence[Strategy]] = None,
+        uniform_waste_tolerance: float = 0.0,
+        schedule_policy: Optional[str] = None,
+    ) -> Tuple[Tuple[Strategy, ...], WirePlan]:
+        """Select a strategy per transfer and lay the exchange out as an
+        exact-byte :class:`WirePlan`.  Call once at setup time and hand
+        the result to :meth:`ineighbor_alltoallv`.
+
+        ``schedule_policy``: ``"model"`` (default) lets the performance
+        model price the feasible schedules; ``"exact"`` keeps the
+        byte-exact ladder.  Whether a native ragged collective exists is
+        the transport's answer (``transport.native_ragged``)."""
+        if schedule_policy is None:
+            schedule_policy = DEFAULT_SCHEDULE_POLICY
+        if schedule_policy not in ("exact", "model"):
+            raise ValueError(
+                f"unknown schedule_policy {schedule_policy!r}; "
+                "expected 'exact' or 'model'"
+            )
+        if strategies is not None:
+            strats = tuple(strategies)
+        else:
+            strats = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
+        segs = [s.wire_segment(ct) for s, ct in zip(strats, send_cts)]
+        native = self.transport.native_ragged
+        plan = plan_wire(
+            tuple(s.nbytes for s in segs),
+            tuple(tuple(map(tuple, p)) for p in perms),
+            fingerprints=tuple(s.fingerprint for s in segs),
+            uniform_waste_tolerance=uniform_waste_tolerance,
+            native=native,
+        )
+        if schedule_policy == "model":
+            plan, _ = self.model.choose_wire_schedule(plan, native)
+        return strats, plan
+
+    def ineighbor_alltoallv(
+        self,
+        buf: torch.Tensor,
+        send_cts: Sequence[CommittedType],
+        recv_cts: Sequence[CommittedType],
+        perms: Sequence[Sequence[Tuple[int, int]]],
+        plan: Optional[WirePlan] = None,
+        strategies: Optional[Sequence[Strategy]] = None,
+    ) -> Request:
+        """Fused neighborhood exchange: transfer ``i`` packs
+        ``send_cts[i]`` out of every rank of ``buf``, ships it along
+        ``perms[i]``, and unpacks into ``recv_cts[i]`` of the same
+        buffer.  Every region is packed at its exact wire extent straight
+        into one flat buffer laid out by the plan, and the transport
+        moves exactly those bytes.  The wire is issued now; ``wait()``
+        runs the unpacks (in place into ``buf``)."""
+        if not (len(send_cts) == len(recv_cts) == len(perms)):
+            raise ValueError("send_cts, recv_cts, perms must align")
+        self._check(buf)
+        n = len(send_cts)
+        if n == 0:
+            return Request(value=buf)
+        if strategies is None:
+            strategies = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
+        if plan is None:
+            _, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
+        elif len(plan.segments) != n:
+            raise ValueError(
+                f"wire plan describes {len(plan.segments)} transfers, got {n} send types"
+            )
+
+        def leaf_packer(strat: Strategy, ct: CommittedType):
+            return lambda b, out: strat.pack(b, ct, out=out, batched=True)
+
+        wire = pack_ragged(
+            buf,
+            [(plan.segments[i].offset, plan.segments[i].nbytes,
+              leaf_packer(strategies[i], send_cts[i])) for i in range(n)],
+            plan.wire_bytes,
+        )
+        group_rows = self.transport.exchange(wire, plan)
+
+        def leaf_unpacker(strat, recv_ct, send_ct):
+            return lambda dst, part: strat.unpack_wire(self, dst, part, recv_ct, send_ct, 1)
+
+        def class_unpacker(grp: WireGroup):
+            leaves = [
+                (off, plan.segments[i].nbytes,
+                 leaf_unpacker(strategies[i], recv_cts[i], send_cts[i]))
+                for i, off in zip(grp.transfers, grp.offsets)
+            ]
+            return lambda dst, payload: unpack_ragged(dst, payload, leaves)
+
+        classes = [
+            (group_rows[g], class_unpacker(grp)) for g, grp in enumerate(plan.groups)
+        ]
+        return NeighborRequest(buf, classes, plan)
+
+    def neighbor_alltoallv(self, buf, send_cts, recv_cts, perms, plan=None,
+                           strategies=None) -> torch.Tensor:
+        """Blocking :meth:`ineighbor_alltoallv`; returns ``buf``, updated
+        in place."""
+        return self.ineighbor_alltoallv(
+            buf, send_cts, recv_cts, perms, plan, strategies
+        ).wait()

@@ -1,0 +1,121 @@
+"""Wire transports: what puts packed bytes on the link.
+
+The reference moves bytes with ``lax.ppermute`` / ``all_to_all`` /
+``ragged_all_to_all`` inside ``shard_map``.  A transport is the port's
+counterpart: it takes the flat ``(R, total)`` wire buffer of a
+:class:`~repro_torch.comm.wireplan.WirePlan` and returns, per delta
+class, the ``(R, nbytes)`` payload every rank received — row ``r`` is
+what rank ``r`` got.  It counts the wire ops and the bytes it issues
+(per rank, the unit of ``WirePlan.wire_bytes``), so byte accounting is
+what the transport did, not what the plan promised.
+
+This slice has one backend, :class:`LocalMeshTransport`: all R ranks
+live in one process on one device as the leading dimension of one
+tensor, and every wire op is an on-device copy.  That runs the 8-rank
+halo exchange on one card (and on the CPU in the tests).  A backend with
+one process per rank (``torch.distributed``, NCCL or gloo) implements the
+same two methods on the rank's own row; it is not in this slice.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence, Tuple
+
+import torch
+
+__all__ = ["LocalMeshTransport"]
+
+
+class LocalMeshTransport:
+    """R ranks as the leading dimension of one tensor on one device.
+
+    ``native_ragged`` is False: on the local mesh a ragged all-to-all
+    costs the same copies as the grouped schedule, so the exact schedule
+    ladder is not steered to it (it still runs a plan rescheduled to
+    ``ragged`` explicitly).
+    """
+
+    native_ragged = False
+
+    def __init__(self, device: torch.device):
+        self.device = torch.device(device)
+        self.ops = 0    # wire ops issued
+        self.bytes = 0  # bytes each rank put on the wire
+        self._ragged_index: Tuple = (None, None)
+
+    def _count(self, nbytes: int) -> None:
+        self.ops += 1
+        self.bytes += nbytes
+
+    def _rows(self, table, device) -> torch.Tensor:
+        return torch.as_tensor(table, dtype=torch.long, device=device)
+
+    def permute(self, payload: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
+        """One permutation send: rank ``src`` sends its row to ``dst``
+        for every edge of ``perm``.  Returns the received ``(R, n)``."""
+        src = [0] * payload.shape[0]
+        for s, d in perm:
+            src[d] = s
+        self._count(payload.shape[1])
+        return payload.index_select(0, self._rows(src, payload.device))
+
+    def exchange(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:
+        """Put ``wire`` (``(R, plan.wire_bytes)`` uint8) on the link with
+        the plan's schedule; returns one received payload per delta
+        class (exact ``nbytes`` wide, or the padded uniform row)."""
+        sched = plan.schedule
+        if sched == "grouped":
+            out = []
+            for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
+                src = self._rows([row[g] for row in plan.recv_rows], wire.device)
+                self._count(grp.nbytes)
+                out.append(wire[:, goff : goff + grp.nbytes].index_select(0, src))
+            return out
+        if sched == "uniform":
+            return self._uniform(wire, plan)
+        if sched == "ragged":
+            return self._ragged(wire, plan)
+        if sched == "varlen":
+            raise NotImplementedError(
+                "the varlen schedule is not ported yet (ROADMAP Queue 1 step 9)"
+            )
+        if sched == "tiered":
+            raise NotImplementedError(
+                "the tiered schedule is not ported yet (ROADMAP Queue 1 step 10)"
+            )
+        raise ValueError(f"unknown wire schedule {sched!r}")
+
+    def _uniform(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:
+        # destination-ordered rows padded to seg_bytes, plus the zero
+        # dummy row, then one all-to-all: a transpose of (R, R, seg)
+        R, G, seg = plan.nranks, plan.ngroups, plan.seg_bytes
+        stacked = torch.zeros((R, G + 1, seg), dtype=torch.uint8, device=wire.device)
+        for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
+            stacked[:, g, : grp.nbytes] = wire[:, goff : goff + grp.nbytes]
+        ranks = torch.arange(R, device=wire.device).view(-1, 1)
+        sendbuf = stacked[ranks, self._rows(plan.send_rows, wire.device)]
+        got = sendbuf.transpose(0, 1).contiguous()
+        self._count(R * seg)
+        by_group = got[ranks, self._rows(plan.recv_rows, wire.device)]
+        return [by_group[:, g] for g in range(G)]
+
+    def _ragged(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:
+        # one gather of exactly the plan's bytes: byte j of rank r comes
+        # from the rank that sends j's delta class to r.  The index holds
+        # 8 bytes per wire byte, so this suits the small meshes where a
+        # plan is rescheduled to ragged on purpose; it is kept per plan.
+        key, index = self._ragged_index
+        if key != (plan.fingerprint, str(wire.device)):
+            total = plan.wire_bytes
+            src = torch.empty((plan.nranks, total), dtype=torch.long)
+            for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
+                for r in range(plan.nranks):
+                    src[r, goff : goff + grp.nbytes] = plan.recv_rows[r][g]
+            index = (src * total + torch.arange(total)).to(wire.device)
+            self._ragged_index = ((plan.fingerprint, str(wire.device)), index)
+        got = wire.reshape(-1)[index.reshape(-1)].view(plan.nranks, -1)
+        self._count(plan.wire_bytes)
+        return [
+            got[:, goff : goff + grp.nbytes]
+            for goff, grp in zip(plan.group_offsets, plan.groups)
+        ]

@@ -1,0 +1,50 @@
+"""repro_torch.kernels — hand-written Hopper pack/unpack kernels for
+canonical StridedBlocks (paper §3.3), with ops.py wrappers and ref.py
+oracles.  The kernels are built from ``csrc/`` at first use
+(:mod:`repro_torch.kernels.build`)."""
+
+# import the kernel submodules BEFORE re-exporting ops' pack/unpack
+# functions: `repro_torch.kernels.pack`/`.unpack` are also module names,
+# and a first-time submodule import would otherwise clobber the function
+# bindings on the package.
+from repro_torch.kernels import pack as _pack_kernels
+from repro_torch.kernels import unpack as _unpack_kernels
+from repro_torch.kernels.geometry import PackGeometry, plan_geometry
+from repro_torch.kernels.ops import (
+    byte_view,
+    pack,
+    pack_block,
+    unpack,
+)
+
+#: every kernel wrapper of the package, by name; each counts its
+#: launches in ``.launches``
+KERNELS = {
+    "pack_rows": _pack_kernels.pack_rows,
+    "pack_dma": _pack_kernels.pack_dma,
+    "unpack_rows": _unpack_kernels.unpack_rows,
+    "unpack_dma": _unpack_kernels.unpack_dma,
+}
+
+
+def launch_counts() -> dict:
+    """Kernel launches since the last :func:`reset_launch_counts`."""
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+__all__ = [
+    "KERNELS",
+    "PackGeometry",
+    "plan_geometry",
+    "byte_view",
+    "launch_counts",
+    "pack",
+    "pack_block",
+    "reset_launch_counts",
+    "unpack",
+]

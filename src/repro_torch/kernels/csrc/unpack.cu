@@ -1,0 +1,166 @@
+// Strided unpack kernels for Hopper (sm_90a), loaded with ctypes from
+// repro_torch/kernels/unpack.py.  See common.cuh for the addressing scheme.
+// Both write in place into the destination buffer and touch only block
+// bytes: no read-modify-write of whole rows, no padding copy, nothing past
+// the last block (the ragged tail of the buffer is real data).
+//
+// tempi_unpack_rows replaces the Pallas TPU kernel `unpack_rows` /
+// `_unpack_rows_kernel` (src/repro/kernels/unpack.py), which fetched whole
+// pitch rows, spliced the packed lanes in VMEM and wrote the rows back
+// (input_output_aliases).  Here it is the SIMT inverse of pack_rows: one
+// thread per packed W-byte word, flattened (plane, row, lane) index on
+// gridDim.x, batch on gridDim.y, 32-bit index arithmetic where the offsets
+// fit.  Bound: packed bytes read once plus block bytes written once, at
+// HBM bandwidth; the reads are coalesced, the writes coalesced along a
+// block's lanes.  Like the TPU kernel it takes only planes whose rows are
+// disjoint (the Python wrapper refuses the others).
+//
+// tempi_unpack_dma replaces `unpack_dma` / `_unpack_dma_kernel` (same
+// file), which copied a packed row-chunk into VMEM and issued one strided
+// DMA into the destination window.  Here each thread block stages one
+// packed `chunk x tile_lanes` tile into shared memory with cp.async
+// (W = 4; plain loads for W = 1, 2), waits, then scatters it into its
+// strided window.  Same bound.  It also takes planes that share rows (a
+// self-overlapping type), where the TPU's sequential grid lets the last
+// plane win.  Thread blocks run in no order here, so instead each word is
+// written only by the last plane that covers it: row i of plane p is
+// overwritten by plane p+1 exactly when p+1 < planes and
+// i >= plane_rows, and such words are skipped.  One launch, no races, the
+// reference's bytes.
+
+#include "common.cuh"
+
+namespace tempi {
+
+template <typename T, typename I>
+__global__ void unpack_rows_kernel(unsigned char* __restrict__ dst,
+                                   long long dst_bstride,
+                                   const unsigned char* __restrict__ packed,
+                                   long long packed_bstride, I lanes, I rows,
+                                   I total, I pitch, I base, I plane_stride) {
+  T* d = reinterpret_cast<T*>(dst + blockIdx.y * dst_bstride);
+  const T* pk = reinterpret_cast<const T*>(packed + blockIdx.y * packed_bstride);
+  const I step = static_cast<I>(gridDim.x) * blockDim.x;
+  for (I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
+       t += step) {
+    const I pi = t / lanes;
+    const I l = t - pi * lanes;
+    const I p = pi / rows;
+    const I i = pi - p * rows;
+    d[base + p * plane_stride + i * pitch + l] = pk[t];
+  }
+}
+
+template <typename T>
+__global__ void unpack_dma_kernel(unsigned char* __restrict__ dst,
+                                  long long dst_bstride,
+                                  const unsigned char* __restrict__ packed,
+                                  long long packed_bstride, long long lanes,
+                                  long long rows, long long planes,
+                                  long long pitch, long long base,
+                                  long long plane_stride, long long plane_rows,
+                                  int tile_lanes, int chunk, long long n_ltiles,
+                                  long long n_rtiles) {
+  __shared__ __align__(16) T tile[kTileBytes / sizeof(T)];
+  T* d = reinterpret_cast<T*>(dst + blockIdx.y * dst_bstride);
+  const T* pk = reinterpret_cast<const T*>(packed + blockIdx.y * packed_bstride);
+
+  const long long t = blockIdx.x;
+  const long long lt = t % n_ltiles;
+  const long long rt = (t / n_ltiles) % n_rtiles;
+  const long long p = t / (n_ltiles * n_rtiles);
+  const long long l0 = lt * tile_lanes;
+  const long long i0 = rt * chunk;
+  const int tl = static_cast<int>(lanes - l0 < tile_lanes ? lanes - l0 : tile_lanes);
+  const int nr = static_cast<int>(rows - i0 < chunk ? rows - i0 : chunk);
+  const int n = tl * nr;
+  // rows [0, live) of plane p are final; later planes overwrite the rest
+  const long long live = (p + 1 < planes && plane_rows < rows) ? plane_rows : rows;
+  if (i0 >= live) return;
+
+  const T* g = pk + (p * rows + i0) * lanes + l0;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int ii = k / tl;
+    const int ll = k - ii * tl;
+    copy_to_shared(&tile[k], g + ii * lanes + ll);
+  }
+  copy_wait();
+  __syncthreads();
+
+  T* w = d + base + p * plane_stride + i0 * pitch + l0;
+  for (int k = threadIdx.x; k < n; k += blockDim.x) {
+    const int ii = k / tl;
+    const int ll = k - ii * tl;
+    if (i0 + ii < live) w[ii * pitch + ll] = tile[k];
+  }
+}
+
+template <typename T>
+int launch_unpack_rows(void* dst, long long dst_bstride, const void* packed,
+                       long long packed_bstride, int batch, long long lanes,
+                       long long rows, long long planes, long long pitch,
+                       long long base, long long plane_stride,
+                       cudaStream_t stream) {
+  const long long total = planes * rows * lanes;
+  const long long blocks = simt_blocks(total);
+  if (bad_launch(batch, blocks)) return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
+  auto* d = static_cast<unsigned char*>(dst);
+  const auto* pk = static_cast<const unsigned char*>(packed);
+  if (fits_int(total, lanes, rows, planes, pitch, base, plane_stride)) {
+    unpack_rows_kernel<T, int><<<grid, kThreads, 0, stream>>>(
+        d, dst_bstride, pk, packed_bstride, static_cast<int>(lanes),
+        static_cast<int>(rows), static_cast<int>(total),
+        static_cast<int>(pitch), static_cast<int>(base),
+        static_cast<int>(plane_stride));
+  } else {
+    unpack_rows_kernel<T, long long><<<grid, kThreads, 0, stream>>>(
+        d, dst_bstride, pk, packed_bstride, lanes, rows, total, pitch, base,
+        plane_stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_unpack_dma(void* dst, long long dst_bstride, const void* packed,
+                      long long packed_bstride, int batch, long long lanes,
+                      long long rows, long long planes, long long pitch,
+                      long long base, long long plane_stride,
+                      cudaStream_t stream) {
+  const Tiles tiles = dma_tiles(lanes, rows, planes, sizeof(T));
+  if (bad_launch(batch, tiles.count) || pitch < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid(static_cast<unsigned>(tiles.count), static_cast<unsigned>(batch));
+  unpack_dma_kernel<T><<<grid, kThreads, 0, stream>>>(
+      static_cast<unsigned char*>(dst), dst_bstride,
+      static_cast<const unsigned char*>(packed), packed_bstride, lanes, rows,
+      planes, pitch, base, plane_stride, plane_stride / pitch,
+      tiles.tile_lanes, tiles.chunk, tiles.n_ltiles, tiles.n_rtiles);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tempi
+
+extern "C" int tempi_unpack_rows(void* dst, long long dst_bstride,
+                                 const void* packed, long long packed_bstride,
+                                 int batch, int word, long long lanes,
+                                 long long rows, long long planes,
+                                 long long pitch, long long base,
+                                 long long plane_stride, int device,
+                                 void* stream) {
+  TEMPI_DISPATCH_WORD(device, word, launch_unpack_rows, dst, dst_bstride,
+                      packed, packed_bstride, batch, lanes, rows, planes, pitch,
+                      base, plane_stride, static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int tempi_unpack_dma(void* dst, long long dst_bstride,
+                                const void* packed, long long packed_bstride,
+                                int batch, int word, long long lanes,
+                                long long rows, long long planes,
+                                long long pitch, long long base,
+                                long long plane_stride, int device,
+                                void* stream) {
+  TEMPI_DISPATCH_WORD(device, word, launch_unpack_dma, dst, dst_bstride,
+                      packed, packed_bstride, batch, lanes, rows, planes, pitch,
+                      base, plane_stride, static_cast<cudaStream_t>(stream));
+}

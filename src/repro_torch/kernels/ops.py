@@ -1,0 +1,365 @@
+"""Public pack/unpack operations with plan caching, and the stencil
+window primitives.
+
+This is TEMPI's ``MPI_Pack``/``MPI_Unpack`` (paper §6.2) for torch
+tensors.  The committed type's canonical StridedBlock drives everything:
+
+    kind CONTIG       -> one contiguous copy (cudaMemcpyAsync analogue)
+    kind KERNEL_2D/3D -> a CUDA kernel, chosen by the strategy plugin
+    kind KERNEL_ND    -> the gather path (as in the reference)
+    unplannable geometry -> the gather path
+
+``incount`` repeats the datatype at ``extent`` strides, handled as an
+extra outer dimension exactly as the paper describes (§3.3 last ¶).
+
+Strategy *dispatch* lives in ``repro_torch.comm.api`` (the strategy
+registry); this module owns the strategy-independent machinery.
+``strategy`` arguments accept a Strategy object, a registered name, or
+None (the static-auto heuristic).
+
+Buffers of any dtype/shape are re-viewed as bytes without copying, so
+they must be contiguous.  With ``batched=True`` the leading dimension is
+a batch (the local mesh's ranks) and the datatype applies to each
+``buf[b]``: one kernel launch serves the whole batch.  :func:`unpack`
+writes **in place** into its buffer and returns it.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.core.commit import CommittedType, KernelKind
+from repro_torch.core.strided_block import StridedBlock
+from repro_torch.kernels.geometry import PackGeometry, plan_geometry
+from repro_torch.kernels.pack import aligned
+
+__all__ = [
+    "byte_view",
+    "unbyte_view",
+    "as_words",
+    "batch_bytes",
+    "pack",
+    "unpack",
+    "pack_block",
+    "run_pack_kernel",
+    "run_unpack_kernel",
+    "shifted_window_sum",
+    "stencil_window_update",
+    "stencil_window_chain",
+]
+
+_WORD_DTYPE = {1: torch.uint8, 2: torch.int16, 4: torch.int32}
+
+#: geometry plan cache — the paper's §4 "caching layer": keyed by the
+#: committed type's content fingerprint + incount, so repeated
+#: Pack/Unpack of the same structure re-dispatch in a dict lookup.
+_PLAN_CACHE: Dict[Tuple[str, int], "_Plan"] = {}
+
+
+def _resolve(strategy):
+    from repro_torch.comm.api import resolve_strategy
+
+    return resolve_strategy(strategy)
+
+
+# ---------------------------------------------------------------------------
+# shifted-window stencil primitives (per-dimension radii)
+# ---------------------------------------------------------------------------
+#
+# Every stencil of the halo layer is one operation: accumulate windows
+# of an N-D array shifted by a set of offsets, over a window whose
+# origin/shape the caller picks.  The window is taken over the LAST
+# three dimensions, so any leading dimensions (the local mesh's ranks)
+# are updated in the same call.  One primitive means one accumulation
+# order, which is what keeps overlapping results bit-identical.
+
+def _window(arr: torch.Tensor, origin, shape) -> torch.Tensor:
+    (z, y, x), (nz, ny, nx) = origin, shape
+    return arr[..., z : z + nz, y : y + ny, x : x + nx]
+
+
+def shifted_window_sum(arr, offsets, origin, shape):
+    """Sum of ``arr`` windows at ``origin + d`` for each offset ``d``.
+
+    Offsets may be negative; the caller guarantees every shifted window
+    stays in bounds.  Accumulation is in ``offsets`` order, so two calls
+    with the same offsets and values produce bit-identical results.
+    """
+    acc = torch.zeros(arr.shape[:-3] + tuple(shape), dtype=arr.dtype, device=arr.device)
+    for d in offsets:
+        acc += _window(arr, tuple(o + di for o, di in zip(origin, d)), shape)
+    return acc
+
+
+def stencil_window_update(arr, offsets, weight, origin, shape):
+    """One weighted-neighborhood stencil update of the window
+    ``arr[..., origin : origin + shape]``:
+
+        new = (1 - w) * center + (w / len(offsets)) * sum(shifted views)
+
+    Returns the updated window only (a new tensor; the caller splices
+    it back).  The scalar factors are rounded to ``arr.dtype`` first, as
+    in the reference.
+    """
+    w = torch.tensor(weight, dtype=arr.dtype, device=arr.device)
+    acc = shifted_window_sum(arr, offsets, origin, shape)
+    center = _window(arr, origin, shape)
+    return acc.mul_(w / len(offsets)).add_(center * (1 - w))
+
+
+def stencil_window_chain(arr, stages):
+    """Apply a *sequence* of stencil window updates, each stage consuming
+    the previous stage's window: stage ``(offsets, weight, radii)``
+    shrinks the current window by ``radii`` per side.  Returns every
+    intermediate block."""
+    blocks = []
+    x = arr
+    for k, (offsets, weight, radii) in enumerate(stages):
+        shape = tuple(s - 2 * r for s, r in zip(x.shape[-3:], radii))
+        if any(s < 1 for s in shape):
+            raise ValueError(
+                f"window {tuple(arr.shape[-3:])} too small for stage {k + 1} "
+                f"of the chain (radii {tuple(radii)})"
+            )
+        x = stencil_window_update(x, offsets, weight, tuple(radii), shape)
+        blocks.append(x)
+    return blocks
+
+
+# ---------------------------------------------------------------------------
+# byte / word re-viewing (zero-copy)
+# ---------------------------------------------------------------------------
+
+def byte_view(arr: torch.Tensor) -> torch.Tensor:
+    """Flat uint8 view of a contiguous tensor's bytes (no copy)."""
+    if arr.dtype == torch.bool:
+        raise TypeError("bool buffers are not byte-addressable; cast first")
+    if not arr.is_contiguous():
+        raise ValueError("byte views need a contiguous tensor")
+    return arr.reshape(-1).view(torch.uint8)
+
+
+def unbyte_view(b: torch.Tensor, dtype, shape) -> torch.Tensor:
+    """Inverse of :func:`byte_view`."""
+    return b.view(dtype).reshape(shape)
+
+
+def as_words(b: torch.Tensor, w: int) -> torch.Tensor:
+    """uint8[n] -> W-byte words [n/w] (a view; n a multiple of w)."""
+    return b.view(_WORD_DTYPE[w])
+
+
+def batch_bytes(buf: torch.Tensor, batched: bool) -> torch.Tensor:
+    """``(B, n)`` uint8 view of ``buf``: the whole buffer as one row, or
+    one row per leading index when ``batched``."""
+    b = byte_view(buf)
+    return b.view(buf.shape[0], -1) if batched else b.view(1, -1)
+
+
+def _rows_out(out: torch.Tensor, batch: int, nbytes: int) -> torch.Tensor:
+    """``out`` (a (B, nbytes) or, unbatched, (nbytes,) uint8 tensor) as
+    the 2D view the leaf kernels write."""
+    if out.dtype != torch.uint8:
+        out = byte_view(out)
+    if out.dim() == 1:
+        out = out.view(batch, -1) if batch > 1 else out.unsqueeze(0)
+    if tuple(out.shape) != (batch, nbytes):
+        raise ValueError(f"out has shape {tuple(out.shape)}; need {(batch, nbytes)}")
+    return out
+
+
+def _packed_rows(packed: torch.Tensor, batch: int) -> torch.Tensor:
+    if packed.dtype != torch.uint8:
+        packed = byte_view(packed)
+    if packed.dim() == 1:
+        return packed.view(batch, -1) if batch > 1 else packed.unsqueeze(0)
+    return packed
+
+
+# ---------------------------------------------------------------------------
+# planning
+# ---------------------------------------------------------------------------
+
+class _Plan:
+    """Host-side execution plan for one (committed type, incount)."""
+
+    __slots__ = ("sb", "reps", "rep_extent", "geom", "kind")
+
+    def __init__(self, ct: CommittedType, incount: int):
+        sb = ct.block
+        self.kind = ct.kernel
+        self.reps = 1
+        self.rep_extent = ct.extent
+        if sb is not None and incount > 1:
+            if sb.ndims == 1:
+                if ct.extent == sb.counts[0] and sb.start == 0:
+                    # contiguous repetitions stay contiguous
+                    sb = StridedBlock(0, (sb.counts[0] * incount,), (1,))
+                else:
+                    sb = StridedBlock(
+                        sb.start, (sb.counts[0], incount), (1, ct.extent)
+                    )
+            elif sb.ndims == 2:
+                sb = StridedBlock(
+                    sb.start, sb.counts + (incount,), sb.strides + (ct.extent,)
+                )
+            else:
+                # 3D+ repeated: loop reps on the host (paper: "handled
+                # dynamically" — known only at the call site)
+                self.reps = incount
+        self.sb = sb
+        self.geom = (
+            plan_geometry(sb) if sb is not None and sb.ndims in (2, 3) else None
+        )
+
+
+def _plan(ct: CommittedType, incount: int) -> _Plan:
+    # content-fingerprint key: equal structures share a plan, and a
+    # recycled id() can never serve a stale one
+    key = (ct.fingerprint, incount)
+    plan = _PLAN_CACHE.get(key)
+    if plan is None:
+        plan = _Plan(ct, incount)
+        _PLAN_CACHE[key] = plan
+    return plan
+
+
+# ---------------------------------------------------------------------------
+# driving the strategy kernels
+# ---------------------------------------------------------------------------
+
+def _fit(geom: PackGeometry, sb: StridedBlock, *tensors) -> PackGeometry:
+    """The geometry to launch with: ``geom``, or its one-byte-word form
+    when an operand's pointer or batch stride is not W-aligned (e.g. a
+    segment at an odd wire offset).  Same bytes, no copy."""
+    if all(aligned(t, geom.word_bytes) for t in tensors):
+        return geom
+    return plan_geometry(sb, word_bytes=1)
+
+
+def run_pack_kernel(b, sb, geom, kernel, out):
+    """Drive a ``(src, geom, out)`` pack kernel on ``(B, n)`` bytes."""
+    return kernel(b, _fit(geom, sb, b, out), out)
+
+
+def run_unpack_kernel(b, packed, sb, geom, kernel):
+    """Drive a ``(dst, packed, geom)`` in-place unpack kernel."""
+    return kernel(b, packed, _fit(geom, sb, b, packed))
+
+
+# ---------------------------------------------------------------------------
+# pack / unpack
+# ---------------------------------------------------------------------------
+
+def _shifted(plan: _Plan, base: int) -> Tuple[StridedBlock, Optional[PackGeometry]]:
+    if not base:
+        return plan.sb, plan.geom
+    sb = StridedBlock(plan.sb.start + base, plan.sb.counts, plan.sb.strides)
+    return sb, (plan_geometry(sb) if sb.ndims in (2, 3) else None)
+
+
+def _pack_one(b, plan: _Plan, strat, base: int, out) -> None:
+    """Pack one repetition (byte offsets shifted by ``base``) into out."""
+    sb, geom = _shifted(plan, base)
+    if sb.ndims == 1:
+        out.copy_(b[:, sb.start : sb.start + sb.counts[0]])
+    else:
+        strat.pack_leaf(b, sb, geom, out)
+
+
+def _check_strided(ct: CommittedType, plan: _Plan) -> None:
+    if plan.kind is KernelKind.GENERIC or plan.sb is None:
+        raise TypeError(f"{ct.datatype!r} is not a strided type")
+
+
+def pack(
+    buf: torch.Tensor,
+    ct: CommittedType,
+    incount: int = 1,
+    strategy=None,
+    *,
+    out: Optional[torch.Tensor] = None,
+    batched: bool = False,
+) -> torch.Tensor:
+    """MPI_Pack: gather the non-contiguous bytes ``ct`` describes from
+    ``buf`` into a contiguous uint8 buffer of ``ct.size * incount``
+    bytes (``(B, ct.size * incount)`` when ``batched``).  Writes into
+    ``out`` when given and returns it."""
+    strat = _resolve(strategy)
+    plan = _plan(ct, incount)
+    _check_strided(ct, plan)
+    b = batch_bytes(buf, batched)
+    nbytes = ct.size * incount
+    if out is None:
+        out = torch.empty((b.shape[0], nbytes) if batched else (nbytes,),
+                          dtype=torch.uint8, device=buf.device)
+    o = _rows_out(out, b.shape[0], nbytes)
+    step = plan.sb.size
+    for rep in range(plan.reps):
+        _pack_one(b, plan, strat, rep * plan.rep_extent,
+                  o[:, rep * step : (rep + 1) * step])
+    return out
+
+
+def pack_block(
+    buf: torch.Tensor,
+    sb: StridedBlock,
+    strategy=None,
+    *,
+    out: Optional[torch.Tensor] = None,
+    batched: bool = False,
+) -> torch.Tensor:
+    """Low-level pack straight from a StridedBlock (no committed type).
+
+    Used by the comm layer for derived blocks (e.g. extracting member
+    bytes out of a received bounding window).  ``buf`` may also be a
+    ``(B, n)`` uint8 tensor with ``batched=True`` whose rows are
+    contiguous but not each other's neighbours (a wire slice)."""
+    strat = _resolve(strategy)
+    if batched and buf.dtype == torch.uint8 and buf.dim() == 2:
+        b = buf
+    else:
+        b = batch_bytes(buf, batched)
+    if out is None:
+        out = torch.empty((b.shape[0], sb.size) if batched else (sb.size,),
+                          dtype=torch.uint8, device=buf.device)
+    o = _rows_out(out, b.shape[0], sb.size)
+    if sb.ndims == 1:
+        o.copy_(b[:, sb.start : sb.start + sb.counts[0]])
+    else:
+        strat.pack_leaf(b, sb, plan_geometry(sb) if sb.ndims in (2, 3) else None, o)
+    return out
+
+
+def _unpack_one(b, packed, plan: _Plan, strat, base: int) -> None:
+    sb, geom = _shifted(plan, base)
+    if sb.ndims == 1:
+        b[:, sb.start : sb.start + sb.counts[0]].copy_(packed)
+    else:
+        strat.unpack_leaf(b, packed, sb, geom)
+
+
+def unpack(
+    buf: torch.Tensor,
+    packed: torch.Tensor,
+    ct: CommittedType,
+    incount: int = 1,
+    strategy=None,
+    *,
+    batched: bool = False,
+) -> torch.Tensor:
+    """MPI_Unpack: scatter ``packed`` (uint8, ``size*incount`` bytes —
+    per batch row when ``batched``) into ``buf`` per the committed
+    datatype.  Writes **in place** into ``buf`` and returns it."""
+    strat = _resolve(strategy)
+    plan = _plan(ct, incount)
+    _check_strided(ct, plan)
+    b = batch_bytes(buf, batched)
+    pk = _packed_rows(packed, b.shape[0])
+    step = plan.sb.size
+    for rep in range(plan.reps):
+        _unpack_one(b, pk[:, rep * step : (rep + 1) * step], plan, strat,
+                    rep * plan.rep_extent)
+    return buf

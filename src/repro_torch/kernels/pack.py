@@ -1,0 +1,180 @@
+"""Strided pack kernels for Hopper, with their plain-torch versions.
+
+Two kernels cover every canonical 2D/3D StridedBlock (paper §3.3: "each
+MPI datatype is mapped to one of two kernel implementations
+parameterized by W"):
+
+* :func:`pack_rows` — the paper's "device" kernel: a SIMT grid, one
+  thread per W-byte word (``csrc/pack.cu``, ``tempi_pack_rows``).
+* :func:`pack_dma`  — tiles staged through shared memory with
+  ``cp.async``, then stored contiguously (``tempi_pack_dma``).
+
+Both take a batch: ``src`` is a ``(B, n)`` uint8 tensor and one launch
+packs the same block out of all ``B`` buffers into a ``(B, size)``
+output (the local mesh packs a region for every rank at once).  Both are
+driven by host scalars only (:class:`PackGeometry`) — no per-type
+metadata in device memory.
+
+The wrapper runs the kernel for a CUDA tensor and the plain version
+(:func:`pack_plain`) only for a CPU tensor; anything else raises.  Each
+wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.build import library
+from repro_torch.kernels.geometry import PackGeometry
+
+__all__ = [
+    "pack_rows",
+    "pack_dma",
+    "pack_plain",
+    "pack_ragged",
+    "aligned",
+    "block_index",
+    "check_operands",
+    "launch",
+]
+
+
+# ---------------------------------------------------------------------------
+# shared operand checks and launch
+# ---------------------------------------------------------------------------
+
+def _rowwise(t: torch.Tensor, name: str) -> None:
+    if t.dtype != torch.uint8 or t.dim() != 2:
+        raise TypeError(f"{name} must be a 2D uint8 tensor (batch, bytes); got "
+                        f"{t.dtype} of shape {tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name} must be contiguous along its last dimension")
+
+
+def aligned(t: torch.Tensor, w: int) -> bool:
+    """Whether the kernels can address ``t`` in ``w``-byte words: its
+    pointer and its batch stride are multiples of ``w``."""
+    return t.data_ptr() % w == 0 and (t.shape[0] <= 1 or t.stride(0) % w == 0)
+
+
+def check_operands(
+    buf: torch.Tensor, packed: torch.Tensor, geom: PackGeometry,
+    buf_name: str = "src", packed_name: str = "out",
+) -> None:
+    """Raise on anything the kernels do not take: the buffer and the
+    packed tensor are ``(B, n)`` / ``(B, packed_bytes)`` uint8 on one
+    device, the buffer holds every block byte, and on the card both are
+    aligned to the word W (pointer and batch stride)."""
+    _rowwise(buf, buf_name)
+    _rowwise(packed, packed_name)
+    if buf.device != packed.device:
+        raise ValueError(f"{buf_name} on {buf.device}, {packed_name} on {packed.device}")
+    if buf.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {buf.device}")
+    if tuple(packed.shape) != (buf.shape[0], geom.packed_bytes):
+        raise ValueError(
+            f"{packed_name} has shape {tuple(packed.shape)}; need "
+            f"{(buf.shape[0], geom.packed_bytes)}"
+        )
+    if buf.shape[1] < geom.span_bytes:
+        raise ValueError(
+            f"{buf_name} holds {buf.shape[1]} bytes; the block spans "
+            f"{geom.span_bytes}"
+        )
+    if buf.is_cuda:
+        w = geom.word_bytes
+        for t, name in ((buf, buf_name), (packed, packed_name)):
+            if not aligned(t, w):
+                raise ValueError(f"{name} is not aligned to the {w}-byte word")
+
+
+def launch(lib_name: str, entry: str, a: torch.Tensor, b: torch.Tensor,
+           geom: PackGeometry) -> None:
+    """Call one C entry on the current stream of ``a``'s device: ``a`` is
+    the strided buffer side, ``b`` the packed side.  Raises if the launch
+    was refused."""
+    fn = getattr(library(lib_name), entry)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    err = fn(a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), a.shape[0],
+             geom.word_bytes, geom.lanes, geom.rows, geom.planes, geom.pitch,
+             geom.q * geom.pitch + geom.r, geom.plane_rows * geom.pitch,
+             a.device.index, stream)
+    if err != 0:
+        raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
+
+
+def block_index(geom: PackGeometry, device) -> torch.Tensor:
+    """Byte index of every block byte in packing order, shape
+    ``(planes, rows * lanes * W)`` — the plain versions' gather/scatter
+    map, computed from the geometry scalars alone."""
+    w = geom.word_bytes
+    p = torch.arange(geom.planes, device=device).view(-1, 1, 1)
+    i = torch.arange(geom.rows, device=device).view(1, -1, 1)
+    l = torch.arange(geom.lanes * w, device=device).view(1, 1, -1)
+    rows = geom.q + p * geom.plane_rows + i
+    return ((rows * geom.pitch + geom.r) * w + l).reshape(geom.planes, -1)
+
+
+# ---------------------------------------------------------------------------
+# pack
+# ---------------------------------------------------------------------------
+
+def pack_plain(src: torch.Tensor, geom: PackGeometry, out: torch.Tensor) -> torch.Tensor:
+    """Plain version of both pack kernels: gather the block bytes of
+    every buffer of ``src`` into ``out`` (any device)."""
+    idx = block_index(geom, src.device).reshape(-1)
+    out.copy_(src[:, idx])
+    return out
+
+
+def _pack(entry: str, wrapper, src, geom, out):
+    if out is None:
+        out = torch.empty((src.shape[0], geom.packed_bytes), dtype=torch.uint8,
+                          device=src.device)
+    check_operands(src, out, geom)
+    if src.device.type == "cpu":
+        return pack_plain(src, geom, out)
+    launch("pack", entry, src, out, geom)
+    wrapper.launches += 1
+    return out
+
+
+def pack_rows(src: torch.Tensor, geom: PackGeometry,
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Pack the block out of every buffer of ``src`` (``(B, n)`` uint8)
+    into ``out`` (``(B, packed_bytes)``, allocated if None) with the
+    SIMT row kernel.  Returns ``out``."""
+    return _pack("tempi_pack_rows", pack_rows, src, geom, out)
+
+
+def pack_dma(src: torch.Tensor, geom: PackGeometry,
+             out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """As :func:`pack_rows`, with the shared-memory staged tile kernel."""
+    return _pack("tempi_pack_dma", pack_dma, src, geom, out)
+
+
+pack_rows.launches = 0
+pack_dma.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# ragged wire assembly
+# ---------------------------------------------------------------------------
+
+def pack_ragged(buf: torch.Tensor, leaves, total: int) -> torch.Tensor:
+    """Pack every leaf straight into its slot of a flat wire buffer.
+
+    ``buf`` has the ranks (or any batch) on its leading dimension;
+    ``leaves`` is a sequence of ``(offset, nbytes, pack_fn)``, and
+    ``pack_fn(buf, out)`` writes one leaf's packed payload into ``out``,
+    the ``(B, nbytes)`` view of the wire at its exact byte ``offset``.
+    Offsets come from a wire plan's segments: the buffer is exactly
+    ``total`` bytes per rank, with no padding and no per-destination
+    concatenation.  Returns the ``(B, total)`` uint8 wire.
+    """
+    wire = torch.empty((buf.shape[0], total), dtype=torch.uint8, device=buf.device)
+    for offset, nbytes, pack_fn in leaves:
+        pack_fn(buf, wire[:, offset : offset + nbytes])
+    return wire

@@ -1,0 +1,303 @@
+"""The port's comm layer against ``repro.comm``, and its local-mesh
+transport.
+
+* Strategy selection: for the 52 send and receive types of a small halo
+  and the same parameter values on both sides, ``PerfModel.select``
+  picks the same strategy at the same price (rel 1e-12), and every
+  strategy's estimate agrees term by term.
+* Wire plans: ``plan_wire`` with ``native`` passed explicitly to both
+  packages gives the identical layout, schedule and byte accounting, and
+  the model-priced schedule choice agrees.
+* Transport: every schedule of the local mesh moves the same bytes (the
+  periodic oracle's), and counts what it issues.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import repro.comm.perfmodel as rpm
+import repro.comm.wireplan as rwp
+import repro.halo as rhalo
+from repro.comm.api import Communicator as RefCommunicator
+from repro_torch.comm import (
+    Communicator,
+    FixedPolicy,
+    H100_ANALYTIC,
+    PerfModel,
+    SystemParams,
+    plan_wire,
+    reschedule,
+)
+from repro_torch.core import FLOAT, BYTE, Subarray, Vector
+from repro_torch.halo import (
+    HaloSpec,
+    from_reference,
+    halo_exchange,
+    make_halo_plan,
+    make_halo_types,
+)
+
+REF_FIELDS = ("hbm_bw", "ici_bw", "ici_latency", "kernel_launch", "dma_setup",
+              "xla_copy_overhead")
+PORT_FIELD = {"ici_bw": "link_bw", "ici_latency": "link_latency"}
+
+
+def _ref_values(name):
+    if name == "tpu_v5e":
+        return {f: getattr(rpm.TPU_V5E, f) for f in REF_FIELDS}
+    return {f: getattr(H100_ANALYTIC, PORT_FIELD.get(f, f)) for f in REF_FIELDS}
+
+
+def _param_pair(name):
+    values = _ref_values(name)
+    return (rpm.SystemParams(name=name, **values),
+            SystemParams.from_reference(name=name, **values))
+
+
+def _halo_types(interior=(6, 5, 4), params="tpu_v5e"):
+    ref_params, params = _param_pair(params)
+    ref_comm = RefCommunicator(axis_name="ranks", params=ref_params)
+    comm = Communicator(params=params, device="cpu")
+    ref_spec = rhalo.HaloSpec(grid=(2, 2, 2), interior=interior, radius=2)
+    spec = HaloSpec(grid=(2, 2, 2), interior=interior, radius=2)
+    ref_types = rhalo.make_halo_types(ref_spec, ref_comm)
+    types = make_halo_types(spec, comm)
+    pairs = []
+    for d in rhalo.DIRECTIONS:
+        for k in range(2):
+            pairs.append((ref_types[d][k], types[d][k]))
+    return ref_comm, comm, ref_spec, spec, pairs
+
+
+def test_from_reference_maps_the_link_fields():
+    p = SystemParams.from_reference(name="x", ici_bw=1.0, ici_latency=2.0, hbm_bw=3.0,
+                                    pack_table=None)
+    assert (p.link_bw, p.link_latency, p.hbm_bw) == (1.0, 2.0, 3.0)
+    with pytest.raises(ValueError, match="not ported"):
+        SystemParams.from_reference(name="x", pack_table={"rows": ((1, 1, 1.0),)})
+    assert H100_ANALYTIC.name == "h100_sxm_analytic_unmeasured"
+    assert H100_ANALYTIC.hbm_bw == 3.35e12
+
+
+@pytest.mark.parametrize("allow_bounding", [True, False])
+@pytest.mark.parametrize("params", ["tpu_v5e", "h100"])
+def test_selection_matches_the_reference_on_the_52_halo_types(params, allow_bounding):
+    ref_comm, comm, _, _, pairs = _halo_types(params=params)
+    assert len(pairs) == 52
+    for ref_ct, ct in pairs:
+        assert ct.fingerprint == ref_ct.fingerprint
+        want = ref_comm.model.select(ref_ct, 1, allow_bounding=allow_bounding)
+        got = comm.model.select(ct, 1, allow_bounding=allow_bounding)
+        assert got.strategy == want.strategy
+        assert got.wire_bytes == want.wire_bytes
+        assert got.total == pytest.approx(want.total, rel=1e-12, abs=0)
+        for name in ("rows", "dma", "xla", "bounding"):
+            e = comm.model.estimate(ct, 2, name)
+            r = ref_comm.model.estimate(ref_ct, 2, name)
+            for term in ("t_pack", "t_link", "t_unpack"):
+                assert getattr(e, term) == pytest.approx(getattr(r, term), rel=1e-12, abs=0)
+            assert e.wire_bytes == r.wire_bytes
+        assert comm.select(ct, 1, wire=allow_bounding).name == ref_comm.select(
+            ref_ct, 1, wire=allow_bounding).name
+
+
+PLAN_FIELDS = ("nranks", "groups", "group_offsets", "schedule", "fused", "wire_bytes",
+               "seg_bytes", "send_rows", "recv_rows", "issued_bytes", "wire_ops",
+               "padding_bytes", "fingerprint")
+
+
+def _same_plan(plan, ref):
+    for f in PLAN_FIELDS:
+        got, want = getattr(plan, f), getattr(ref, f)
+        if f == "groups":
+            got = [dataclasses.astuple(g) for g in got]
+            want = [dataclasses.astuple(g) for g in want]
+        assert got == want, f
+    assert [dataclasses.astuple(s) for s in plan.segments] == [
+        dataclasses.astuple(s) for s in ref.segments
+    ]
+
+
+@pytest.mark.parametrize("grid", [(2, 2, 2), (1, 2, 4), (4, 4, 4)])
+@pytest.mark.parametrize("native", [False, True])
+@pytest.mark.parametrize("tolerance", [0.0, 1.0])
+def test_plan_wire_matches_the_reference(grid, native, tolerance):
+    ref_comm, comm, _, _, pairs = _halo_types()
+    ref_spec = rhalo.HaloSpec(grid=grid, interior=(6, 5, 4), radius=2)
+    spec = HaloSpec(grid=grid, interior=(6, 5, 4), radius=2)
+    perms = tuple(tuple(spec.perm(d)) for d in rhalo.DIRECTIONS)
+    assert perms == tuple(tuple(ref_spec.perm(d)) for d in rhalo.DIRECTIONS)
+    sends = pairs[0::2]
+    sizes = tuple(ct.packed_extent() for _, ct in sends)
+    fps = tuple(ct.fingerprint for _, ct in sends)
+    plan = plan_wire(sizes, perms, fingerprints=fps, uniform_waste_tolerance=tolerance,
+                     native=native)
+    ref = rwp.plan_wire(sizes, perms, fingerprints=fps, uniform_waste_tolerance=tolerance,
+                        native=native)
+    _same_plan(plan, ref)
+    for sched in ("grouped", "uniform", "ragged"):
+        if sched != "grouped" and not ref.fused:
+            with pytest.raises(ValueError):
+                reschedule(plan, sched)
+            continue
+        _same_plan(reschedule(plan, sched), rwp.reschedule(ref, sched))
+    got, got_costs = comm.model.choose_wire_schedule(plan, native)
+    want, want_costs = ref_comm.model.choose_wire_schedule(ref, native=native)
+    assert got.schedule == want.schedule
+    assert got_costs.keys() == want_costs.keys()
+    for k in want_costs:
+        assert got_costs[k] == pytest.approx(want_costs[k], rel=1e-12, abs=0)
+    est, ref_est = comm.model.price_exchange(got), ref_comm.model.price_exchange(want)
+    assert (est.strategy, est.wire_bytes) == (ref_est.strategy, ref_est.wire_bytes)
+    assert est.total == pytest.approx(ref_est.total, rel=1e-12, abs=0)
+
+
+@pytest.mark.parametrize("policy", ["exact", "model"])
+def test_halo_plan_matches_the_reference(policy):
+    """The whole halo setup (types, strategies, layout) agrees; only the
+    native-ragged answer differs by construction, so the reference's plan
+    is re-laid out with the port's transport's answer."""
+    ref_comm, comm, ref_spec, spec, _ = _halo_types()
+    ref_plan = rhalo.make_halo_plan(ref_spec, ref_comm, schedule_policy=policy)
+    plan = make_halo_plan(spec, comm, schedule_policy=policy)
+    assert [s.name for s in plan.strategies] == [s.name for s in ref_plan.strategies]
+    assert [ct.fingerprint for ct in plan.send_cts] == [ct.fingerprint for ct in ref_plan.send_cts]
+    assert [ct.fingerprint for ct in plan.recv_cts] == [ct.fingerprint for ct in ref_plan.recv_cts]
+    assert plan.perms == ref_plan.perms
+    segs = [s.wire_segment(ct) for s, ct in zip(ref_plan.strategies, ref_plan.send_cts)]
+    ref_wire = rwp.plan_wire(
+        tuple(s.nbytes for s in segs), ref_plan.perms,
+        fingerprints=tuple(s.fingerprint for s in segs), native=comm.transport.native_ragged,
+    )
+    if policy == "model":
+        ref_wire, _ = ref_comm.model.choose_wire_schedule(
+            ref_wire, native=comm.transport.native_ragged)
+    _same_plan(plan.wire, ref_wire)
+    assert plan.wire_bytes == ref_plan.wire_bytes
+
+
+# ---------------------------------------------------------------------------
+# the local-mesh transport
+# ---------------------------------------------------------------------------
+
+def _halo_state(spec):
+    r = spec.radius
+    nz, ny, nx = spec.interior
+    g = [p * n for p, n in zip(spec.grid, spec.interior)]
+    gvals = np.arange(np.prod(g), dtype=np.float32).reshape(g)
+    local = np.full((spec.nranks,) + spec.alloc, -1.0, np.float32)
+    want = np.empty_like(local)
+    for rank in range(spec.nranks):
+        c = spec.coords(rank)
+        local[rank, r:r + nz, r:r + ny, r:r + nx] = gvals[
+            c[0] * nz:(c[0] + 1) * nz, c[1] * ny:(c[1] + 1) * ny, c[2] * nx:(c[2] + 1) * nx]
+        idx = [(np.arange(a) - r + ci * n) % gn
+               for a, ci, n, gn in zip(spec.alloc, c, spec.interior, g)]
+        want[rank] = gvals[np.ix_(*idx)]
+    return local, want
+
+
+@pytest.mark.parametrize("schedule", ["grouped", "uniform", "ragged"])
+@pytest.mark.parametrize("strategy", ["rows", "bounding"])
+def test_every_schedule_moves_the_same_bytes(schedule, strategy):
+    spec = HaloSpec(grid=(2, 2, 2), interior=(6, 5, 4), radius=2)
+    comm = Communicator(policy=FixedPolicy(strategy), device="cpu")
+    plan = make_halo_plan(spec, comm, schedule_policy="exact")
+    plan = dataclasses.replace(plan, wire=reschedule(plan.wire, schedule))
+    start, want = _halo_state(spec)
+    local = from_reference(start, spec, device="cpu")
+    halo_exchange(local, spec, comm, plan=plan)
+    np.testing.assert_array_equal(local.numpy(), want)
+    assert comm.wire_ops == plan.wire.wire_ops == (7 if schedule == "grouped" else 1)
+    assert comm.wire_payload_bytes == plan.wire.issued_bytes
+    if schedule != "uniform":
+        assert comm.wire_payload_bytes == plan.wire_bytes
+
+
+@pytest.mark.parametrize("schedule", ["varlen", "tiered"])
+def test_unported_schedules_raise(schedule):
+    spec = HaloSpec(grid=(2, 2, 2), interior=(4, 4, 4), radius=2)
+    comm = Communicator(device="cpu")
+    plan = make_halo_plan(spec, comm, schedule_policy="exact")
+    wire = dataclasses.replace(plan.wire, schedule=schedule)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        comm.transport.exchange(torch.zeros((8, wire.wire_bytes), dtype=torch.uint8), wire)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        comm.model.price_exchange(wire)
+
+
+@pytest.mark.parametrize("mode", ["rows", "dma", "bounding", "xla"])
+@pytest.mark.parametrize("incount", [1, 2])
+def test_sendrecv_on_the_local_mesh(mode, incount):
+    """Rank r's packed vector lands in rank perm(r)'s buffer, in place."""
+    R = 4
+    comm = Communicator(policy=FixedPolicy(mode), device="cpu")
+    ct = comm.commit(Vector(6, 5, 12, FLOAT))
+    perm = [(r, (r + 1) % R) for r in range(R)]
+    n = ct.extent * incount // 4 + 3
+    src = torch.arange(R * n, dtype=torch.float32).view(R, n)
+    dst = torch.full((R, n), -1.0)
+    assert comm.sendrecv(src, dst, ct, perm, incount=incount) is dst
+    idx = np.concatenate([
+        np.arange(6 * 5).reshape(6, 5) // 5 * 12 + np.arange(5) + rep * ct.extent // 4
+        for rep in range(incount)
+    ]).reshape(-1)
+    want = np.full((R, n), -1.0, np.float32)
+    for s, d in perm:
+        want[d, idx] = src.numpy()[s, idx]
+    np.testing.assert_array_equal(dst.numpy(), want)
+    assert comm.wire_ops == 1
+    assert comm.wire_payload_bytes == comm.select(ct, incount).wire_bytes(ct, incount)
+
+
+def test_pack_and_unpack_serve_every_rank():
+    R = 3
+    comm = Communicator(device="cpu")
+    ct = comm.commit(Subarray((16, 8, 4), (5, 3, 2), (2, 1, 1), BYTE))
+    buf = torch.randint(0, 256, (R, 16 * 8 * 4), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(5))
+    packed = comm.pack(buf, ct)
+    assert tuple(packed.shape) == (R, ct.size)
+    out = torch.zeros_like(buf)
+    assert comm.unpack(out, packed, ct) is out
+    for r in range(R):
+        np.testing.assert_array_equal(packed[r].numpy(), comm.pack(buf[r:r + 1], ct)[0].numpy())
+    np.testing.assert_array_equal(comm.pack(out, ct).numpy(), packed.numpy())
+
+
+def test_model_caches_selections():
+    model = PerfModel()
+    comm = Communicator(device="cpu")
+    ct = comm.commit(Vector(13, 25, 64, FLOAT))
+    a = model.select(ct)
+    assert model.select(ct) is a
+    assert (model.lookups, model.hits) == (2, 1)
+
+
+def test_segments_at_odd_wire_offsets():
+    """Two byte types share one delta class, so the second segment starts
+    at byte 15 of the wire; the exchange still moves exactly its bytes."""
+    R = 2
+    comm = Communicator(policy=FixedPolicy("rows"), device="cpu")
+    send = [comm.commit(Subarray((16, 16), (5, 3), (0, 0), BYTE)),
+            comm.commit(Subarray((16, 16), (8, 4), (0, 4), BYTE))]
+    recv = [comm.commit(Subarray((16, 16), (5, 3), (8, 8), BYTE)),
+            comm.commit(Subarray((16, 16), (8, 4), (8, 12), BYTE))]
+    perm = [(0, 1), (1, 0)]
+    _, plan = comm.plan_neighbor(send, [perm, perm], schedule_policy="exact")
+    assert [s.offset for s in plan.segments] == [0, 15]
+    buf = torch.randint(0, 256, (R, 256), dtype=torch.uint8,
+                        generator=torch.Generator().manual_seed(11))
+    want = buf.numpy().copy().reshape(R, 16, 16)
+    src = buf.numpy().copy().reshape(R, 16, 16)
+    for s, d in perm:
+        want[d, 8:11, 8:13] = src[s, 0:3, 0:5]
+        want[d, 12:16, 8:16] = src[s, 4:8, 0:8]
+    out = comm.neighbor_alltoallv(buf, send, recv, [perm, perm], plan=plan)
+    assert out is buf
+    np.testing.assert_array_equal(buf.numpy().reshape(R, 16, 16), want)
+    assert comm.wire_payload_bytes == plan.wire_bytes == 15 + 32

@@ -1,0 +1,79 @@
+"""The port stands alone and defaults to the card.
+
+* In a fresh interpreter, importing every module of ``repro_torch``
+  pulls in neither ``jax`` nor any module of the reference package
+  ``repro``, and builds or loads no kernel.
+* Every entry point runs on the card unless the caller passes
+  ``device="cpu"``: without a card it raises instead of quietly running
+  on the host.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.comm import Communicator
+from repro_torch.device import resolve_device
+from repro_torch.halo import HaloSpec, from_reference, make_halo_step
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+IMPORT_ALL = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [
+    m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")
+]
+for name in names:
+    importlib.import_module(name)
+from repro_torch.kernels import build
+assert not build._LIBS, "a kernel library was loaded at import time"
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
+             or m.startswith("repro."))
+print("MODULES", len(names))
+print("FORBIDDEN", bad)
+"""
+
+
+def test_no_module_imports_jax_or_the_reference():
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(IMPORT_ALL)],
+        env=env, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
+    assert int(lines["MODULES"]) >= 20
+    assert lines["FORBIDDEN"] == "[]"
+
+
+def test_entry_points_default_to_the_card():
+    spec = HaloSpec(grid=(2, 2, 2), interior=(4, 4, 4), radius=2)
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the entry points run on it")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Communicator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_halo_step(spec)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_reference(np.zeros((8,) + spec.alloc, np.float32), spec)
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        resolve_device("meta")
+
+
+def test_entry_points_run_on_the_cpu_when_asked():
+    spec = HaloSpec(grid=(2, 2, 2), interior=(4, 4, 4), radius=2)
+    comm = Communicator(device="cpu")
+    step = make_halo_step(spec, comm, device="cpu")
+    local = from_reference(np.zeros((8,) + spec.alloc, np.float32), spec, device="cpu")
+    assert step(local).device.type == "cpu"
+    assert comm.device == torch.device("cpu")

@@ -1,0 +1,344 @@
+"""The port's pack/unpack against the JAX reference, bit for bit.
+
+The sweeps of ``tests/test_kernels.py`` (2D vectors, element types,
+offsets, 3D subarrays, halo faces, incount, contiguous and 1D, user
+buffers) run the same datatypes and the same bytes, made from a seed
+with numpy, through ``repro.kernels.pack``/``unpack`` (Pallas in
+interpret mode, as the reference's own tests run it) and through
+``repro_torch.kernels.pack``/``unpack`` on the CPU, under every strategy
+with a kernel (``rows``, ``dma``, ``xla``, ``auto``).  On the CPU the
+port's kernel wrappers take their plain versions; the kernels themselves
+are held against those plain versions on the card
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py``).
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp
+
+import repro.core as rc
+import repro_torch.core as tc
+from repro.comm.api import DMA as REF_DMA
+from repro.comm.api import ROWS as REF_ROWS
+from repro.kernels import pack as ref_pack
+from repro.kernels import plan_geometry as ref_plan_geometry
+from repro.kernels import unpack as ref_unpack
+from repro_torch.comm.api import DMA, ROWS
+from repro_torch.kernels import (
+    launch_counts,
+    pack,
+    plan_geometry,
+    reset_launch_counts,
+    unpack,
+)
+from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
+from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
+
+REF_REG = rc.TypeRegistry()
+REG = tc.TypeRegistry()
+RNG = np.random.default_rng(1234)
+
+STRATEGIES = ("rows", "dma", "xla", "auto")
+SEMANTIC_FIELDS = ("word_bytes", "lanes", "rows", "planes", "pitch", "q", "r", "plane_rows")
+
+
+def port(dt):
+    """The port's datatype with the same description as a reference one."""
+    cls = getattr(tc, type(dt).__name__)
+    fields = {}
+    for f in dataclasses.fields(dt):
+        v = getattr(dt, f.name)
+        fields[f.name] = port(v) if isinstance(v, rc.Datatype) else v
+    return cls(**fields)
+
+
+def port_block(sb):
+    return tc.StridedBlock(sb.start, sb.counts, sb.strides)
+
+
+def rand_bytes(n):
+    return RNG.integers(0, 256, size=(n,), dtype=np.uint8)
+
+
+def check_semantic_geometry(ref_sb, sb):
+    ref_geom, geom = ref_plan_geometry(ref_sb), plan_geometry(sb)
+    assert (ref_geom is None) == (geom is None)
+    if geom is not None:
+        for f in SEMANTIC_FIELDS:
+            assert getattr(geom, f) == getattr(ref_geom, f), f
+
+
+def check_roundtrip(dt, strategies=STRATEGIES, incount=1):
+    ref_ct, ct = REF_REG.commit(dt), REG.commit(port(dt))
+    assert ct.fingerprint == ref_ct.fingerprint
+    need = ref_ct.extent * incount
+    buf, dst = rand_bytes(need + 37), rand_bytes(need + 37)  # ragged tail
+    for strat in strategies:
+        want = np.asarray(ref_pack(jnp.asarray(buf), ref_ct, incount=incount, strategy=strat))
+        got = pack(torch.from_numpy(buf.copy()), ct, incount, strat)
+        assert tuple(got.shape) == (ct.size * incount,)
+        np.testing.assert_array_equal(got.numpy(), want, err_msg=f"pack:{strat}")
+        want_dst = np.asarray(
+            ref_unpack(jnp.asarray(dst), jnp.asarray(want), ref_ct, incount=incount,
+                       strategy=strat)
+        )
+        d = torch.from_numpy(dst.copy())
+        assert unpack(d, got, ct, incount, strat) is d  # in place
+        np.testing.assert_array_equal(d.numpy(), want_dst, err_msg=f"unpack:{strat}")
+    if ref_ct.block is not None and ref_ct.block.ndims in (2, 3):
+        check_semantic_geometry(ref_ct.block, ct.block)
+
+
+# ---------------------------------------------------------------------------
+# the reference's sweeps
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("blocklen_bytes", [8, 32, 100, 128])
+@pytest.mark.parametrize("count", [1, 2, 13, 64])
+def test_pack_2d_vector_sweep(blocklen_bytes, count):
+    check_roundtrip(rc.Vector(count, blocklen_bytes, 512, rc.BYTE))
+
+
+@pytest.mark.parametrize("named", [rc.BYTE, rc.INT16, rc.FLOAT, rc.FLOAT16, rc.INT32])
+def test_pack_2d_dtype_sweep(named):
+    w = named.extent
+    check_roundtrip(rc.Vector(24, 96 // w, 640 // w, named))
+
+
+@pytest.mark.parametrize("start", [0, 1, 3, 64, 129])
+def test_pack_2d_offsets(start):
+    check_roundtrip(rc.Subarray((256, 40), (100, 24), (start, 7), rc.BYTE))
+
+
+@pytest.mark.parametrize(
+    "alloc,ext,starts",
+    [
+        ((64, 32, 16), (40, 13, 7), (8, 3, 2)),
+        ((256, 8, 4), (100, 8, 4), (0, 0, 0)),
+        ((128, 16, 8), (128, 5, 3), (0, 2, 1)),
+        ((512, 4, 4), (12, 3, 2), (64, 1, 1)),
+        ((32, 32, 32), (4, 32, 32), (28, 0, 0)),
+    ],
+)
+def test_pack_3d_subarray_sweep(alloc, ext, starts):
+    check_roundtrip(rc.Subarray(alloc, ext, starts, rc.BYTE))
+
+
+@pytest.mark.parametrize("named", [rc.BYTE, rc.FLOAT])
+@pytest.mark.parametrize("region", ["face", "edge", "corner"])
+def test_pack_3d_halo_faces(named, region):
+    n, r = 32, 2
+    alloc = (n * named.extent, n, n) if named is rc.BYTE else (n, n, n)
+    dt = {
+        "face": rc.Subarray(alloc, (r, n, n), (0, 0, 0), named),
+        "edge": rc.Subarray(alloc, (r, r, n), (4, 4, 0), named),
+        "corner": rc.Subarray(alloc, (r, r, r), (n - r, n - r, n - r), named),
+    }[region]
+    check_roundtrip(dt)
+
+
+@pytest.mark.parametrize("incount", [1, 2, 3])
+def test_incount(incount):
+    check_roundtrip(rc.Vector(6, 20, 50, rc.BYTE), incount=incount)
+    check_roundtrip(
+        rc.Subarray((64, 8, 4), (16, 4, 2), (4, 1, 1), rc.BYTE),
+        strategies=("rows", "dma", "auto"),
+        incount=incount,
+    )
+
+
+def test_contig_and_1d():
+    check_roundtrip(rc.Contiguous(1000, rc.FLOAT), strategies=("auto",))
+    check_roundtrip(rc.Subarray((4096,), (100,), (30,), rc.BYTE), strategies=("auto",))
+
+
+def test_user_dtype_buffers():
+    """pack takes any contiguous tensor (a byte view); unpack writes into
+    it in place, keeping its shape and dtype."""
+    dt = rc.Vector(8, 16, 48, rc.FLOAT)
+    ref_ct, ct = REF_REG.commit(dt), REG.commit(port(dt))
+    arr = RNG.normal(size=(64, 64)).astype(np.float32)
+    want = np.asarray(ref_pack(jnp.asarray(arr), ref_ct))
+    got = pack(torch.from_numpy(arr.copy()), ct)
+    np.testing.assert_array_equal(got.numpy(), want)
+    want_out = np.asarray(ref_unpack(jnp.zeros((64, 64), jnp.float32), jnp.asarray(want), ref_ct))
+    out = torch.zeros((64, 64), dtype=torch.float32)
+    assert unpack(out, got, ct) is out
+    assert out.shape == (64, 64) and out.dtype == torch.float32
+    np.testing.assert_array_equal(out.numpy(), want_out)
+
+
+def test_geometry_semantic_fields_match_the_reference():
+    ref_ct, ct = REF_REG.commit(rc.Vector(13, 25, 128, rc.FLOAT)), REG.commit(
+        port(rc.Vector(13, 25, 128, rc.FLOAT))
+    )
+    check_semantic_geometry(ref_ct.block, ct.block)
+    g = plan_geometry(ct.block)
+    assert (g.word_bytes, g.lanes, g.pitch, g.rows, g.planes) == (4, 25, 128, 13, 1)
+    assert g.overfetch == pytest.approx(128 / 25)
+    assert g.packed_bytes == ct.size and not g.interleaved
+
+
+def test_planner_rejects_straddle_and_bad_plane_stride():
+    assert plan_geometry(tc.StridedBlock(200, (100, 5), (1, 256))) is None
+    assert plan_geometry(tc.StridedBlock(0, (8, 4, 2), (1, 32, 100))) is None
+
+
+# ---------------------------------------------------------------------------
+# planes that share rows: the last plane wins, as in the reference's
+# sequential grid (rows switches to the dma kernel, the reference's rule)
+# ---------------------------------------------------------------------------
+
+INTERLEAVED = [
+    rc.StridedBlock(4, (8, 6, 3), (1, 16, 32)),     # W = 4, plane_rows 2 < rows 6
+    rc.StridedBlock(1, (5, 4, 5), (1, 7, 7)),       # W = 1, plane_rows 1
+    rc.StridedBlock(2, (6, 3, 4), (1, 10, 20)),     # W = 2, plane_rows 2
+]
+
+
+@pytest.mark.parametrize("k", range(len(INTERLEAVED)))
+@pytest.mark.parametrize("which", ["dma", "rows"])
+def test_interleaved_planes_unpack_like_the_reference(k, which):
+    ref_sb = INTERLEAVED[k]
+    sb = port_block(ref_sb)
+    geom = plan_geometry(sb)
+    assert geom is not None and geom.interleaved
+    check_semantic_geometry(ref_sb, sb)
+    n = geom.span_bytes + 11
+    dst, packed = rand_bytes(n), rand_bytes(ref_sb.size)
+    ref_strat, strat = {"dma": (REF_DMA, DMA), "rows": (REF_ROWS, ROWS)}[which]
+    want = np.asarray(
+        ref_strat.unpack_leaf(jnp.asarray(dst), jnp.asarray(packed), ref_sb,
+                              ref_plan_geometry(ref_sb), True)
+    )
+    d = torch.from_numpy(dst.copy()).view(1, -1)
+    strat.unpack_leaf(d, torch.from_numpy(packed.copy()).view(1, -1), sb, geom)
+    np.testing.assert_array_equal(d.view(-1).numpy(), want)
+
+
+def test_unpack_rows_refuses_interleaved_planes():
+    geom = plan_geometry(port_block(INTERLEAVED[0]))
+    dst = torch.zeros((1, geom.span_bytes), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="unpack_dma"):
+        unpack_rows(dst, torch.zeros((1, geom.packed_bytes), dtype=torch.uint8), geom)
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers on the CPU
+# ---------------------------------------------------------------------------
+
+def _batch(geom, batch):
+    src = torch.from_numpy(RNG.integers(0, 256, size=(batch, geom.span_bytes + 8),
+                                        dtype=np.uint8))
+    return src
+
+
+@pytest.mark.parametrize("batch", [1, 8])
+def test_wrappers_take_the_plain_version_on_the_cpu(batch):
+    """On a CPU tensor every wrapper runs its plain version, launches no
+    kernel, and a batch of buffers equals the buffers one by one."""
+    geom = plan_geometry(port_block(rc.StridedBlock(12, (8, 5, 3), (1, 40, 400))))
+    src = _batch(geom, batch)
+    reset_launch_counts()
+    want = pack_plain(src, geom, torch.empty((batch, geom.packed_bytes), dtype=torch.uint8))
+    for fn in (pack_rows, pack_dma):
+        np.testing.assert_array_equal(fn(src, geom).numpy(), want.numpy())
+    for b in range(batch):
+        np.testing.assert_array_equal(pack_rows(src[b : b + 1], geom).numpy(), want[b : b + 1].numpy())
+    dst0 = _batch(geom, batch)
+    want_dst = unpack_plain(dst0.clone(), want, geom)
+    for fn in (unpack_rows, unpack_dma):
+        d = dst0.clone()
+        assert fn(d, want, geom) is d
+        np.testing.assert_array_equal(d.numpy(), want_dst.numpy())
+    assert launch_counts() == {"pack_rows": 0, "pack_dma": 0, "unpack_rows": 0, "unpack_dma": 0}
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    geom = plan_geometry(port_block(rc.StridedBlock(12, (8, 5, 3), (1, 40, 400))))
+    out = torch.empty((1, geom.packed_bytes), dtype=torch.uint8)
+    with pytest.raises(ValueError, match="spans"):
+        pack_rows(torch.zeros((1, geom.span_bytes - 1), dtype=torch.uint8), geom, out)
+    with pytest.raises(TypeError):
+        pack_dma(torch.zeros((1, geom.span_bytes), dtype=torch.int32), geom, out)
+    with pytest.raises(ValueError, match="shape"):
+        pack_rows(torch.zeros((2, geom.span_bytes), dtype=torch.uint8), geom, out)
+
+
+# ---------------------------------------------------------------------------
+# the stencil window primitives (jnp in the reference, plain torch here)
+# ---------------------------------------------------------------------------
+
+def test_stencil_primitives_match_the_reference():
+    """Same offsets, same accumulation order; 2e-6 as in the reference's
+    stencil test (XLA may contract multiply-adds)."""
+    from repro.halo.stencil import StencilOp as RefStencilOp
+    from repro.kernels import ops as rops
+    from repro_torch.kernels import ops
+
+    arr = RNG.normal(size=(9, 8, 7)).astype(np.float32)
+    a, j = torch.from_numpy(arr.copy()), jnp.asarray(arr)
+    op, op2 = RefStencilOp((1, 1, 1)), RefStencilOp((2, 1, 1), 0.3)
+    origin, shape = (1, 1, 1), (7, 6, 5)
+    tol = dict(rtol=2e-6, atol=2e-6)
+    np.testing.assert_allclose(
+        ops.shifted_window_sum(a, op.offsets, origin, shape).numpy(),
+        np.asarray(rops.shifted_window_sum(j, op.offsets, origin, shape)), **tol)
+    np.testing.assert_allclose(
+        ops.stencil_window_update(a, op2.offsets, op2.weight, (2, 1, 1), (5, 6, 5)).numpy(),
+        np.asarray(rops.stencil_window_update(j, op2.offsets, op2.weight, (2, 1, 1), (5, 6, 5))),
+        **tol)
+    stages = [(o.offsets, o.weight, o.radii) for o in (op, op2)]
+    got, want = ops.stencil_window_chain(a, stages), rops.stencil_window_chain(j, stages)
+    assert [tuple(g.shape) for g in got] == [tuple(w.shape) for w in want] == [(7, 6, 5), (3, 4, 3)]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **tol)
+    with pytest.raises(ValueError, match="too small"):
+        ops.stencil_window_chain(a, stages * 2)
+
+
+def test_stencil_primitives_update_every_rank_at_once():
+    """A leading rank dimension changes nothing per rank, bit for bit."""
+    from repro_torch.halo import STENCIL26
+    from repro_torch.kernels import ops
+
+    arr = torch.from_numpy(RNG.normal(size=(3, 8, 7, 6)).astype(np.float32))
+    args = (STENCIL26.offsets, STENCIL26.weight, (1, 1, 1), (6, 5, 4))
+    batched = ops.stencil_window_update(arr, *args)
+    for r in range(3):
+        assert torch.equal(batched[r], ops.stencil_window_update(arr[r], *args))
+
+
+def test_byte_and_word_views_share_storage():
+    from repro_torch.kernels import ops
+
+    x = torch.arange(12, dtype=torch.float32).view(3, 4)
+    b = ops.byte_view(x)
+    assert b.dtype == torch.uint8 and b.numel() == 48 and b.data_ptr() == x.data_ptr()
+    words = ops.as_words(b, 4)
+    words[5] = 0
+    assert x[1, 1] == 0
+    assert torch.equal(ops.unbyte_view(b, torch.float32, (3, 4)), x)
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.byte_view(x.t())
+
+
+def test_misaligned_operands_take_one_byte_words():
+    """A packed slot at an odd wire offset cannot be addressed in 4-byte
+    words: the kernels then run the same bytes as 1-byte words."""
+    from repro_torch.kernels import ops
+
+    sb = port_block(rc.StridedBlock(64, (8, 4), (1, 16)))
+    geom = plan_geometry(sb)
+    assert geom.word_bytes == 4
+    buf = torch.zeros((2, 256), dtype=torch.uint8)
+    wire = torch.zeros((2, 64), dtype=torch.uint8)
+    assert ops._fit(geom, sb, buf, wire[:, 16:48]) is geom
+    odd = ops._fit(geom, sb, buf, wire[:, 15:47])
+    assert odd.word_bytes == 1
+    assert (odd.packed_bytes, odd.span_bytes) == (geom.packed_bytes, geom.span_bytes)
