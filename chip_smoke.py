@@ -8,8 +8,11 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            all sources at once (seconds printed);
 2. kernels hold each of the four kernels against its plain PyTorch
            version on the card, bit-exact: on a subset of the CPU test
-           sweeps, on planes that share rows, and on the 26 send and 26
-           receive types of the full-width halo, 8 ranks per launch;
+           sweeps, on planes that share rows, on alignment cases that
+           drive the row kernels through every vector width V (16, 8, 4,
+           2, 1 bytes) on both their paths (a warp per row, one thread
+           per vector), and on the 26 send and 26 receive types of the
+           full-width halo, 8 ranks per launch;
 3. main    8 ranks on a periodic 2x2x2 grid, 256^3 float32 interior per
            rank, radius 2, all ranks in one (8, 260, 260, 260) tensor.
            One exchange under ``tempi``, ``rows``, ``dma`` and
@@ -20,12 +23,18 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            applications against a ``torch.roll`` periodic oracle
            (rtol = atol = 1e-5: float32 sums in another order).  Kernel
            launch counts are zeroed just before this phase and read just
-           after it; every kernel must have run;
-4. timing  CUDA-event times of each kernel at the x-, y- and z-face
-           shapes (L2 flushed before every call), beside its plain
-           version, one PyTorch strided copy (``library_ms``) and its
-           bound (bytes read + written at 3.35 TB/s); host-clock ms per
-           exchange and CUDA-event ms per stencil application.
+           after it; every kernel must have run, and each mode's launches
+           per exchange must match its plan;
+4. timing  CUDA-event times of each kernel (L2 flushed before every
+           call), beside its plain version, one PyTorch strided copy
+           (``library_ms``) and its bound (bytes read + written at
+           3.35 TB/s): at the x-, y- and z-face shapes for all four
+           kernels, and at every distinct shape the ``tempi`` plan
+           launches each kernel at, with its launches per exchange and,
+           for the row kernels, the vector width and path it took; the
+           timer's floor (an empty launch; the y/z-face row kernels with
+           L2 left clean); host-clock ms per exchange and CUDA-event ms
+           per stencil application.
 
 Prints one JSON line ``{"kernels": [...]}``, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -71,18 +80,26 @@ def card_line() -> str:
 
 class Timer:
     """Device time of one call, L2 flushed before it, the host's enqueue
-    hidden behind a spin kernel; median of ``REPS`` calls."""
+    hidden behind a spin kernel; median of ``REPS`` calls.  The flush
+    writes a 256 MB buffer, which leaves L2 full of dirty lines; with
+    ``clean_l2`` it reads the buffer instead (a diagnostic of what those
+    lines' write-back costs a timed call; the reported times keep the
+    writing flush)."""
 
-    def __init__(self, torch, dev):
+    def __init__(self, torch, dev, clean_l2=False):
         self.torch = torch
         self.flush = torch.empty(FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        self.clean_l2 = clean_l2
 
     def ms(self, fn, reps: int = REPS) -> float:
         torch = self.torch
         fn()
         pairs = []
         for _ in range(reps):
-            self.flush.zero_()
+            if self.clean_l2:
+                self.flush.sum()
+            else:
+                self.flush.zero_()
             torch.cuda._sleep(SLEEP_CYCLES)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
@@ -110,9 +127,9 @@ def wall_ms(torch, fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 KERNEL_INFO = {
-    "pack_rows": ("src/repro_torch/kernels/csrc/pack.cu", "src/repro/kernels/pack.py:100"),
+    "pack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/pack.py:100"),
     "pack_dma": ("src/repro_torch/kernels/csrc/pack.cu", "src/repro/kernels/pack.py:143"),
-    "unpack_rows": ("src/repro_torch/kernels/csrc/unpack.cu", "src/repro/kernels/unpack.py:77"),
+    "unpack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/unpack.py:77"),
     "unpack_dma": ("src/repro_torch/kernels/csrc/unpack.cu", "src/repro/kernels/unpack.py:113"),
 }
 
@@ -133,7 +150,8 @@ def phase_build():
 
 class KernelCheck:
     """Holds every kernel against its plain version; keeps the largest
-    difference seen per kernel (0 when bit-exact)."""
+    difference seen per kernel (0 when bit-exact) and, per row kernel,
+    the (vector bytes, path) pairs it ran."""
 
     def __init__(self, torch, dev):
         from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
@@ -144,6 +162,7 @@ class KernelCheck:
         self.unpack = {"unpack_rows": unpack_rows, "unpack_dma": unpack_dma}
         self.pack_plain, self.unpack_plain = pack_plain, unpack_plain
         self.err = dict.fromkeys(KERNEL_INFO, 0.0)
+        self.row_paths = {"pack_rows": set(), "unpack_rows": set()}
         self.checks = 0
 
     def _diff(self, name, got, want, what):
@@ -153,13 +172,32 @@ class KernelCheck:
         if d != 0 or not self.torch.equal(got, want):
             fail(f"{name} differs from its plain version on {what}")
 
-    def pack_side(self, src, geom, what):
+    def _ran(self, name, geom, a, b):
+        if name in self.row_paths:
+            self.row_paths[name].add(row_launch(geom, a, b))
+
+    def pack_side(self, src, geom, what, wire_offset=None):
+        """Pack ``src`` with every pack kernel and the plain version;
+        returns the plain result.  With ``wire_offset`` each kernel packs
+        into the slot at that byte of a wider wire, whose other bytes
+        must stay as they were; the result is then that slot (a view)."""
         torch = self.torch
-        want = self.pack_plain(src, geom, torch.empty((src.shape[0], geom.packed_bytes),
-                                                      dtype=torch.uint8, device=self.dev))
+        B, size = src.shape[0], geom.packed_bytes
+        want = self.pack_plain(src, geom, torch.empty((B, size), dtype=torch.uint8,
+                                                      device=self.dev))
         for name, fn in self.pack.items():
-            self._diff(name, fn(src, geom), want, what)
-        return want
+            if wire_offset is None:
+                got = fn(src, geom)
+            else:
+                wire = torch.full((B, wire_offset + size + 8), 0x5A, dtype=torch.uint8,
+                                  device=self.dev)
+                got = fn(src, geom, wire[:, wire_offset:wire_offset + size])
+                rest = torch.cat([wire[:, :wire_offset], wire[:, wire_offset + size:]], 1)
+                self._diff(name, rest, torch.full_like(rest, 0x5A),
+                           f"{what}: wire bytes around the slot")
+            self._ran(name, geom, src, got)
+            self._diff(name, got, want, what)
+        return want if wire_offset is None else got
 
     def unpack_side(self, dst, packed, geom, what):
         want = self.unpack_plain(dst.clone(), packed, geom)
@@ -168,6 +206,7 @@ class KernelCheck:
                 continue  # the rows kernel takes disjoint planes only
             got = dst.clone()
             fn(got, packed, geom)
+            self._ran(name, geom, got, packed)
             self._diff(name, got, want, what)
 
 
@@ -191,22 +230,70 @@ def sweep_blocks():
     return blocks
 
 
+def row_launch(geom, a, b):
+    """The (vector bytes, path name) a row kernel takes on the strided
+    ``a`` and the packed ``b``."""
+    from repro_torch.kernels.pack import ROW_PATHS, row_args
+
+    vec, path = row_args(geom, a, b)
+    return vec, ROW_PATHS[path]
+
+
+def vector_cases():
+    """Blocks that drive the row kernels through every vector width V and
+    both paths: ``(block, word_bytes or None, odd, wire offset or
+    None)``.  The buffers are the span rounded up to 16 bytes, plus one
+    when ``odd`` (an odd batch stride); a wire offset packs into a slot
+    that many bytes into a wider wire buffer."""
+    from repro_torch.core import StridedBlock as SB
+
+    face = SB(8, (1024, 4, 2), (1, 1040, 4160))      # a halo face: rows at 8 mod 16
+    return [
+        (SB(0, (1024, 3, 2), (1, 2048, 8192)), None, 0, None),  # V 16, warp
+        (SB(16, (48, 5, 3), (1, 64, 512)), None, 0, None),       # V 16, flat
+        (face, None, 0, None),                                   # V 8, warp
+        (SB(8, (8, 2, 2), (1, 1040, 4160)), None, 0, None),      # V 8, flat (corner)
+        (SB(4, (1024, 3, 2), (1, 1040, 4160)), None, 0, None),   # rows at 4 mod 8: V 4
+        (SB(16, (12, 5, 2), (1, 64, 320)), None, 0, None),       # 12-byte rows: V 4, flat
+        (SB(0, (1036, 3, 2), (1, 2048, 8192)), None, 0, None),   # 1036 B: V 4, 3 chunks
+        (face, None, 0, 4),                                      # slot 4 B into a wire: V 4
+        (SB(2, (514, 3, 2), (1, 1030, 4120)), None, 0, None),    # W 2: V 2, warp
+        (SB(6, (10, 4, 3), (1, 30, 150)), None, 0, None),        # W 2: V 2, flat
+        (SB(3, (513, 3, 2), (1, 1027, 4108)), None, 0, None),    # W 1: V 1, warp
+        (SB(1, (13, 4, 2), (1, 100, 500)), None, 0, None),       # W 1: V 1, flat
+        (face, 1, 1, None),                                      # odd batch stride: V 1
+        (SB(0, (1024, 3, 2), (1, 2048, 8192)), 1, 0, None),      # W 1 but V 16
+        (SB(8, (1024, 7), (1, 1040)), None, 0, None),            # 2D: V 8
+        (SB(16, (65536, 3), (1, 65552)), None, 0, None),         # 64 KB rows: 32 chunks
+    ]
+
+
 def phase_kernels(torch, dev, spec, check):
     from repro_torch.comm import Communicator
     from repro_torch.halo import make_halo_types
     from repro_torch.kernels.geometry import plan_geometry
+    from repro_torch.kernels.pack import ROW_PATHS, VECTOR_BYTES
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    for sb in sweep_blocks():
-        geom = plan_geometry(sb)
+    cases = [(sb, None, None, None) for sb in sweep_blocks()] + vector_cases()
+    for sb, word, odd, wire_offset in cases:
+        geom = plan_geometry(sb, word_bytes=word)
         if geom is None:
             fail(f"no kernel geometry for sweep block {sb}")
-        n = (geom.span_bytes + 13 + 7) // 8 * 8
+        if odd is None:  # the CPU tests' sweeps: a ragged tail, 8-byte batch stride
+            n = (geom.span_bytes + 13 + 7) // 8 * 8
+        else:
+            n = (geom.span_bytes + 15) // 16 * 16 + odd
         for batch in (1, 8):
+            what = f"{sb} W {geom.word_bytes} batch {batch} wire offset {wire_offset}"
             src = torch.randint(0, 256, (batch, n), dtype=torch.uint8, device=dev, generator=gen)
-            packed = check.pack_side(src, geom, f"{sb} batch {batch}")
+            packed = check.pack_side(src, geom, what, wire_offset)
             dst = torch.randint(0, 256, (batch, n), dtype=torch.uint8, device=dev, generator=gen)
-            check.unpack_side(dst, packed, geom, f"{sb} batch {batch}")
+            check.unpack_side(dst, packed, geom, what)
+    want = {(v, path) for v in VECTOR_BYTES for path in ROW_PATHS}
+    for name, ran in check.row_paths.items():
+        if ran != want:
+            fail(f"{name} never ran (vector bytes, path) {sorted(want - ran)}")
     # the 52 region types of the full-width halo, all 8 ranks per launch
     types = make_halo_types(spec, Communicator(device=dev))
     state = torch.randint(0, 256, (spec.nranks, 4 * int(torch.tensor(spec.alloc).prod())),
@@ -217,7 +304,8 @@ def phase_kernels(torch, dev, spec, check):
     torch.cuda.synchronize()
     del state
     print(f"[kernels] {check.checks} comparisons, all bit-exact; "
-          f"max |diff| per kernel {check.err}")
+          f"max |diff| per kernel {check.err}; row kernels ran every (vector bytes, path) "
+          f"of {sorted(want)}")
 
 
 def global_layout(torch, spec, dev):
@@ -273,15 +361,22 @@ def phase_main(torch, dev, spec, timings):
             fail(f"{mode}: transport counted {comm.wire_payload_bytes} bytes, plan "
                  f"issues {step.plan.wire.issued_bytes}")
         if mode == "baseline":
-            ms = first_ms  # per-block copies are slow on purpose: one exchange
+            ms, exchanges = first_ms, 1  # per-block copies are slow on purpose
         else:
-            ms = wall_ms(torch, lambda: step(local), 5)
+            ms, exchanges = wall_ms(torch, lambda: step(local), 5), 6
         timings[f"exchange_ms_{mode}"] = ms
         per_mode[mode] = {k: launch_counts()[k] - before[k] for k in before}
+        planned = plan_launches(step.plan)
+        if any(per_mode[mode][k] != exchanges * planned[k] for k in planned):
+            fail(f"{mode}: {per_mode[mode]} launches in {exchanges} exchanges; the plan "
+                 f"launches {planned} per exchange")
+        if mode == "tempi":
+            timings["tempi_launches_per_exchange"] = planned
         print(f"[main] {mode}: exchange bit-exact, schedule {step.plan.wire.schedule}, "
               f"{step.plan.wire.issued_bytes} bytes/rank issued, "
               f"strategies {sorted({s.name for s in step.plan.strategies})}, "
-              f"{ms:.3f} ms/exchange (host clock), launches {per_mode[mode]}")
+              f"{ms:.3f} ms/exchange (host clock), launches {per_mode[mode]} in "
+              f"{exchanges} exchanges, per exchange {planned}")
         del local
 
     comm = Communicator(policy=FixedPolicy("rows"), device=dev)
@@ -342,6 +437,41 @@ def phase_main(torch, dev, spec, timings):
     return counts
 
 
+def plan_launches(plan):
+    """Kernel launches one exchange of ``plan`` makes: a pack and an
+    unpack per region whose strategy has a kernel (the halo's planes
+    never share rows, so a ``rows`` region unpacks with ``unpack_rows``)."""
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+    for strat in plan.strategies:
+        for side in ("pack", "unpack"):
+            if f"{side}_{strat.name}" in counts:
+                counts[f"{side}_{strat.name}"] += 1
+    return counts
+
+
+def main_path_shapes(spec, dev):
+    """Every distinct (kernel, lanes, rows, planes) among the 52 region
+    launches of one ``tempi`` exchange: its geometry, the first region
+    that launches it, and its launches per exchange."""
+    from repro_torch.comm import Communicator, policy_for_mode
+    from repro_torch.halo import DIRECTIONS, make_halo_plan
+    from repro_torch.kernels.geometry import plan_geometry
+
+    plan = make_halo_plan(spec, Communicator(policy=policy_for_mode("tempi"), device=dev))
+    shapes = {}
+    for d, strat, send_ct, recv_ct in zip(DIRECTIONS, plan.strategies, plan.send_cts,
+                                          plan.recv_cts):
+        for side, ct in (("pack", send_ct), ("unpack", recv_ct)):
+            kernel = f"{side}_{strat.name}"
+            if kernel not in KERNEL_INFO:
+                fail(f"tempi picked {strat.name!r} for region {d}: no kernel to time")
+            geom = plan_geometry(ct.block)
+            key = (kernel, geom.lanes, geom.rows, geom.planes)
+            shapes.setdefault(key, {"kernel": kernel, "geom": geom, "region": d,
+                                    "launches": 0})["launches"] += 1
+    return list(shapes.values())
+
+
 def face_shapes(spec, dev):
     """The x-, y- and z-face send and receive geometries of the full-width
     halo (directions (0,0,1), (0,1,0), (1,0,0))."""
@@ -357,55 +487,73 @@ def face_shapes(spec, dev):
     return faces
 
 
-def phase_timing(torch, dev, spec, check):
+def time_kernel(torch, timer, kernel, geom, words):
+    """Times of one kernel at one geometry on the float32 state ``words``
+    (``(R, n)``): the kernel, its plain version, one PyTorch strided copy
+    of the same bytes, and the bound (bytes read + written at HBM rate)."""
     from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
     from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
 
+    R = words.shape[0]
+    state = words.view(torch.uint8)
+    if geom.word_bytes != 4:
+        fail(f"{kernel} at {geom}: word {geom.word_bytes}, expected 4-byte words")
+    packed = torch.empty((R, geom.packed_bytes), dtype=torch.uint8, device=words.device)
+    strided = words.view(torch.int32).as_strided(
+        (R, geom.planes, geom.rows, geom.lanes),
+        (words.stride(0), geom.plane_rows * geom.pitch, geom.pitch, 1),
+        geom.q * geom.pitch + geom.r,
+    )
+    pk_words = packed.view(torch.int32).view(R, geom.planes, geom.rows, geom.lanes)
+    fn = {"pack_rows": pack_rows, "pack_dma": pack_dma,
+          "unpack_rows": unpack_rows, "unpack_dma": unpack_dma}[kernel]
+    if kernel.startswith("pack"):
+        fns = (lambda: fn(state, geom, packed), lambda: pack_plain(state, geom, packed),
+               lambda: strided.contiguous())
+    else:
+        fns = (lambda: fn(state, packed, geom), lambda: unpack_plain(state, packed, geom),
+               lambda: strided.copy_(pk_words))
+    ms, plain_ms, library_ms = (timer.ms(f) for f in fns)
+    nbytes = R * geom.packed_bytes
+    row = {"kernel": kernel, "lanes": geom.lanes, "rows": geom.rows, "planes": geom.planes,
+           "pitch": geom.pitch, "batch": R, "bytes": 2 * nbytes, "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
+    if kernel.endswith("rows"):
+        row["vector_bytes"], row["path"] = row_launch(geom, state, packed)
+    return row
+
+
+def phase_timing(torch, dev, spec):
+    """Every kernel at the x-, y- and z-face shapes (PR 11's table), and
+    every kernel at each shape the ``tempi`` exchange launches it at."""
     timer = Timer(torch, dev)
     R = spec.nranks
     words = torch.randn((R,) + spec.alloc, device=dev).view(R, -1)  # float32 state
-    state = words.view(torch.uint8)
-    rows = []
+    faces = []
     for face, (sg, rg) in face_shapes(spec, dev).items():
         for kernel in KERNEL_INFO:
             geom = sg if kernel.startswith("pack") else rg
-            w = geom.word_bytes
-            nbytes = R * geom.packed_bytes
-            packed = torch.empty((R, geom.packed_bytes), dtype=torch.uint8, device=dev)
-            strided = words.view(torch.int32).as_strided(
-                (R, geom.planes, geom.rows, geom.lanes),
-                (words.stride(0), geom.plane_rows * geom.pitch, geom.pitch, 1),
-                geom.q * geom.pitch + geom.r,
-            ) if w == 4 else None
-            if strided is None:
-                fail(f"{face} face: word {w}, expected 4-byte words")
-            pk_words = packed.view(torch.int32).view(R, geom.planes, geom.rows, geom.lanes)
-            if kernel == "pack_rows":
-                fns = (lambda: pack_rows(state, geom, packed),
-                       lambda: pack_plain(state, geom, packed),
-                       lambda: strided.contiguous())
-            elif kernel == "pack_dma":
-                fns = (lambda: pack_dma(state, geom, packed),
-                       lambda: pack_plain(state, geom, packed),
-                       lambda: strided.contiguous())
-            elif kernel == "unpack_rows":
-                fns = (lambda: unpack_rows(state, packed, geom),
-                       lambda: unpack_plain(state, packed, geom),
-                       lambda: strided.copy_(pk_words))
-            else:
-                fns = (lambda: unpack_dma(state, packed, geom),
-                       lambda: unpack_plain(state, packed, geom),
-                       lambda: strided.copy_(pk_words))
-            ms, plain_ms, library_ms = (timer.ms(f) for f in fns)
-            rows.append({
-                "kernel": kernel, "face": face, "lanes": geom.lanes, "rows": geom.rows,
-                "planes": geom.planes, "pitch": geom.pitch, "batch": R,
-                "bytes": 2 * nbytes, "ms": ms, "plain_ms": plain_ms,
-                "library_ms": library_ms, "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
-            })
-    del words, state, timer
+            faces.append(dict(face=face, **time_kernel(torch, timer, kernel, geom, words)))
+    shapes = []
+    for shape in main_path_shapes(spec, dev):
+        row = time_kernel(torch, timer, shape["kernel"], shape["geom"], words)
+        shapes.append(dict(region=list(shape["region"]), launches_per_exchange=shape["launches"],
+                           **row))
+    # the timer's floor: an empty launch, and the y/z-face row kernels and
+    # library call after a flush that leaves L2 clean
+    clean = Timer(torch, dev, clean_l2=True)
+    floor = {"empty_launch_ms": timer.ms(lambda: torch.cuda._sleep(0)),
+             "empty_launch_ms_clean_l2": clean.ms(lambda: torch.cuda._sleep(0))}
+    for face, (sg, rg) in face_shapes(spec, dev).items():
+        if face != "x":
+            for kernel, geom in (("pack_rows", sg), ("unpack_rows", rg)):
+                row = time_kernel(torch, clean, kernel, geom, words)
+                floor[f"{kernel}_{face}_ms_clean_l2"] = row["ms"]
+                floor[f"library_{kernel}_{face}_ms_clean_l2"] = row["library_ms"]
+    del words, timer, clean
     torch.cuda.empty_cache()
-    return rows
+    return faces, shapes, floor
 
 
 def main() -> int:
@@ -433,7 +581,7 @@ def main() -> int:
     check = KernelCheck(torch, dev)
     phase_kernels(torch, dev, spec, check)
     counts = phase_main(torch, dev, spec, timings)
-    faces = phase_timing(torch, dev, spec, check)
+    faces, shapes, floor = phase_timing(torch, dev, spec)
 
     kernels = []
     for kernel, (source, replaces) in KERNEL_INFO.items():
@@ -444,9 +592,14 @@ def main() -> int:
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),
             "bound_ms": sum(f["bound_ms"] for f in mine), "bound_by": "bytes",
             "library_ms": sum(f["library_ms"] for f in mine),
+            "ms_per_tempi_exchange": sum(r["ms"] * r["launches_per_exchange"]
+                                         for r in shapes if r["kernel"] == kernel),
         })
     for f in faces:
         print(json.dumps({"face": f, "card": card}))
+    for r in shapes:
+        print(json.dumps({"main_path_shape": r, "card": card}))
+    print(json.dumps({"timer_floor": floor, "card": card}))
     timings["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"timings": timings, "card": card}))
     print(json.dumps({"kernels": kernels}))

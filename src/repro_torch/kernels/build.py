@@ -42,11 +42,13 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures: (buffer, bstride, buffer, bstride, batch, word,
-#: lanes, rows, planes, pitch, base, plane_stride, device, stream)
+#: lanes, rows, planes, pitch, base, plane_stride, device, stream); the
+#: row kernels also take (vector bytes, path) before the device
 _KERNEL_ARGS = [_P, _L, _P, _L, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P]
+_ROW_KERNEL_ARGS = _KERNEL_ARGS[:12] + [_I, _I] + _KERNEL_ARGS[12:]
 _ENTRIES = {
-    "pack": ("tempi_pack_rows", "tempi_pack_dma"),
-    "unpack": ("tempi_unpack_rows", "tempi_unpack_dma"),
+    "pack": {"tempi_pack_rows": _ROW_KERNEL_ARGS, "tempi_pack_dma": _KERNEL_ARGS},
+    "unpack": {"tempi_unpack_rows": _ROW_KERNEL_ARGS, "tempi_unpack_dma": _KERNEL_ARGS},
 }
 
 
@@ -108,9 +110,9 @@ def library(name: str) -> ctypes.CDLL:
     lib = _LIBS.get(name)
     if lib is None:
         lib = ctypes.CDLL(str(build([name])[name]))
-        for entry in _ENTRIES[name]:
+        for entry, argtypes in _ENTRIES[name].items():
             fn = getattr(lib, entry)
-            fn.argtypes = _KERNEL_ARGS
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib

@@ -80,10 +80,11 @@ inline long long simt_blocks(long long total) {
   return b < kMaxGridX ? b : kMaxGridX;
 }
 
-// Whether the SIMT kernels may do their per-word index arithmetic in 32
-// bits: the packed word count and the last word a block touches (plus one
-// grid stride of headroom) stay below 2^30.  64-bit division costs several
-// times more instructions than the word copy it addresses.
+// Whether the row kernels (rows.cuh) may do their index arithmetic in 32
+// bits: the packed vector count and the last vector a block touches (plus
+// one grid stride of headroom) stay below 2^30, all in V-byte vectors.
+// 64-bit division costs several times more instructions than the copy it
+// addresses.
 inline bool fits_int(long long total, long long lanes, long long rows,
                      long long planes, long long pitch, long long base,
                      long long plane_stride) {

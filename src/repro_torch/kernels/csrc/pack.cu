@@ -3,17 +3,25 @@
 //
 // tempi_pack_rows replaces the Pallas TPU kernel `pack_rows` /
 // `_pack_rows_kernel` (src/repro/kernels/pack.py).  It is the paper's own
-// "device" kernel: a SIMT grid with one thread per W-byte word of the
-// packed output.  Threads run over the flattened (plane, row, lane) word
-// index on gridDim.x (the largest dimension, so no 65535 cap binds) and
-// the batch of buffers on gridDim.y.  Bound: the bytes it moves at HBM
-// bandwidth — each block byte read once, each packed byte written once.
-// The TPU kernel read whole pitch rows because VMEM tiles are rows; this
-// kernel reads only block bytes, so it never over-fetches a row, and the
-// writes are fully coalesced.  Reads are coalesced along a block's lanes;
-// narrow blocks (the x faces of a halo, 8 bytes at a 1 KB pitch) still
-// cost a 32-byte sector per block, which no kernel can avoid.  The index
-// arithmetic runs in 32 bits whenever the offsets fit.
+// "device" kernel, a SIMT grid over the block's rows (rows.cuh).  Bound:
+// the bytes it moves at HBM bandwidth, each block byte read once and each
+// packed byte written once.  The TPU kernel read whole pitch rows because
+// VMEM tiles are rows; this kernel reads only block bytes.
+//
+// What held the first version back at the rows the main path gives it
+// (the y and z faces and the dx = 0 edges of the halo: 1 KB rows at a
+// 1,040-byte pitch, 4 MiB per face launch for 8 ranks): one thread per
+// 4-byte word, two integer divisions per word, one 4-byte load in flight
+// per thread, too few bytes in flight per SM for a cold copy.  Now
+// (rows.cuh) a warp takes a row, or a 128-vector chunk of a longer one,
+// and finds its offsets once; words become V-byte vectors, V the widest
+// that divides every address; each thread has 4 loads in flight before
+// it stores.  At the faces V = 8 (rows start at byte 8 mod 16), a row is
+// one chunk, and a face's 4 MiB fits in flight at once (about 31 KB per
+// SM).  There is no 16-byte path with a peeled head and tail: 8-byte
+// lanes already fill whole 32-byte sectors, so 16 bytes would save
+// instructions, not bytes.  Short rows (corners: one 8-byte vector)
+// take one thread per vector.
 //
 // tempi_pack_dma replaces the Pallas TPU kernel `pack_dma` /
 // `_pack_dma_kernel` (same file).  The TPU version issued one strided DMA
@@ -28,28 +36,9 @@
 // Neither kernel reads a byte past the last block: the ragged tail of a
 // buffer is real data, and no padding copy of the buffer is ever made.
 
-#include "common.cuh"
+#include "rows.cuh"
 
 namespace tempi {
-
-template <typename T, typename I>
-__global__ void pack_rows_kernel(const unsigned char* __restrict__ src,
-                                 long long src_bstride,
-                                 unsigned char* __restrict__ out,
-                                 long long out_bstride, I lanes, I rows,
-                                 I total, I pitch, I base, I plane_stride) {
-  const T* s = reinterpret_cast<const T*>(src + blockIdx.y * src_bstride);
-  T* o = reinterpret_cast<T*>(out + blockIdx.y * out_bstride);
-  const I step = static_cast<I>(gridDim.x) * blockDim.x;
-  for (I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += step) {
-    const I pi = t / lanes;
-    const I l = t - pi * lanes;
-    const I p = pi / rows;
-    const I i = pi - p * rows;
-    o[t] = s[base + p * plane_stride + i * pitch + l];
-  }
-}
 
 template <typename T>
 __global__ void pack_dma_kernel(const unsigned char* __restrict__ src,
@@ -91,30 +80,15 @@ __global__ void pack_dma_kernel(const unsigned char* __restrict__ src,
   }
 }
 
-template <typename T>
+template <typename V>
 int launch_pack_rows(const void* src, long long src_bstride, void* out,
-                     long long out_bstride, int batch, long long lanes,
-                     long long rows, long long planes, long long pitch,
-                     long long base, long long plane_stride,
-                     cudaStream_t stream) {
-  const long long total = planes * rows * lanes;
-  const long long blocks = simt_blocks(total);
-  if (bad_launch(batch, blocks)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  const auto* s = static_cast<const unsigned char*>(src);
-  auto* o = static_cast<unsigned char*>(out);
-  if (fits_int(total, lanes, rows, planes, pitch, base, plane_stride)) {
-    pack_rows_kernel<T, int><<<grid, kThreads, 0, stream>>>(
-        s, src_bstride, o, out_bstride, static_cast<int>(lanes),
-        static_cast<int>(rows), static_cast<int>(total),
-        static_cast<int>(pitch), static_cast<int>(base),
-        static_cast<int>(plane_stride));
-  } else {
-    pack_rows_kernel<T, long long><<<grid, kThreads, 0, stream>>>(
-        s, src_bstride, o, out_bstride, lanes, rows, total, pitch, base,
-        plane_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+                     long long out_bstride, int batch, int word,
+                     long long lanes, long long rows, long long planes,
+                     long long pitch, long long base, long long plane_stride,
+                     int vec, int path, cudaStream_t stream) {
+  return launch_rows<V, true>(src, src_bstride, out, out_bstride, batch, word,
+                              lanes, rows, planes, pitch, base, plane_stride,
+                              vec, path, stream);
 }
 
 template <typename T>
@@ -139,11 +113,11 @@ extern "C" int tempi_pack_rows(const void* src, long long src_bstride,
                                void* out, long long out_bstride, int batch,
                                int word, long long lanes, long long rows,
                                long long planes, long long pitch,
-                               long long base, long long plane_stride,
-                               int device, void* stream) {
-  TEMPI_DISPATCH_WORD(device, word, launch_pack_rows, src, src_bstride, out,
-                      out_bstride, batch, lanes, rows, planes, pitch, base,
-                      plane_stride, static_cast<cudaStream_t>(stream));
+                               long long base, long long plane_stride, int vec,
+                               int path, int device, void* stream) {
+  TEMPI_DISPATCH_VEC(device, vec, launch_pack_rows, src, src_bstride, out,
+                     out_bstride, batch, word, lanes, rows, planes, pitch, base,
+                     plane_stride, vec, path, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tempi_pack_dma(const void* src, long long src_bstride,

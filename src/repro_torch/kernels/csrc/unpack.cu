@@ -7,13 +7,16 @@
 // tempi_unpack_rows replaces the Pallas TPU kernel `unpack_rows` /
 // `_unpack_rows_kernel` (src/repro/kernels/unpack.py), which fetched whole
 // pitch rows, spliced the packed lanes in VMEM and wrote the rows back
-// (input_output_aliases).  Here it is the SIMT inverse of pack_rows: one
-// thread per packed W-byte word, flattened (plane, row, lane) index on
-// gridDim.x, batch on gridDim.y, 32-bit index arithmetic where the offsets
-// fit.  Bound: packed bytes read once plus block bytes written once, at
-// HBM bandwidth; the reads are coalesced, the writes coalesced along a
-// block's lanes.  Like the TPU kernel it takes only planes whose rows are
-// disjoint (the Python wrapper refuses the others).
+// (input_output_aliases).  Here it is the exact inverse of pack_rows, the
+// same template of rows.cuh with the copy turned round: packed vectors
+// are read (read-only path) and stored into the block's rows.  Bound:
+// packed bytes read once plus block bytes written once, at HBM
+// bandwidth.  What held the first version back at the main path's 1 KB
+// face rows, and what the row-per-warp, V-byte, 4-loads-in-flight design
+// does about it, is in pack.cu's note.  It stores only block bytes: the
+// halo cells beside each row share its 32-byte sectors and are never
+// read or rewritten.  Like the TPU kernel it takes only planes whose rows
+// are disjoint (the Python wrapper refuses the others).
 //
 // tempi_unpack_dma replaces `unpack_dma` / `_unpack_dma_kernel` (same
 // file), which copied a packed row-chunk into VMEM and issued one strided
@@ -28,28 +31,9 @@
 // i >= plane_rows, and such words are skipped.  One launch, no races, the
 // reference's bytes.
 
-#include "common.cuh"
+#include "rows.cuh"
 
 namespace tempi {
-
-template <typename T, typename I>
-__global__ void unpack_rows_kernel(unsigned char* __restrict__ dst,
-                                   long long dst_bstride,
-                                   const unsigned char* __restrict__ packed,
-                                   long long packed_bstride, I lanes, I rows,
-                                   I total, I pitch, I base, I plane_stride) {
-  T* d = reinterpret_cast<T*>(dst + blockIdx.y * dst_bstride);
-  const T* pk = reinterpret_cast<const T*>(packed + blockIdx.y * packed_bstride);
-  const I step = static_cast<I>(gridDim.x) * blockDim.x;
-  for (I t = static_cast<I>(blockIdx.x) * blockDim.x + threadIdx.x; t < total;
-       t += step) {
-    const I pi = t / lanes;
-    const I l = t - pi * lanes;
-    const I p = pi / rows;
-    const I i = pi - p * rows;
-    d[base + p * plane_stride + i * pitch + l] = pk[t];
-  }
-}
 
 template <typename T>
 __global__ void unpack_dma_kernel(unsigned char* __restrict__ dst,
@@ -95,30 +79,16 @@ __global__ void unpack_dma_kernel(unsigned char* __restrict__ dst,
   }
 }
 
-template <typename T>
+template <typename V>
 int launch_unpack_rows(void* dst, long long dst_bstride, const void* packed,
-                       long long packed_bstride, int batch, long long lanes,
-                       long long rows, long long planes, long long pitch,
-                       long long base, long long plane_stride,
+                       long long packed_bstride, int batch, int word,
+                       long long lanes, long long rows, long long planes,
+                       long long pitch, long long base,
+                       long long plane_stride, int vec, int path,
                        cudaStream_t stream) {
-  const long long total = planes * rows * lanes;
-  const long long blocks = simt_blocks(total);
-  if (bad_launch(batch, blocks)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
-  auto* d = static_cast<unsigned char*>(dst);
-  const auto* pk = static_cast<const unsigned char*>(packed);
-  if (fits_int(total, lanes, rows, planes, pitch, base, plane_stride)) {
-    unpack_rows_kernel<T, int><<<grid, kThreads, 0, stream>>>(
-        d, dst_bstride, pk, packed_bstride, static_cast<int>(lanes),
-        static_cast<int>(rows), static_cast<int>(total),
-        static_cast<int>(pitch), static_cast<int>(base),
-        static_cast<int>(plane_stride));
-  } else {
-    unpack_rows_kernel<T, long long><<<grid, kThreads, 0, stream>>>(
-        d, dst_bstride, pk, packed_bstride, lanes, rows, total, pitch, base,
-        plane_stride);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_rows<V, false>(packed, packed_bstride, dst, dst_bstride, batch,
+                               word, lanes, rows, planes, pitch, base,
+                               plane_stride, vec, path, stream);
 }
 
 template <typename T>
@@ -146,11 +116,12 @@ extern "C" int tempi_unpack_rows(void* dst, long long dst_bstride,
                                  int batch, int word, long long lanes,
                                  long long rows, long long planes,
                                  long long pitch, long long base,
-                                 long long plane_stride, int device,
-                                 void* stream) {
-  TEMPI_DISPATCH_WORD(device, word, launch_unpack_rows, dst, dst_bstride,
-                      packed, packed_bstride, batch, lanes, rows, planes, pitch,
-                      base, plane_stride, static_cast<cudaStream_t>(stream));
+                                 long long plane_stride, int vec, int path,
+                                 int device, void* stream) {
+  TEMPI_DISPATCH_VEC(device, vec, launch_unpack_rows, dst, dst_bstride, packed,
+                     packed_bstride, batch, word, lanes, rows, planes, pitch,
+                     base, plane_stride, vec, path,
+                     static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int tempi_unpack_dma(void* dst, long long dst_bstride,

@@ -4,8 +4,10 @@ Two kernels cover every canonical 2D/3D StridedBlock (paper §3.3: "each
 MPI datatype is mapped to one of two kernel implementations
 parameterized by W"):
 
-* :func:`pack_rows` — the paper's "device" kernel: a SIMT grid, one
-  thread per W-byte word (``csrc/pack.cu``, ``tempi_pack_rows``).
+* :func:`pack_rows` — the paper's "device" kernel: a SIMT grid over the
+  block's rows in V-byte vectors (``csrc/rows.cuh``, entry
+  ``tempi_pack_rows`` in ``csrc/pack.cu``).  The host picks V
+  (:func:`vector_bytes`) and the path (:func:`row_path`) at each launch.
 * :func:`pack_dma`  — tiles staged through shared memory with
   ``cp.async``, then stored contiguously (``tempi_pack_dma``).
 
@@ -35,6 +37,9 @@ __all__ = [
     "pack_plain",
     "pack_ragged",
     "aligned",
+    "row_args",
+    "row_path",
+    "vector_bytes",
     "block_index",
     "check_operands",
     "launch",
@@ -90,19 +95,67 @@ def check_operands(
                 raise ValueError(f"{name} is not aligned to the {w}-byte word")
 
 
+def _base_and_plane_stride(geom: PackGeometry):
+    """Word offset of block (0, 0) and the word stride between planes."""
+    return geom.q * geom.pitch + geom.r, geom.plane_rows * geom.pitch
+
+
 def launch(lib_name: str, entry: str, a: torch.Tensor, b: torch.Tensor,
-           geom: PackGeometry) -> None:
+           geom: PackGeometry, *extra: int) -> None:
     """Call one C entry on the current stream of ``a``'s device: ``a`` is
-    the strided buffer side, ``b`` the packed side.  Raises if the launch
-    was refused."""
+    the strided buffer side, ``b`` the packed side, ``extra`` the entry's
+    own scalars (the row kernels' :func:`row_args`).  Raises if the
+    launch was refused."""
     fn = getattr(library(lib_name), entry)
     stream = torch.cuda.current_stream(a.device).cuda_stream
     err = fn(a.data_ptr(), a.stride(0), b.data_ptr(), b.stride(0), a.shape[0],
              geom.word_bytes, geom.lanes, geom.rows, geom.planes, geom.pitch,
-             geom.q * geom.pitch + geom.r, geom.plane_rows * geom.pitch,
-             a.device.index, stream)
+             *_base_and_plane_stride(geom), *extra, a.device.index, stream)
     if err != 0:
         raise RuntimeError(f"{entry} launch failed with CUDA error {err}")
+
+
+#: bytes the row kernels may move per load and store, widest first
+VECTOR_BYTES = (16, 8, 4, 2, 1)
+
+#: the row kernels' paths, by the number their C entries take
+ROW_PATHS = ("flat", "warp")
+
+#: rows of at least this many vectors (one per lane of a warp) take the
+#: warp path; shorter rows are spread over a warp, one thread per vector
+WARP_ROW_VECTORS = 32
+
+
+def vector_bytes(geom: PackGeometry, a: torch.Tensor, b: torch.Tensor) -> int:
+    """The vector width V, in bytes, of a row-kernel launch on the
+    strided buffer ``a`` and the packed tensor ``b``: the widest of
+    :data:`VECTOR_BYTES` that divides both pointers, both batch strides
+    (when there is more than one buffer), the byte start of every row
+    (the block's base, pitch and plane stride, times W) and the row
+    length ``lanes * W``.  Every address the kernel forms is then a
+    multiple of V, and a row is a whole number of vectors.  Never less
+    than W for operands :func:`check_operands` takes."""
+    w = geom.word_bytes
+    base, plane_stride = _base_and_plane_stride(geom)
+    need = [a.data_ptr(), b.data_ptr(), geom.lanes * w, geom.pitch * w,
+            base * w, plane_stride * w]
+    if a.shape[0] > 1:
+        need += [a.stride(0), b.stride(0)]
+    return next(v for v in VECTOR_BYTES if all(x % v == 0 for x in need))
+
+
+def row_path(geom: PackGeometry, vec: int) -> str:
+    """``"warp"`` (a warp per row chunk) when a row holds at least
+    :data:`WARP_ROW_VECTORS` vectors of ``vec`` bytes, else ``"flat"``
+    (one thread per vector, several rows per warp)."""
+    nvec = geom.lanes * geom.word_bytes // vec
+    return "warp" if nvec >= WARP_ROW_VECTORS else "flat"
+
+
+def row_args(geom: PackGeometry, a: torch.Tensor, b: torch.Tensor):
+    """The row kernels' own C scalars: V in bytes and the path number."""
+    vec = vector_bytes(geom, a, b)
+    return vec, ROW_PATHS.index(row_path(geom, vec))
 
 
 def block_index(geom: PackGeometry, device) -> torch.Tensor:
@@ -129,14 +182,14 @@ def pack_plain(src: torch.Tensor, geom: PackGeometry, out: torch.Tensor) -> torc
     return out
 
 
-def _pack(entry: str, wrapper, src, geom, out):
+def _pack(entry: str, wrapper, src, geom, out, extra=None):
     if out is None:
         out = torch.empty((src.shape[0], geom.packed_bytes), dtype=torch.uint8,
                           device=src.device)
     check_operands(src, out, geom)
     if src.device.type == "cpu":
         return pack_plain(src, geom, out)
-    launch("pack", entry, src, out, geom)
+    launch("pack", entry, src, out, geom, *(extra(geom, src, out) if extra else ()))
     wrapper.launches += 1
     return out
 
@@ -146,7 +199,7 @@ def pack_rows(src: torch.Tensor, geom: PackGeometry,
     """Pack the block out of every buffer of ``src`` (``(B, n)`` uint8)
     into ``out`` (``(B, packed_bytes)``, allocated if None) with the
     SIMT row kernel.  Returns ``out``."""
-    return _pack("tempi_pack_rows", pack_rows, src, geom, out)
+    return _pack("tempi_pack_rows", pack_rows, src, geom, out, row_args)
 
 
 def pack_dma(src: torch.Tensor, geom: PackGeometry,

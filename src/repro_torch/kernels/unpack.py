@@ -4,9 +4,10 @@
 Unpack writes *into* an existing buffer: both kernels update ``dst`` in
 place and return it, touching only the block bytes.
 
-* :func:`unpack_rows` — SIMT inverse of ``pack_rows``
-  (``csrc/unpack.cu``, ``tempi_unpack_rows``).  It takes only geometries
-  whose planes occupy disjoint rows.
+* :func:`unpack_rows` — SIMT inverse of ``pack_rows``, the same row
+  kernel turned round (``csrc/rows.cuh``, entry ``tempi_unpack_rows`` in
+  ``csrc/unpack.cu``), with the same choice of vector width and path.
+  It takes only geometries whose planes occupy disjoint rows.
 * :func:`unpack_dma`  — packed tiles staged through shared memory with
   ``cp.async``, then scattered into their strided windows
   (``tempi_unpack_dma``).  Planes that share rows overlap; each word is
@@ -23,7 +24,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.geometry import PackGeometry
-from repro_torch.kernels.pack import block_index, check_operands, launch
+from repro_torch.kernels.pack import block_index, check_operands, launch, row_args
 
 __all__ = ["unpack_rows", "unpack_dma", "unpack_plain", "unpack_ragged"]
 
@@ -41,11 +42,12 @@ def unpack_plain(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) ->
     return dst
 
 
-def _unpack(entry: str, wrapper, dst, packed, geom):
+def _unpack(entry: str, wrapper, dst, packed, geom, extra=None):
     check_operands(dst, packed, geom, "dst", "packed")
     if dst.device.type == "cpu":
         return unpack_plain(dst, packed, geom)
-    launch("unpack", entry, dst, packed, geom)
+    launch("unpack", entry, dst, packed, geom,
+           *(extra(geom, dst, packed) if extra else ()))
     wrapper.launches += 1
     return dst
 
@@ -60,7 +62,7 @@ def unpack_rows(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) -> 
             "unpack_rows needs disjoint plane row ranges "
             f"(plane_rows={geom.plane_rows} < rows={geom.rows}); use unpack_dma"
         )
-    return _unpack("tempi_unpack_rows", unpack_rows, dst, packed, geom)
+    return _unpack("tempi_unpack_rows", unpack_rows, dst, packed, geom, row_args)
 
 
 def unpack_dma(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) -> torch.Tensor:

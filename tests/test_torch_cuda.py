@@ -16,7 +16,7 @@ from repro_torch.comm import Communicator, policy_for_mode
 from repro_torch.core import StridedBlock
 from repro_torch.halo import HaloSpec, from_reference, make_halo_step
 from repro_torch.kernels import launch_counts, plan_geometry, reset_launch_counts
-from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
+from repro_torch.kernels.pack import launch, pack_dma, pack_plain, pack_rows, row_args
 from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
 
 BLOCKS = [
@@ -97,3 +97,82 @@ def test_kernels_take_offsets_past_32_bits():
         fn(d, want.flip(1).contiguous(), geom)
         assert torch.equal(d, want_dst), fn.__name__
     torch.cuda.synchronize()
+
+
+# Blocks that drive the row kernels through every vector width and both
+# paths: (start, counts, strides, word or None, (vector bytes, path)).
+ROW_CASES = [
+    (0, (1024, 3, 2), (1, 2048, 8192), None, (16, 1)),
+    (16, (48, 5, 3), (1, 64, 512), None, (16, 0)),
+    (8, (1024, 4, 2), (1, 1040, 4160), None, (8, 1)),       # a halo face
+    (8, (8, 2, 2), (1, 1040, 4160), None, (8, 0)),          # a halo corner
+    (4, (1024, 3, 2), (1, 1040, 4160), None, (4, 1)),       # rows at 4 mod 8
+    (16, (12, 5, 2), (1, 64, 320), None, (4, 0)),           # 12-byte rows
+    (0, (1036, 3, 2), (1, 2048, 8192), None, (4, 1)),       # 3 chunks of a row
+    (2, (514, 3, 2), (1, 1030, 4120), None, (2, 1)),
+    (6, (10, 4, 3), (1, 30, 150), None, (2, 0)),
+    (3, (513, 3, 2), (1, 1027, 4108), None, (1, 1)),
+    (1, (13, 4, 2), (1, 100, 500), None, (1, 0)),
+    (0, (1024, 3, 2), (1, 2048, 8192), 1, (16, 1)),         # W = 1, V = 16
+    (16, (65536, 3), (1, 65552), None, (16, 1)),            # 2D, 32 chunks a row
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(ROW_CASES)))
+@pytest.mark.parametrize("slot_offset", [0, 4])
+def test_row_kernels_take_every_vector_width_and_path(k, slot_offset):
+    """Bit-exact against the plain versions, 8 buffers per launch, with
+    the packed side at ``slot_offset`` bytes into a wider wire (4 drops
+    V to at most 4); the wire bytes around the slot stay as they were."""
+    dev = _card()
+    start, counts, strides, word, want = ROW_CASES[k]
+    geom = plan_geometry(StridedBlock(start, counts, strides), word_bytes=word)
+    gen = torch.Generator(device=dev).manual_seed(k)
+    n = (geom.span_bytes + 15) // 16 * 16
+    src = torch.randint(0, 256, (8, n), dtype=torch.uint8, device=dev, generator=gen)
+    size = geom.packed_bytes
+    wire = torch.full((8, size + 16), 7, dtype=torch.uint8, device=dev)
+    slot = wire[:, slot_offset : slot_offset + size]
+    if slot_offset == 0:
+        assert row_args(geom, src, slot) == want
+    want_packed = pack_plain(src, geom, torch.empty((8, size), dtype=torch.uint8, device=dev))
+    pack_rows(src, geom, slot)
+    assert torch.equal(slot, want_packed)
+    assert (wire[:, :slot_offset] == 7).all() and (wire[:, slot_offset + size :] == 7).all()
+    dst = torch.randint(0, 256, (8, n), dtype=torch.uint8, device=dev, generator=gen)
+    want_dst = unpack_plain(dst.clone(), slot, geom)
+    unpack_rows(dst, slot, geom)
+    assert torch.equal(dst, want_dst)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_row_kernels_take_offsets_past_32_bits_on_the_warp_path():
+    """513-byte rows past 1 GiB: the warp path at V = 1, whose offsets
+    pass 2^30 vectors, so it indexes in 64 bits."""
+    dev = _card()
+    geom = plan_geometry(StridedBlock(1027 * 1045520 + 3, (513, 3, 2), (1, 1027, 4108)))
+    src = torch.randint(0, 256, (1, geom.span_bytes + 16), dtype=torch.uint8, device=dev)
+    packed = torch.empty((1, geom.packed_bytes), dtype=torch.uint8, device=dev)
+    assert row_args(geom, src, packed) == (1, 1)
+    want = pack_plain(src, geom, packed.clone())
+    assert torch.equal(pack_rows(src, geom, packed), want)
+    want_dst = unpack_plain(src.clone(), want.flip(1).contiguous(), geom)
+    unpack_rows(src, want.flip(1).contiguous(), geom)
+    assert torch.equal(src, want_dst)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_row_kernels_refuse_a_vector_that_does_not_divide_the_rows():
+    """The launcher checks V against every address: a halo face's rows
+    start at byte 8 mod 16, so a 16-byte launch is refused, not run."""
+    dev = _card()
+    geom = plan_geometry(StridedBlock(8, (1024, 4, 2), (1, 1040, 4160)))
+    src = torch.zeros((1, geom.span_bytes + 8), dtype=torch.uint8, device=dev)
+    out = torch.zeros((1, geom.packed_bytes), dtype=torch.uint8, device=dev)
+    with pytest.raises(RuntimeError, match="tempi_pack_rows"):
+        launch("pack", "tempi_pack_rows", src, out, geom, 16, 1)
+    with pytest.raises(RuntimeError, match="tempi_pack_rows"):
+        launch("pack", "tempi_pack_rows", src, out, geom, 8, 2)

@@ -36,7 +36,14 @@ from repro_torch.kernels import (
     reset_launch_counts,
     unpack,
 )
-from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
+from repro_torch.kernels.pack import (
+    VECTOR_BYTES,
+    pack_dma,
+    pack_plain,
+    pack_rows,
+    row_path,
+    vector_bytes,
+)
 from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
 
 REF_REG = rc.TypeRegistry()
@@ -342,3 +349,141 @@ def test_misaligned_operands_take_one_byte_words():
     odd = ops._fit(geom, sb, buf, wire[:, 15:47])
     assert odd.word_bytes == 1
     assert (odd.packed_bytes, odd.span_bytes) == (geom.packed_bytes, geom.span_bytes)
+
+
+# ---------------------------------------------------------------------------
+# the row kernels' vector width and path, chosen on the host
+# ---------------------------------------------------------------------------
+
+
+def _row_addresses(geom, a, b):
+    """Byte address of every row start the row kernels form on the
+    strided ``a`` and the packed ``b`` (all buffers of the batch)."""
+    w = geom.word_bytes
+    bi = np.arange(a.shape[0], dtype=np.int64).reshape(-1, 1, 1)
+    p = np.arange(geom.planes, dtype=np.int64).reshape(1, -1, 1)
+    i = np.arange(geom.rows, dtype=np.int64).reshape(1, 1, -1)
+    row = geom.q + p * geom.plane_rows + i
+    strided = a.data_ptr() + bi * a.stride(0) + (row * geom.pitch + geom.r) * w
+    packed = b.data_ptr() + bi * b.stride(0) + (p * geom.rows + i) * geom.lanes * w
+    return np.concatenate([strided.ravel(), packed.ravel()])
+
+
+def check_vector_bytes(geom, a, b):
+    """V divides every address the kernel forms and the row length, it is
+    the widest width that does, and it lies in [W, 16]."""
+    v = vector_bytes(geom, a, b)
+    assert v in VECTOR_BYTES and geom.word_bytes <= v <= 16
+    addrs, length = _row_addresses(geom, a, b), geom.lanes * geom.word_bytes
+    assert length % v == 0 and not (addrs % v).any()
+    if v < 16:  # no wider vector divides them all
+        assert length % (2 * v) or (addrs % (2 * v)).any()
+    return v
+
+
+@pytest.fixture(scope="module")
+def full_width_halo():
+    """The 26 send and 26 receive geometries of the full-width halo
+    (8 ranks, 256^3 float32 per rank, radius 2) as the ``tempi`` exchange
+    hands them to the kernels: the ``(8, n)`` state, and the send slots
+    and received payloads at the wire offsets of the local mesh."""
+    from repro_torch.comm import Communicator
+    from repro_torch.halo import HaloSpec, make_halo_plan
+    from repro_torch.kernels import ops
+
+    spec = HaloSpec(grid=(2, 2, 2), interior=(256, 256, 256), radius=2)
+    comm = Communicator(device="cpu")
+    plan = make_halo_plan(spec, comm)
+    state = ops.batch_bytes(torch.empty((spec.nranks,) + spec.alloc), True)  # never touched
+    wire = torch.zeros((spec.nranks, plan.wire.wire_bytes), dtype=torch.uint8)
+    received = comm.transport.exchange(wire, plan.wire)
+    recv_slot = {}
+    for g, grp in enumerate(plan.wire.groups):
+        for i, off in zip(grp.transfers, grp.offsets):
+            recv_slot[i] = received[g][:, off : off + plan.wire.segments[i].nbytes]
+    cases = []
+    for i, (send_ct, recv_ct) in enumerate(zip(plan.send_cts, plan.recv_cts)):
+        seg = plan.wire.segments[i]
+        send_slot = wire[:, seg.offset : seg.offset + seg.nbytes]
+        for side, ct, slot in (("send", send_ct, send_slot), ("recv", recv_ct, recv_slot[i])):
+            sb = ct.block
+            cases.append((side, i, ops._fit(plan_geometry(sb), sb, state, slot), slot))
+    return plan, state, cases
+
+
+@pytest.mark.parametrize("k", range(52))
+def test_vector_bytes_on_the_full_width_halo(full_width_halo, k):
+    """Every region row starts at byte 8 mod 16 or is 8 bytes long, and
+    every wire slot is 16-byte aligned: V is 8 for all 52 geometries,
+    the y and z faces among them."""
+    from repro_torch.halo import DIRECTIONS
+
+    _, state, cases = full_width_halo
+    side, i, geom, slot = cases[k]
+    assert geom.word_bytes == 4
+    assert check_vector_bytes(geom, state, slot) == 8
+    d = DIRECTIONS[i]
+    if d[2] == 0 and (d[0] == 0) != (d[1] == 0):  # a y or z face
+        assert (geom.lanes, geom.lanes * 4 // 8) == (256, 128)
+        assert row_path(geom, 8) == "warp"
+
+
+def test_tempi_plan_launches_the_row_kernels_at_16_regions(full_width_halo):
+    """The model still picks ``rows`` for the z and y faces, the dx = 0
+    edges and the corners (16 regions), and ``dma`` for the rest."""
+    plan, _, _ = full_width_halo
+    names = [s.name for s in plan.strategies]
+    assert (names.count("rows"), names.count("dma")) == (16, 10)
+
+
+def _geom(start, counts, strides, word=None):
+    return plan_geometry(tc.StridedBlock(start, counts, strides), word_bytes=word)
+
+
+@pytest.mark.parametrize(
+    "geom_args,buf_off,slot_off,batch,bwidth_pad,want",
+    [
+        # aligned operands: the block alone sets V
+        (((0, (1024, 3, 2), (1, 2048, 8192)), None), 0, 0, 8, 0, 16),
+        (((8, (1024, 4, 2), (1, 1040, 4160)), None), 0, 0, 8, 0, 8),   # halo face
+        (((4, (1024, 3, 2), (1, 1040, 4160)), None), 0, 0, 8, 0, 4),   # rows at 4 mod 8
+        (((0, (1036, 3, 2), (1, 2048, 8192)), None), 0, 0, 8, 0, 4),   # 1036-byte rows
+        (((2, (514, 3, 2), (1, 1030, 4120)), None), 0, 0, 8, 0, 2),    # W = 2
+        (((3, (513, 3, 2), (1, 1027, 4108)), None), 0, 0, 8, 0, 1),    # W = 1
+        (((0, (1024, 3, 2), (1, 2048, 8192)), 1), 0, 0, 8, 0, 16),     # W = 1, V = 16
+        # misaligned operands: V drops to W
+        (((8, (1024, 4, 2), (1, 1040, 4160)), None), 0, 4, 8, 0, 4),   # slot 4 B into a wire
+        (((8, (1024, 4, 2), (1, 1040, 4160)), None), 4, 0, 8, 0, 4),   # buffer at 4 mod 8
+        (((8, (1024, 4, 2), (1, 1040, 4160)), None), 0, 0, 8, 4, 4),   # batch stride 4 mod 8
+        (((8, (1024, 4, 2), (1, 1040, 4160)), 1), 0, 0, 8, 1, 1),      # odd batch stride
+        (((2, (514, 3, 2), (1, 1030, 4120)), None), 0, 2, 8, 0, 2),    # W = 2, slot at 2 mod 4
+        # one buffer: its batch stride is never used
+        (((8, (1024, 4, 2), (1, 1040, 4160)), 1), 0, 0, 1, 1, 8),
+    ],
+)
+def test_vector_bytes_follows_pointers_strides_and_rows(geom_args, buf_off, slot_off, batch,
+                                                        bwidth_pad, want):
+    (start, counts, strides), word = geom_args
+    geom = _geom(start, counts, strides, word)
+    n = (geom.span_bytes + 15) // 16 * 16 + bwidth_pad
+    buf = torch.zeros((batch, n + 16), dtype=torch.uint8)[:, buf_off : buf_off + n]
+    wire = torch.zeros((batch, geom.packed_bytes + 16), dtype=torch.uint8)
+    slot = wire[:, slot_off : slot_off + geom.packed_bytes]
+    assert buf.data_ptr() % 16 == buf_off and wire.data_ptr() % 16 == 0
+    assert check_vector_bytes(geom, buf, slot) == want
+
+
+@pytest.mark.parametrize(
+    "counts,word,vec,want",
+    [
+        ((1024, 4, 2), None, 8, "warp"),   # y/z face rows: 128 vectors
+        ((256, 4, 2), None, 8, "warp"),    # exactly one vector per lane
+        ((248, 4, 2), None, 8, "flat"),    # 31 vectors
+        ((8, 2, 2), None, 8, "flat"),      # a corner: one vector per row
+        ((1024, 4, 2), 1, 1, "warp"),
+        ((16, 4, 2), None, 16, "flat"),
+    ],
+)
+def test_row_path_takes_a_warp_per_row_of_32_vectors_or_more(counts, word, vec, want):
+    geom = _geom(8 if counts[0] % 8 == 0 else 0, counts, (1, 1040, 4160), word)
+    assert row_path(geom, vec) == want
