@@ -11,7 +11,9 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            sweeps, on planes that share rows, on alignment cases that
            drive the row kernels through every vector width V (16, 8, 4,
            2, 1 bytes) on both their paths (a warp per row, one thread
-           per vector), and on the 26 send and 26 receive types of the
+           per vector) and the dma kernels through every V on their
+           narrow path (rows of at most 16 bytes) and through their
+           tiled path, and on the 26 send and 26 receive types of the
            full-width halo, 8 ranks per launch;
 3. main    8 ranks on a periodic 2x2x2 grid, 256^3 float32 interior per
            rank, radius 2, all ranks in one (8, 260, 260, 260) tensor.
@@ -27,14 +29,19 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            per exchange must match its plan;
 4. timing  CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
-           (``library_ms``) and its bound (bytes read + written at
-           3.35 TB/s): at the x-, y- and z-face shapes for all four
-           kernels, and at every distinct shape the ``tempi`` plan
-           launches each kernel at, with its launches per exchange and,
-           for the row kernels, the vector width and path it took; the
-           timer's floor (an empty launch; the y/z-face row kernels with
-           L2 left clean); host-clock ms per exchange and CUDA-event ms
-           per stencil application.
+           (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
+           counts the block bytes read and written, ``bound_sectors_ms``
+           the 32-byte sectors they touch (pack: sectors read + packed
+           bytes written; unpack: packed bytes read + sectors written
+           back + partly written sectors filled first).  At the x-, y-
+           and z-face shapes for all four kernels, and at every distinct
+           shape the ``tempi`` plan launches each kernel at, with its
+           launches per exchange and the vector width, path and (dma)
+           rows per tile it took; the dma kernels at the x faces at
+           three tile sizes (``dma_tile_sweep``); the timer's floor (an
+           empty launch; the y/z-face row kernels with L2 left clean);
+           host-clock ms per exchange and CUDA-event ms per stencil
+           application.
 
 Prints one JSON line ``{"kernels": [...]}``, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
@@ -128,9 +135,9 @@ def wall_ms(torch, fn, reps: int) -> float:
 
 KERNEL_INFO = {
     "pack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/pack.py:100"),
-    "pack_dma": ("src/repro_torch/kernels/csrc/pack.cu", "src/repro/kernels/pack.py:143"),
+    "pack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/pack.py:143"),
     "unpack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/unpack.py:77"),
-    "unpack_dma": ("src/repro_torch/kernels/csrc/unpack.cu", "src/repro/kernels/unpack.py:113"),
+    "unpack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/unpack.py:113"),
 }
 
 
@@ -150,8 +157,8 @@ def phase_build():
 
 class KernelCheck:
     """Holds every kernel against its plain version; keeps the largest
-    difference seen per kernel (0 when bit-exact) and, per row kernel,
-    the (vector bytes, path) pairs it ran."""
+    difference seen per kernel (0 when bit-exact) and, per kernel, the
+    (vector bytes, path) pairs it ran."""
 
     def __init__(self, torch, dev):
         from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
@@ -162,7 +169,7 @@ class KernelCheck:
         self.unpack = {"unpack_rows": unpack_rows, "unpack_dma": unpack_dma}
         self.pack_plain, self.unpack_plain = pack_plain, unpack_plain
         self.err = dict.fromkeys(KERNEL_INFO, 0.0)
-        self.row_paths = {"pack_rows": set(), "unpack_rows": set()}
+        self.paths = {name: set() for name in KERNEL_INFO}
         self.checks = 0
 
     def _diff(self, name, got, want, what):
@@ -173,8 +180,7 @@ class KernelCheck:
             fail(f"{name} differs from its plain version on {what}")
 
     def _ran(self, name, geom, a, b):
-        if name in self.row_paths:
-            self.row_paths[name].add(row_launch(geom, a, b))
+        self.paths[name].add(kernel_launch(name, geom, a, b)[:2])
 
     def pack_side(self, src, geom, what, wire_offset=None):
         """Pack ``src`` with every pack kernel and the plain version;
@@ -230,25 +236,36 @@ def sweep_blocks():
     return blocks
 
 
-def row_launch(geom, a, b):
-    """The (vector bytes, path name) a row kernel takes on the strided
-    ``a`` and the packed ``b``."""
-    from repro_torch.kernels.pack import ROW_PATHS, row_args
+def kernel_launch(kernel, geom, a, b):
+    """The (vector bytes, path name, rows per tile or None) ``kernel``
+    takes on the strided ``a`` and the packed ``b``."""
+    from repro_torch.kernels.pack import DMA_PATHS, ROW_PATHS, dma_args, row_args
 
-    vec, path = row_args(geom, a, b)
-    return vec, ROW_PATHS[path]
+    if kernel.endswith("rows"):
+        vec, path = row_args(geom, a, b)
+        return vec, ROW_PATHS[path], None
+    vec, path, tile_rows = dma_args(geom, a, b)
+    return vec, DMA_PATHS[path], tile_rows
 
 
 def vector_cases():
     """Blocks that drive the row kernels through every vector width V and
-    both paths: ``(block, word_bytes or None, odd, wire offset or
-    None)``.  The buffers are the span rounded up to 16 bytes, plus one
-    when ``odd`` (an odd batch stride); a wire offset packs into a slot
-    that many bytes into a wider wire buffer."""
+    both paths, and the dma kernels through every V on their narrow path:
+    ``(block, word_bytes or None, odd, wire offset or None)``.  The
+    buffers are the span rounded up to 16 bytes, plus one when ``odd``
+    (an odd batch stride); a wire offset packs into a slot that many
+    bytes into a wider wire buffer."""
     from repro_torch.core import StridedBlock as SB
 
     face = SB(8, (1024, 4, 2), (1, 1040, 4160))      # a halo face: rows at 8 mod 16
+    xface = SB(8, (8, 64, 4), (1, 1040, 66560))      # a cut x face: 8-byte rows
     return [
+        (xface, None, 0, None),                                  # dma narrow, V 8
+        (xface, None, 0, 4),                                     # slot 4 B into a wire: V 4
+        (xface, 1, 0, 1),                                        # slot at an odd offset: V 1
+        (xface, 1, 1, None),                                     # odd batch stride: V 1
+        (SB(16, (16, 5, 3), (1, 64, 512)), None, 0, None),       # 16-byte rows: narrow V 16
+        (SB(8, (8, 200, 200), (1, 40, 8000)), None, 0, None),    # ragged last tile, pitch 40
         (SB(0, (1024, 3, 2), (1, 2048, 8192)), None, 0, None),  # V 16, warp
         (SB(16, (48, 5, 3), (1, 64, 512)), None, 0, None),       # V 16, flat
         (face, None, 0, None),                                   # V 8, warp
@@ -291,9 +308,11 @@ def phase_kernels(torch, dev, spec, check):
             dst = torch.randint(0, 256, (batch, n), dtype=torch.uint8, device=dev, generator=gen)
             check.unpack_side(dst, packed, geom, what)
     want = {(v, path) for v in VECTOR_BYTES for path in ROW_PATHS}
-    for name, ran in check.row_paths.items():
-        if ran != want:
-            fail(f"{name} never ran (vector bytes, path) {sorted(want - ran)}")
+    want_dma = {(v, "narrow") for v in VECTOR_BYTES} | {(w, "tiled") for w in (1, 2, 4)}
+    for name, ran in check.paths.items():
+        need = want if name.endswith("rows") else want_dma
+        if not need <= ran:
+            fail(f"{name} never ran (vector bytes, path) {sorted(need - ran)}")
     # the 52 region types of the full-width halo, all 8 ranks per launch
     types = make_halo_types(spec, Communicator(device=dev))
     state = torch.randint(0, 256, (spec.nranks, 4 * int(torch.tensor(spec.alloc).prod())),
@@ -304,8 +323,8 @@ def phase_kernels(torch, dev, spec, check):
     torch.cuda.synchronize()
     del state
     print(f"[kernels] {check.checks} comparisons, all bit-exact; "
-          f"max |diff| per kernel {check.err}; row kernels ran every (vector bytes, path) "
-          f"of {sorted(want)}")
+          f"max |diff| per kernel {check.err}; (vector bytes, path) pairs run: "
+          f"{ {k: sorted(v) for k, v in check.paths.items()} }")
 
 
 def global_layout(torch, spec, dev):
@@ -487,10 +506,25 @@ def face_shapes(spec, dev):
     return faces
 
 
+def sector_bytes(kernel, geom):
+    """Bytes one buffer's block costs in 32-byte sectors (the buffer
+    starts on a sector boundary): a pack reads every sector the block
+    touches and writes the packed bytes; an unpack reads the packed
+    bytes, writes back every sector it touches and first fills each
+    sector it writes only in part."""
+    from repro_torch.kernels.pack import SECTOR_BYTES, block_sectors
+
+    touched, whole = block_sectors(geom)
+    if kernel.startswith("pack"):
+        return SECTOR_BYTES * touched + geom.packed_bytes
+    return geom.packed_bytes + SECTOR_BYTES * (2 * touched - whole)
+
+
 def time_kernel(torch, timer, kernel, geom, words):
     """Times of one kernel at one geometry on the float32 state ``words``
     (``(R, n)``): the kernel, its plain version, one PyTorch strided copy
-    of the same bytes, and the bound (bytes read + written at HBM rate)."""
+    of the same bytes, and two bounds at HBM rate: the block bytes read
+    and written, and the sectors they touch (:func:`sector_bytes`)."""
     from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
     from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
 
@@ -514,14 +548,54 @@ def time_kernel(torch, timer, kernel, geom, words):
         fns = (lambda: fn(state, packed, geom), lambda: unpack_plain(state, packed, geom),
                lambda: strided.copy_(pk_words))
     ms, plain_ms, library_ms = (timer.ms(f) for f in fns)
-    nbytes = R * geom.packed_bytes
+    if state.stride(0) % 32:
+        fail(f"state buffers {state.stride(0)} bytes apart: not on sector boundaries")
+    nbytes, sectors = R * geom.packed_bytes, R * sector_bytes(kernel, geom)
     row = {"kernel": kernel, "lanes": geom.lanes, "rows": geom.rows, "planes": geom.planes,
-           "pitch": geom.pitch, "batch": R, "bytes": 2 * nbytes, "ms": ms,
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
-    if kernel.endswith("rows"):
-        row["vector_bytes"], row["path"] = row_launch(geom, state, packed)
+           "pitch": geom.pitch, "batch": R, "bytes": 2 * nbytes, "sector_bytes": sectors,
+           "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
+           "bound_sectors_ms": sectors / HBM_BYTES_PER_S * 1e3}
+    row["vector_bytes"], row["path"], tile_rows = kernel_launch(kernel, geom, state, packed)
+    if tile_rows is not None:
+        row["tile_rows"] = tile_rows
     return row
+
+
+#: rows per tile the dma kernels are timed at at the x faces: 256
+#: threads with 2, 4 and 8 rows each (dma_args picks 512)
+DMA_TILE_SWEEP = (512, 1024, 2048)
+
+
+def dma_tile_sweep(torch, timer, faces, words):
+    """Both dma kernels at the x-face shape at each size of
+    :data:`DMA_TILE_SWEEP`, launched through their C entries, each held
+    bit-exact against the plain version first: ms by kernel and size."""
+    from repro_torch.kernels.pack import dma_args, launch, pack_plain
+    from repro_torch.kernels.unpack import unpack_plain
+
+    R, state = words.shape[0], words.view(torch.uint8)
+    times = {}
+    for kernel, geom in (("pack_dma", faces["x"][0]), ("unpack_dma", faces["x"][1])):
+        side = kernel.split("_")[0]
+        packed = torch.randint(0, 256, (R, geom.packed_bytes), dtype=torch.uint8,
+                               device=words.device)
+        want = pack_plain(state, geom, torch.empty_like(packed)) if side == "pack" else packed
+        vec, path, _ = dma_args(geom, state, packed)
+        for tile in DMA_TILE_SWEEP:
+            def run(tile=tile):
+                launch(side, f"tempi_{kernel}", state, packed, geom, vec, path, tile)
+            if side == "pack":
+                packed.zero_()
+            else:
+                unpack_plain(state, torch.zeros_like(packed), geom)
+            run()
+            # an unpack of the x faces' disjoint rows packs back to its input
+            got = packed if side == "pack" else pack_plain(state, geom, torch.empty_like(packed))
+            if not torch.equal(got, want):
+                fail(f"{kernel} at {tile} rows per tile differs from its plain version")
+            times[f"{kernel}_{tile}"] = timer.ms(run)
+    return times
 
 
 def phase_timing(torch, dev, spec):
@@ -531,7 +605,8 @@ def phase_timing(torch, dev, spec):
     R = spec.nranks
     words = torch.randn((R,) + spec.alloc, device=dev).view(R, -1)  # float32 state
     faces = []
-    for face, (sg, rg) in face_shapes(spec, dev).items():
+    face_geoms = face_shapes(spec, dev)
+    for face, (sg, rg) in face_geoms.items():
         for kernel in KERNEL_INFO:
             geom = sg if kernel.startswith("pack") else rg
             faces.append(dict(face=face, **time_kernel(torch, timer, kernel, geom, words)))
@@ -540,12 +615,13 @@ def phase_timing(torch, dev, spec):
         row = time_kernel(torch, timer, shape["kernel"], shape["geom"], words)
         shapes.append(dict(region=list(shape["region"]), launches_per_exchange=shape["launches"],
                            **row))
+    sweep = dma_tile_sweep(torch, timer, face_geoms, words)
     # the timer's floor: an empty launch, and the y/z-face row kernels and
     # library call after a flush that leaves L2 clean
     clean = Timer(torch, dev, clean_l2=True)
     floor = {"empty_launch_ms": timer.ms(lambda: torch.cuda._sleep(0)),
              "empty_launch_ms_clean_l2": clean.ms(lambda: torch.cuda._sleep(0))}
-    for face, (sg, rg) in face_shapes(spec, dev).items():
+    for face, (sg, rg) in face_geoms.items():
         if face != "x":
             for kernel, geom in (("pack_rows", sg), ("unpack_rows", rg)):
                 row = time_kernel(torch, clean, kernel, geom, words)
@@ -553,7 +629,7 @@ def phase_timing(torch, dev, spec):
                 floor[f"library_{kernel}_{face}_ms_clean_l2"] = row["library_ms"]
     del words, timer, clean
     torch.cuda.empty_cache()
-    return faces, shapes, floor
+    return faces, shapes, floor, sweep
 
 
 def main() -> int:
@@ -581,7 +657,7 @@ def main() -> int:
     check = KernelCheck(torch, dev)
     phase_kernels(torch, dev, spec, check)
     counts = phase_main(torch, dev, spec, timings)
-    faces, shapes, floor = phase_timing(torch, dev, spec)
+    faces, shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
     for kernel, (source, replaces) in KERNEL_INFO.items():
@@ -591,6 +667,7 @@ def main() -> int:
             "launches": counts[kernel], "max_abs_err": check.err[kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),
             "bound_ms": sum(f["bound_ms"] for f in mine), "bound_by": "bytes",
+            "bound_sectors_ms": sum(f["bound_sectors_ms"] for f in mine),
             "library_ms": sum(f["library_ms"] for f in mine),
             "ms_per_tempi_exchange": sum(r["ms"] * r["launches_per_exchange"]
                                          for r in shapes if r["kernel"] == kernel),
@@ -600,6 +677,7 @@ def main() -> int:
     for r in shapes:
         print(json.dumps({"main_path_shape": r, "card": card}))
     print(json.dumps({"timer_floor": floor, "card": card}))
+    print(json.dumps({"dma_tile_sweep": sweep, "card": card}))
     timings["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"timings": timings, "card": card}))
     print(json.dumps({"kernels": kernels}))

@@ -42,13 +42,15 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: C signatures: (buffer, bstride, buffer, bstride, batch, word,
-#: lanes, rows, planes, pitch, base, plane_stride, device, stream); the
-#: row kernels also take (vector bytes, path) before the device
+#: lanes, rows, planes, pitch, base, plane_stride, device, stream), with
+#: each kernel's own ints before the device: (vector bytes, path) for the
+#: row kernels, (vector bytes, path, tile rows) for the dma kernels
 _KERNEL_ARGS = [_P, _L, _P, _L, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P]
 _ROW_KERNEL_ARGS = _KERNEL_ARGS[:12] + [_I, _I] + _KERNEL_ARGS[12:]
+_DMA_KERNEL_ARGS = _KERNEL_ARGS[:12] + [_I, _I, _I] + _KERNEL_ARGS[12:]
 _ENTRIES = {
-    "pack": {"tempi_pack_rows": _ROW_KERNEL_ARGS, "tempi_pack_dma": _KERNEL_ARGS},
-    "unpack": {"tempi_unpack_rows": _ROW_KERNEL_ARGS, "tempi_unpack_dma": _KERNEL_ARGS},
+    "pack": {"tempi_pack_rows": _ROW_KERNEL_ARGS, "tempi_pack_dma": _DMA_KERNEL_ARGS},
+    "unpack": {"tempi_unpack_rows": _ROW_KERNEL_ARGS, "tempi_unpack_dma": _DMA_KERNEL_ARGS},
 }
 
 

@@ -27,14 +27,15 @@ constexpr int kTileBytes = 16384;
 constexpr int kThreads = 256;
 constexpr long long kMaxGridX = 1LL << 20;
 
-// Copy one W-byte word from global to shared memory.  For W = 4 this is an
-// asynchronous cp.async (Ampere and later, so Hopper); narrower words are
-// plain loads and stores.
+// Copy one T-byte unit from global to shared memory.  For T of 4, 8 or 16
+// bytes this is an asynchronous cp.async.ca (Ampere and later, so
+// Hopper); narrower units are plain loads and stores.
 template <typename T>
 __device__ __forceinline__ void copy_to_shared(T* smem, const T* gmem) {
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) >= 4) {
     unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem),
+                 "n"(static_cast<int>(sizeof(T)))
                  : "memory");
   } else {
     *smem = *gmem;
@@ -94,15 +95,3 @@ inline bool fits_int(long long total, long long lanes, long long rows,
 }
 
 }  // namespace tempi
-
-// Select the tensors' device for this library's runtime, then call
-// fn<uintW> for the word width W.
-#define TEMPI_DISPATCH_WORD(device, word, fn, ...)                          \
-  if (cudaSetDevice(device) != cudaSuccess)                                 \
-    return static_cast<int>(cudaGetLastError());                            \
-  switch (word) {                                                           \
-    case 1: return tempi::fn<unsigned char>(__VA_ARGS__);                   \
-    case 2: return tempi::fn<unsigned short>(__VA_ARGS__);                  \
-    case 4: return tempi::fn<unsigned int>(__VA_ARGS__);                    \
-    default: return static_cast<int>(cudaErrorInvalidValue);                \
-  }

@@ -25,30 +25,53 @@
 //
 // tempi_pack_dma replaces the Pallas TPU kernel `pack_dma` /
 // `_pack_dma_kernel` (same file).  The TPU version issued one strided DMA
-// of `chunk x lanes` words per grid step into VMEM scratch.  Here each
-// thread block stages one `chunk x tile_lanes` tile of the block into
-// shared memory with cp.async (W = 4; plain loads for W = 1, 2), waits,
-// and stores the tile contiguously.  Bound: the same bytes at HBM
-// bandwidth.  The TPU's VMEM budget (`choose_chunk`) becomes the 16 KB
-// tile of common.cuh.  A TMA (cp.async.bulk.tensor) version is the
-// roadmap's next step for this kernel.
+// of `chunk x lanes` words per grid step into VMEM scratch; here thread
+// blocks stage the block through shared memory, the Hopper counterpart of
+// that scratch, and store what they staged contiguously.  Bound: the
+// 32-byte sectors that the block's bytes touch, read once, plus the packed
+// bytes written once, at HBM bandwidth (chip_smoke.py, bound_sectors_ms).
+//
+// The main path gives this kernel only 8-byte rows (2 words of 4 bytes)
+// at a 1,040-byte pitch, starting at byte 8 mod 16: the x faces
+// (2 x 256 x 256 words, lanes x rows x planes) and the dy = 0 and
+// dz = 0 edges (2 x 256 x 2 and 2 x 2 x 256), 8 ranks a launch.  The
+// first version, kept as the tiled path for rows longer than 16 bytes
+// (pack_tiled_kernel), was written for wide tiles, and at those rows:
+//   - a 16 KB tile held whole rows of one plane, so at the dz = 0 edges
+//     a 256-thread block staged 2 x 2 words (one thread in 64 worked)
+//     over 2,048 blocks, and at the dy = 0 edges the launch had 16
+//     blocks for 132 SMs;
+//   - it copied 4-byte words, two cp.async of 4 bytes per row, and each
+//     thread had one row in flight before its single wait.
+// The narrow path (narrow.cuh) takes rows of at most 16 bytes.  A tile
+// is a run of consecutive rows across plane boundaries, sized on the host
+// (dma_args) so that every thread has rows and the edges spread over the
+// SMs (4,096 rows: 128 tiles of 32); a row is one cp.async of V bytes
+// (V = 8 at the halo), each thread issues all its rows (2 at the x faces)
+// before one wait, and the tile's packed span is stored contiguously in
+// 16-byte units.  No TMA: a tiled TMA copy needs its inner box to span a
+// multiple of 16 bytes from a 16-byte-aligned address, and these rows
+// are 8 bytes long at 8 mod 16.  At the x faces each 8-byte row sits
+// alone in a 32-byte sector, so any kernel reads 32 bytes for every 8 it
+// packs: the sector bound, not the byte bound, is the one to hold it to.
 //
 // Neither kernel reads a byte past the last block: the ragged tail of a
 // buffer is real data, and no padding copy of the buffer is ever made.
 
-#include "rows.cuh"
+#include "narrow.cuh"
 
 namespace tempi {
 
+// The tiled path: one `chunk x tile_lanes` tile of one plane per block.
 template <typename T>
-__global__ void pack_dma_kernel(const unsigned char* __restrict__ src,
-                                long long src_bstride,
-                                unsigned char* __restrict__ out,
-                                long long out_bstride, long long lanes,
-                                long long rows, long long pitch, long long base,
-                                long long plane_stride, int tile_lanes,
-                                int chunk, long long n_ltiles,
-                                long long n_rtiles) {
+__global__ void pack_tiled_kernel(const unsigned char* __restrict__ src,
+                                  long long src_bstride,
+                                  unsigned char* __restrict__ out,
+                                  long long out_bstride, long long lanes,
+                                  long long rows, long long pitch, long long base,
+                                  long long plane_stride, int tile_lanes,
+                                  int chunk, long long n_ltiles,
+                                  long long n_rtiles) {
   __shared__ __align__(16) T tile[kTileBytes / sizeof(T)];
   const T* s = reinterpret_cast<const T*>(src + blockIdx.y * src_bstride);
   T* o = reinterpret_cast<T*>(out + blockIdx.y * out_bstride);
@@ -91,20 +114,28 @@ int launch_pack_rows(const void* src, long long src_bstride, void* out,
                               vec, path, stream);
 }
 
-template <typename T>
+template <typename V>
 int launch_pack_dma(const void* src, long long src_bstride, void* out,
-                    long long out_bstride, int batch, long long lanes,
-                    long long rows, long long planes, long long pitch,
-                    long long base, long long plane_stride, cudaStream_t stream) {
-  const Tiles tiles = dma_tiles(lanes, rows, planes, sizeof(T));
-  if (bad_launch(batch, tiles.count)) return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(tiles.count), static_cast<unsigned>(batch));
-  pack_dma_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const unsigned char*>(src), src_bstride,
-      static_cast<unsigned char*>(out), out_bstride, lanes, rows, pitch, base,
-      plane_stride, tiles.tile_lanes, tiles.chunk, tiles.n_ltiles,
-      tiles.n_rtiles);
-  return static_cast<int>(cudaGetLastError());
+                    long long out_bstride, int batch, int word, long long lanes,
+                    long long rows, long long planes, long long pitch, long long base,
+                    long long plane_stride, int vec, int path, int tile_rows,
+                    cudaStream_t stream) {
+  if (path == kDmaNarrow)
+    return launch_narrow<V, true>(src, src_bstride, out, out_bstride, batch, word,
+                                  lanes, rows, planes, pitch, base, plane_stride, vec,
+                                  tile_rows, stream);
+  if constexpr (sizeof(V) <= 4) {
+    const Tiles tiles = dma_tiles(lanes, rows, planes, sizeof(V));
+    if (path != kDmaTiled || vec != word || bad_launch(batch, tiles.count))
+      return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid(static_cast<unsigned>(tiles.count), static_cast<unsigned>(batch));
+    pack_tiled_kernel<V><<<grid, kThreads, 0, stream>>>(
+        static_cast<const unsigned char*>(src), src_bstride,
+        static_cast<unsigned char*>(out), out_bstride, lanes, rows, pitch, base,
+        plane_stride, tiles.tile_lanes, tiles.chunk, tiles.n_ltiles, tiles.n_rtiles);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);  // the tiled path copies words
 }
 
 }  // namespace tempi
@@ -124,8 +155,10 @@ extern "C" int tempi_pack_dma(const void* src, long long src_bstride,
                               void* out, long long out_bstride, int batch,
                               int word, long long lanes, long long rows,
                               long long planes, long long pitch, long long base,
-                              long long plane_stride, int device, void* stream) {
-  TEMPI_DISPATCH_WORD(device, word, launch_pack_dma, src, src_bstride, out,
-                      out_bstride, batch, lanes, rows, planes, pitch, base,
-                      plane_stride, static_cast<cudaStream_t>(stream));
+                              long long plane_stride, int vec, int path,
+                              int tile_rows, int device, void* stream) {
+  TEMPI_DISPATCH_VEC(device, vec, launch_pack_dma, src, src_bstride, out,
+                     out_bstride, batch, word, lanes, rows, planes, pitch, base,
+                     plane_stride, vec, path, tile_rows,
+                     static_cast<cudaStream_t>(stream));
 }

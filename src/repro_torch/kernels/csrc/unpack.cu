@@ -20,31 +20,48 @@
 //
 // tempi_unpack_dma replaces `unpack_dma` / `_unpack_dma_kernel` (same
 // file), which copied a packed row-chunk into VMEM and issued one strided
-// DMA into the destination window.  Here each thread block stages one
-// packed `chunk x tile_lanes` tile into shared memory with cp.async
-// (W = 4; plain loads for W = 1, 2), waits, then scatters it into its
-// strided window.  Same bound.  It also takes planes that share rows (a
-// self-overlapping type), where the TPU's sequential grid lets the last
-// plane win.  Thread blocks run in no order here, so instead each word is
-// written only by the last plane that covers it: row i of plane p is
-// overwritten by plane p+1 exactly when p+1 < planes and
-// i >= plane_rows, and such words are skipped.  One launch, no races, the
-// reference's bytes.
+// DMA into the destination window.  Here thread blocks stage packed
+// bytes through shared memory, then scatter them into their strided
+// rows.  Bound: the packed bytes read once, plus each 32-byte sector the
+// block's bytes touch written back once and, where the block covers it
+// only in part, first filled (chip_smoke.py, bound_sectors_ms).  It also
+// takes planes that share rows (a self-overlapping type), where the TPU's
+// sequential grid lets the last plane win.  Thread blocks run in no order
+// here, so instead each row is written only by the last plane that covers
+// it: row i of plane p is overwritten by plane p+1 exactly when
+// p+1 < planes and i >= plane_rows, and such rows are skipped.  One
+// launch, no races, the reference's bytes.
+//
+// At the main path's 8-byte rows (pack.cu's note has the shapes) the
+// first version, kept as the tiled path for rows longer than 16 bytes
+// (unpack_tiled_kernel), lost to PyTorch's strided copy for the reasons
+// given there: one plane's rows per 16 KB tile, so at the dz = 0 edges
+// one thread in 64 of a block worked and at the dy = 0 edges 16 blocks
+// ran on 132 SMs; two 4-byte copies per row and one row per thread in
+// flight.  The narrow path (narrow.cuh) loads a run of consecutive rows
+// across planes as one contiguous packed span, in 16-byte cp.async where
+// its alignment allows, waits once, and scatters each row with one V-byte
+// store (V = 8 at the halo); the skip above is decided per row, since a
+// tile now spans planes.  Each 8-byte store fills part of a 32-byte
+// sector that the halo cells beside it share, so the card fetches and
+// writes back the whole sector: 8 bytes of data cost 64 bytes of traffic,
+// for this kernel and for the library's copy alike.
 
-#include "rows.cuh"
+#include "narrow.cuh"
 
 namespace tempi {
 
+// The tiled path: one packed `chunk x tile_lanes` tile of one plane per block.
 template <typename T>
-__global__ void unpack_dma_kernel(unsigned char* __restrict__ dst,
-                                  long long dst_bstride,
-                                  const unsigned char* __restrict__ packed,
-                                  long long packed_bstride, long long lanes,
-                                  long long rows, long long planes,
-                                  long long pitch, long long base,
-                                  long long plane_stride, long long plane_rows,
-                                  int tile_lanes, int chunk, long long n_ltiles,
-                                  long long n_rtiles) {
+__global__ void unpack_tiled_kernel(unsigned char* __restrict__ dst,
+                                    long long dst_bstride,
+                                    const unsigned char* __restrict__ packed,
+                                    long long packed_bstride, long long lanes,
+                                    long long rows, long long planes,
+                                    long long pitch, long long base,
+                                    long long plane_stride, long long plane_rows,
+                                    int tile_lanes, int chunk, long long n_ltiles,
+                                    long long n_rtiles) {
   __shared__ __align__(16) T tile[kTileBytes / sizeof(T)];
   T* d = reinterpret_cast<T*>(dst + blockIdx.y * dst_bstride);
   const T* pk = reinterpret_cast<const T*>(packed + blockIdx.y * packed_bstride);
@@ -91,22 +108,29 @@ int launch_unpack_rows(void* dst, long long dst_bstride, const void* packed,
                                plane_stride, vec, path, stream);
 }
 
-template <typename T>
+template <typename V>
 int launch_unpack_dma(void* dst, long long dst_bstride, const void* packed,
-                      long long packed_bstride, int batch, long long lanes,
-                      long long rows, long long planes, long long pitch,
-                      long long base, long long plane_stride,
+                      long long packed_bstride, int batch, int word, long long lanes,
+                      long long rows, long long planes, long long pitch, long long base,
+                      long long plane_stride, int vec, int path, int tile_rows,
                       cudaStream_t stream) {
-  const Tiles tiles = dma_tiles(lanes, rows, planes, sizeof(T));
-  if (bad_launch(batch, tiles.count) || pitch < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  dim3 grid(static_cast<unsigned>(tiles.count), static_cast<unsigned>(batch));
-  unpack_dma_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<unsigned char*>(dst), dst_bstride,
-      static_cast<const unsigned char*>(packed), packed_bstride, lanes, rows,
-      planes, pitch, base, plane_stride, plane_stride / pitch,
-      tiles.tile_lanes, tiles.chunk, tiles.n_ltiles, tiles.n_rtiles);
-  return static_cast<int>(cudaGetLastError());
+  if (path == kDmaNarrow)
+    return launch_narrow<V, false>(packed, packed_bstride, dst, dst_bstride, batch,
+                                   word, lanes, rows, planes, pitch, base,
+                                   plane_stride, vec, tile_rows, stream);
+  if constexpr (sizeof(V) <= 4) {
+    const Tiles tiles = dma_tiles(lanes, rows, planes, sizeof(V));
+    if (path != kDmaTiled || vec != word || bad_launch(batch, tiles.count) || pitch < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+    dim3 grid(static_cast<unsigned>(tiles.count), static_cast<unsigned>(batch));
+    unpack_tiled_kernel<V><<<grid, kThreads, 0, stream>>>(
+        static_cast<unsigned char*>(dst), dst_bstride,
+        static_cast<const unsigned char*>(packed), packed_bstride, lanes, rows,
+        planes, pitch, base, plane_stride, plane_stride / pitch,
+        tiles.tile_lanes, tiles.chunk, tiles.n_ltiles, tiles.n_rtiles);
+    return static_cast<int>(cudaGetLastError());
+  }
+  return static_cast<int>(cudaErrorInvalidValue);  // the tiled path copies words
 }
 
 }  // namespace tempi
@@ -129,9 +153,10 @@ extern "C" int tempi_unpack_dma(void* dst, long long dst_bstride,
                                 int batch, int word, long long lanes,
                                 long long rows, long long planes,
                                 long long pitch, long long base,
-                                long long plane_stride, int device,
-                                void* stream) {
-  TEMPI_DISPATCH_WORD(device, word, launch_unpack_dma, dst, dst_bstride,
-                      packed, packed_bstride, batch, lanes, rows, planes, pitch,
-                      base, plane_stride, static_cast<cudaStream_t>(stream));
+                                long long plane_stride, int vec, int path,
+                                int tile_rows, int device, void* stream) {
+  TEMPI_DISPATCH_VEC(device, vec, launch_unpack_dma, dst, dst_bstride, packed,
+                     packed_bstride, batch, word, lanes, rows, planes, pitch,
+                     base, plane_stride, vec, path, tile_rows,
+                     static_cast<cudaStream_t>(stream));
 }

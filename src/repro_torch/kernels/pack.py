@@ -9,7 +9,10 @@ parameterized by W"):
   ``tempi_pack_rows`` in ``csrc/pack.cu``).  The host picks V
   (:func:`vector_bytes`) and the path (:func:`row_path`) at each launch.
 * :func:`pack_dma`  — tiles staged through shared memory with
-  ``cp.async``, then stored contiguously (``tempi_pack_dma``).
+  ``cp.async``, then stored contiguously (``tempi_pack_dma``).  Rows of
+  at most 16 bytes take its narrow path (``csrc/narrow.cuh``): a tile is
+  a run of rows across planes, one V-byte copy a row.  The host picks V,
+  the path and the rows per tile (:func:`dma_args`) at each launch.
 
 Both take a batch: ``src`` is a ``(B, n)`` uint8 tensor and one launch
 packs the same block out of all ``B`` buffers into a ``(B, size)``
@@ -40,7 +43,10 @@ __all__ = [
     "row_args",
     "row_path",
     "vector_bytes",
+    "dma_args",
+    "narrow_tile_rows",
     "block_index",
+    "block_sectors",
     "check_operands",
     "launch",
 ]
@@ -104,7 +110,7 @@ def launch(lib_name: str, entry: str, a: torch.Tensor, b: torch.Tensor,
            geom: PackGeometry, *extra: int) -> None:
     """Call one C entry on the current stream of ``a``'s device: ``a`` is
     the strided buffer side, ``b`` the packed side, ``extra`` the entry's
-    own scalars (the row kernels' :func:`row_args`).  Raises if the
+    own scalars (:func:`row_args`, :func:`dma_args`).  Raises if the
     launch was refused."""
     fn = getattr(library(lib_name), entry)
     stream = torch.cuda.current_stream(a.device).cuda_stream
@@ -158,6 +164,58 @@ def row_args(geom: PackGeometry, a: torch.Tensor, b: torch.Tensor):
     return vec, ROW_PATHS.index(row_path(geom, vec))
 
 
+#: the dma kernels' paths, by the number their C entries take
+DMA_PATHS = ("tiled", "narrow")
+
+#: longest row, in bytes, the dma kernels' narrow path takes
+#: (``kNarrowRowBytes`` in ``csrc/narrow.cuh``); longer rows are tiled
+NARROW_ROW_BYTES = 16
+
+#: threads of a full thread block (``kThreads`` in ``csrc/common.cuh``);
+#: a narrow tile of R rows runs on min(THREADS, R) threads
+THREADS = 256
+
+#: rows per thread of a full narrow tile: THREADS * 2 = 512 rows, 4 KB of
+#: the halo's 8-byte rows.  Of 2, 4 and 8 rows a thread, 2 was the
+#: fastest at the halo's x faces for both kernels (PERF.md)
+NARROW_ROWS_PER_THREAD = 2
+
+#: fewest rows per narrow tile: one warp, one row per thread
+NARROW_MIN_TILE_ROWS = 32
+
+#: tiles a narrow launch aims for, about one per SM of an H100 (132)
+NARROW_MIN_TILES = 128
+
+
+def narrow_tile_rows(geom: PackGeometry, batch: int) -> int:
+    """Rows per tile of a narrow dma launch over ``batch`` buffers: a
+    power of two from :data:`NARROW_MIN_TILE_ROWS` to ``THREADS *
+    NARROW_ROWS_PER_THREAD``, halved while half a tile still holds all
+    of a buffer's rows or the launch has fewer than
+    :data:`NARROW_MIN_TILES` tiles.  A tile's threads then all have the
+    same number of rows, except in a buffer's last tile."""
+    n = geom.planes * geom.rows
+    tile = THREADS * NARROW_ROWS_PER_THREAD
+    while tile > NARROW_MIN_TILE_ROWS and (
+        tile // 2 >= n or batch * -(-n // tile) < NARROW_MIN_TILES
+    ):
+        tile //= 2
+    return tile
+
+
+def dma_args(geom: PackGeometry, a: torch.Tensor, b: torch.Tensor):
+    """The dma kernels' own C scalars for a launch on the strided buffer
+    ``a`` and the packed tensor ``b``: V in bytes, the path number and
+    the rows per tile.  Rows of at most :data:`NARROW_ROW_BYTES` take the
+    narrow path with V from :func:`vector_bytes`; longer rows the tiled
+    path, which copies W-byte words in 16 KB tiles that it sizes itself
+    (rows per tile 0)."""
+    if geom.lanes * geom.word_bytes > NARROW_ROW_BYTES:
+        return geom.word_bytes, DMA_PATHS.index("tiled"), 0
+    return (vector_bytes(geom, a, b), DMA_PATHS.index("narrow"),
+            narrow_tile_rows(geom, a.shape[0]))
+
+
 def block_index(geom: PackGeometry, device) -> torch.Tensor:
     """Byte index of every block byte in packing order, shape
     ``(planes, rows * lanes * W)`` — the plain versions' gather/scatter
@@ -168,6 +226,34 @@ def block_index(geom: PackGeometry, device) -> torch.Tensor:
     l = torch.arange(geom.lanes * w, device=device).view(1, 1, -1)
     rows = geom.q + p * geom.plane_rows + i
     return ((rows * geom.pitch + geom.r) * w + l).reshape(geom.planes, -1)
+
+
+#: bytes of an L2 sector, the unit of memory traffic the sector bound counts
+SECTOR_BYTES = 32
+
+
+def block_sectors(geom: PackGeometry):
+    """``(touched, whole)``: the 32-byte sectors that the block's bytes
+    touch in one buffer that starts on a sector boundary, and how many of
+    them the block covers whole.  Exact: rows that cross a sector
+    boundary, several rows in one sector (pitches under 32 bytes) and
+    planes that share rows all count once."""
+    w, s = geom.word_bytes, SECTOR_BYTES
+    p = torch.arange(geom.planes).view(-1, 1)
+    i = torch.arange(geom.rows).view(1, -1)
+    rows = torch.unique(geom.q + p * geom.plane_rows + i)  # sorted
+    start = (rows * geom.pitch + geom.r) * w
+    end = start + geom.lanes * w
+    # merge rows whose bytes run on (lanes == pitch) into intervals [a, b)
+    gap = torch.ones_like(start, dtype=torch.bool)
+    gap[1:] = start[1:] != end[:-1]
+    a, b = start[gap], end[torch.cat([gap[1:], gap.new_ones(1)])]
+    first, last = a // s, (b - 1) // s
+    before = torch.cat([last.new_full((1,), -1), last[:-1]])  # last sector so far
+    touched = (last - torch.maximum(first - 1, before)).clamp(min=0).sum()
+    # a sector that holds a gap between intervals is never whole
+    whole = (b // s - (a + s - 1) // s).clamp(min=0).sum()
+    return int(touched), int(whole)
 
 
 # ---------------------------------------------------------------------------
@@ -205,7 +291,7 @@ def pack_rows(src: torch.Tensor, geom: PackGeometry,
 def pack_dma(src: torch.Tensor, geom: PackGeometry,
              out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """As :func:`pack_rows`, with the shared-memory staged tile kernel."""
-    return _pack("tempi_pack_dma", pack_dma, src, geom, out)
+    return _pack("tempi_pack_dma", pack_dma, src, geom, out, dma_args)
 
 
 pack_rows.launches = 0

@@ -10,9 +10,11 @@ place and return it, touching only the block bytes.
   It takes only geometries whose planes occupy disjoint rows.
 * :func:`unpack_dma`  — packed tiles staged through shared memory with
   ``cp.async``, then scattered into their strided windows
-  (``tempi_unpack_dma``).  Planes that share rows overlap; each word is
-  written only by the last plane that covers it, so the last plane wins
-  exactly as in the reference's sequential grid.
+  (``tempi_unpack_dma``), with the same narrow path for rows of at most
+  16 bytes and the same choice of V, path and rows per tile
+  (``dma_args``).  Planes that share rows overlap; each row is written
+  only by the last plane that covers it, so the last plane wins exactly
+  as in the reference's sequential grid.
 
 As with pack, ``dst`` is ``(B, n)`` uint8 and ``packed`` ``(B, size)``;
 the wrapper runs the kernel for a CUDA tensor and the plain version
@@ -24,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.geometry import PackGeometry
-from repro_torch.kernels.pack import block_index, check_operands, launch, row_args
+from repro_torch.kernels.pack import block_index, check_operands, dma_args, launch, row_args
 
 __all__ = ["unpack_rows", "unpack_dma", "unpack_plain", "unpack_ragged"]
 
@@ -68,7 +70,7 @@ def unpack_rows(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) -> 
 def unpack_dma(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) -> torch.Tensor:
     """As :func:`unpack_rows`, with the shared-memory staged tile
     kernel; takes interleaved planes too.  Returns ``dst``."""
-    return _unpack("tempi_unpack_dma", unpack_dma, dst, packed, geom)
+    return _unpack("tempi_unpack_dma", unpack_dma, dst, packed, geom, dma_args)
 
 
 unpack_rows.launches = 0

@@ -16,7 +16,15 @@ from repro_torch.comm import Communicator, policy_for_mode
 from repro_torch.core import StridedBlock
 from repro_torch.halo import HaloSpec, from_reference, make_halo_step
 from repro_torch.kernels import launch_counts, plan_geometry, reset_launch_counts
-from repro_torch.kernels.pack import launch, pack_dma, pack_plain, pack_rows, row_args
+from repro_torch.kernels.pack import (
+    DMA_PATHS,
+    dma_args,
+    launch,
+    pack_dma,
+    pack_plain,
+    pack_rows,
+    row_args,
+)
 from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
 
 BLOCKS = [
@@ -80,13 +88,15 @@ def test_halo_exchange_on_the_card_equals_the_cpu(mode):
 
 @pytest.mark.cuda
 def test_kernels_take_offsets_past_32_bits():
-    """A block whose bytes lie past 1 GiB: the SIMT kernels switch their
-    index arithmetic to 64 bits there."""
+    """A block whose bytes lie past 1 GiB: the SIMT kernels and the dma
+    kernels' narrow path (5-byte rows, V = 1) switch their index
+    arithmetic to 64 bits there."""
     dev = _card()
     sb = StridedBlock((1 << 30) + 3, (5, 7, 2), (1, 1000, 40000))
     geom = plan_geometry(sb)
     assert geom.word_bytes == 1 and geom.span_bytes > 1 << 30
     src = torch.randint(0, 256, (1, geom.span_bytes + 5), dtype=torch.uint8, device=dev)
+    assert DMA_PATHS[dma_args(geom, src, src[:, :geom.packed_bytes])[1]] == "narrow"
     want = pack_plain(src, geom, torch.empty((1, geom.packed_bytes), dtype=torch.uint8,
                                              device=dev))
     for fn in (pack_rows, pack_dma):
@@ -176,3 +186,136 @@ def test_row_kernels_refuse_a_vector_that_does_not_divide_the_rows():
         launch("pack", "tempi_pack_rows", src, out, geom, 16, 1)
     with pytest.raises(RuntimeError, match="tempi_pack_rows"):
         launch("pack", "tempi_pack_rows", src, out, geom, 8, 2)
+
+
+def _dma_roundtrip(geom, src, wire, offset, dst):
+    """Pack ``src`` into the slot ``offset`` bytes into ``wire`` and unpack
+    the slot into ``dst`` with the dma kernels, each bit-exact against its
+    plain version; the wire bytes around the slot stay as they were."""
+    size = geom.packed_bytes
+    slot = wire[:, offset : offset + size]
+    before = wire.clone()
+    want = pack_plain(src, geom, torch.empty_like(slot))
+    pack_dma(src, geom, slot)
+    assert torch.equal(slot, want)
+    assert torch.equal(wire[:, :offset], before[:, :offset])
+    assert torch.equal(wire[:, offset + size :], before[:, offset + size :])
+    want_dst = unpack_plain(dst.clone(), slot, geom)
+    unpack_dma(dst, slot, geom)
+    assert torch.equal(dst, want_dst)
+
+
+def _buffers(dev, geom, batch, odd=0, seed=0):
+    """Two seeded ``(batch, n)`` buffers for ``geom`` (n the span rounded
+    up to 16 bytes, plus ``odd``) and a wire of the packed size plus 16
+    bytes, filled with 7."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    n = (geom.span_bytes + 15) // 16 * 16 + odd
+    src, dst = (torch.randint(0, 256, (batch, n), dtype=torch.uint8, device=dev, generator=gen)
+                for _ in range(2))
+    wire = torch.full((batch, geom.packed_bytes + 16), 7, dtype=torch.uint8, device=dev)
+    return src, dst, wire
+
+
+# the halo's three dma shapes at a 1,040-byte pitch, planes cut to 4 and
+# 16: x faces (2 x 256 x 256 words), dy = 0 (2 x 256 x 2) and dz = 0
+# (2 x 2 x 256) edges
+HALO_DMA = [
+    StridedBlock(8, (8, 256, 4), (1, 1040, 270400)),
+    StridedBlock(8, (8, 256, 2), (1, 1040, 270400)),
+    StridedBlock(1032, (8, 2, 16), (1, 1040, 270400)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(HALO_DMA)))
+@pytest.mark.parametrize("batch", [1, 8])
+def test_dma_kernels_at_the_halo_shapes(k, batch):
+    dev = _card()
+    geom = plan_geometry(HALO_DMA[k])
+    src, dst, wire = _buffers(dev, geom, batch, seed=k)
+    assert dma_args(geom, src, wire[:, : geom.packed_bytes])[:2] == (8, DMA_PATHS.index("narrow"))
+    _dma_roundtrip(geom, src, wire, 0, dst)
+    torch.cuda.synchronize()
+
+
+# narrow blocks at every vector width: (start, counts, strides, word or
+# None, slot offset, extra bytes per buffer, V)
+NARROW_CASES = [
+    (16, (16, 5, 3), (1, 64, 512), None, 0, 0, 16),
+    (8, (8, 64, 4), (1, 1040, 66560), None, 0, 0, 8),   # a cut x face
+    (8, (8, 64, 4), (1, 1040, 66560), None, 4, 0, 4),   # slot 4 B into a wire
+    (4, (8, 6, 3), (1, 1040, 6240), None, 0, 0, 4),     # rows at 4 mod 8
+    (16, (12, 5, 2), (1, 64, 320), None, 0, 0, 4),      # 12-byte rows: 3 vectors
+    (6, (10, 4, 3), (1, 30, 150), None, 0, 0, 2),       # W = 2: 5 vectors
+    (8, (8, 64, 4), (1, 1040, 66560), 1, 3, 0, 1),      # slot at an odd offset
+    (8, (8, 64, 4), (1, 1040, 66560), 1, 0, 1, 1),      # odd batch stride
+    (1, (13, 4, 2), (1, 100, 500), None, 0, 0, 1),      # W = 1: 13 vectors
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", range(len(NARROW_CASES)))
+@pytest.mark.parametrize("batch", [1, 8])
+def test_dma_narrow_path_takes_every_vector_width(k, batch):
+    """(One buffer never uses its batch stride: the odd-stride case then
+    runs at V = 8.)"""
+    dev = _card()
+    start, counts, strides, word, offset, odd, want = NARROW_CASES[k]
+    geom = plan_geometry(StridedBlock(start, counts, strides), word_bytes=word)
+    src, dst, wire = _buffers(dev, geom, batch, odd, seed=k)
+    vec, path, _ = dma_args(geom, src, wire[:, offset : offset + geom.packed_bytes])
+    assert (vec, DMA_PATHS[path]) == (8 if odd and batch == 1 else want, "narrow")
+    _dma_roundtrip(geom, src, wire, offset, dst)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [4, 5, 6])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_dma_narrow_path_lets_the_last_plane_win(k, batch):
+    """The three interleaved-plane blocks of ``BLOCKS``: their rows are 8,
+    5 and 6 bytes long, so both dma kernels take the narrow path."""
+    dev = _card()
+    geom = plan_geometry(BLOCKS[k])
+    assert geom.interleaved
+    src, dst, wire = _buffers(dev, geom, batch, seed=k)
+    assert DMA_PATHS[dma_args(geom, src, wire[:, : geom.packed_bytes])[1]] == "narrow"
+    _dma_roundtrip(geom, src, wire, 0, dst)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts,strides,batch,tile_rows", [
+    ((8, 200, 200), (1, 40, 8000), 8, 512),    # 40,000 rows: last tile 64 rows, pitch 40
+    ((8, 1000), (1, 1040), 1, 32),             # last tile 8 rows
+])
+def test_dma_narrow_path_takes_a_ragged_last_tile(counts, strides, batch, tile_rows):
+    dev = _card()
+    geom = plan_geometry(StridedBlock(8, counts, strides))
+    src, dst, wire = _buffers(dev, geom, batch)
+    assert dma_args(geom, src, wire[:, : geom.packed_bytes]) == (
+        8, DMA_PATHS.index("narrow"), tile_rows)
+    assert geom.rows * geom.planes % tile_rows
+    _dma_roundtrip(geom, src, wire, 0, dst)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_dma_kernels_refuse_a_launch_they_cannot_run():
+    """The launcher checks V against every address and the path against
+    the rows: an x-face row starts at byte 8 mod 16, so a 16-byte narrow
+    launch is refused; rows of 1 KB are too long for the narrow path; the
+    tiled path copies words only; a tile past 32 KB does not fit."""
+    dev = _card()
+    narrow, tiled = DMA_PATHS.index("narrow"), DMA_PATHS.index("tiled")
+    x = plan_geometry(StridedBlock(8, (8, 64, 4), (1, 1040, 66560)))
+    face = plan_geometry(StridedBlock(8, (1024, 4, 2), (1, 1040, 4160)))
+    for geom, args in ((x, (16, narrow, 1024)), (face, (8, narrow, 32)), (x, (8, tiled, 0)),
+                       (x, (8, narrow, 8192))):
+        src = torch.zeros((1, geom.span_bytes + 8), dtype=torch.uint8, device=dev)
+        out = torch.zeros((1, geom.packed_bytes), dtype=torch.uint8, device=dev)
+        with pytest.raises(RuntimeError, match="tempi_pack_dma"):
+            launch("pack", "tempi_pack_dma", src, out, geom, *args)
+        with pytest.raises(RuntimeError, match="tempi_unpack_dma"):
+            launch("unpack", "tempi_unpack_dma", src, out, geom, *args)

@@ -37,7 +37,15 @@ from repro_torch.kernels import (
     unpack,
 )
 from repro_torch.kernels.pack import (
+    DMA_PATHS,
+    NARROW_ROW_BYTES,
+    SECTOR_BYTES,
+    THREADS,
     VECTOR_BYTES,
+    block_index,
+    block_sectors,
+    dma_args,
+    narrow_tile_rows,
     pack_dma,
     pack_plain,
     pack_rows,
@@ -487,3 +495,152 @@ def test_vector_bytes_follows_pointers_strides_and_rows(geom_args, buf_off, slot
 def test_row_path_takes_a_warp_per_row_of_32_vectors_or_more(counts, word, vec, want):
     geom = _geom(8 if counts[0] % 8 == 0 else 0, counts, (1, 1040, 4160), word)
     assert row_path(geom, vec) == want
+
+
+# ---------------------------------------------------------------------------
+# the dma kernels' plan: vector width, path and rows per tile
+# ---------------------------------------------------------------------------
+
+
+def narrow_tiles(n, tile_rows):
+    """The rows each thread of each tile takes on the narrow path, as
+    ``csrc/narrow.cuh`` assigns them: a tile of ``tile_rows`` runs on
+    min(THREADS, tile_rows) threads, thread k takes rows j0 + k,
+    j0 + k + threads, ... of its tile."""
+    threads = min(THREADS, tile_rows)
+    return [[list(range(j0 + k, min(j0 + tile_rows, n), threads)) for k in range(threads)]
+            for j0 in range(0, n, tile_rows)]
+
+
+def check_narrow_tiles(geom, batch, tile_rows):
+    """The tiles cover every flattened row of a buffer exactly once, and
+    every thread of every tile but the last has the same number of rows,
+    at least one."""
+    n = geom.planes * geom.rows
+    tiles = narrow_tiles(n, tile_rows)
+    assert sorted(j for tile in tiles for rows in tile for j in rows) == list(range(n))
+    for tile in tiles[:-1]:
+        assert {len(rows) for rows in tile} == {tile_rows // len(tile)}
+        assert tile_rows % len(tile) == 0
+    return len(tiles)
+
+
+@pytest.mark.parametrize("k", range(10))
+def test_dma_plan_on_the_full_width_halo(full_width_halo, k):
+    """The 10 ``dma`` regions of the ``tempi`` plan (x faces, dy = 0 and
+    dz = 0 edges) send and receive 8-byte rows: the narrow path at V = 8.
+    The x faces (65,536 rows a buffer) take 512-row tiles, 2 rows a
+    thread; the edges (512 rows) 32-row tiles, 128 of them for 8 ranks."""
+    from repro_torch.halo import DIRECTIONS
+
+    plan, state, cases = full_width_halo
+    regions = [i for i, s in enumerate(plan.strategies) if s.name == "dma"]
+    assert len(regions) == 10
+    for side, i, geom, slot in cases:
+        if i != regions[k]:
+            continue
+        vec, path, tile_rows = dma_args(geom, state, slot)
+        assert (geom.lanes * geom.word_bytes, vec, DMA_PATHS[path]) == (8, 8, "narrow")
+        assert vec == check_vector_bytes(geom, state, slot)
+        tiles = check_narrow_tiles(geom, state.shape[0], tile_rows)
+        if DIRECTIONS[i][0] == 0 and DIRECTIONS[i][1] == 0:  # an x face
+            assert (geom.rows * geom.planes, tile_rows, tiles) == (65536, 512, 128)
+        else:
+            assert (geom.rows * geom.planes, tile_rows) == (512, 32)
+            assert state.shape[0] * tiles == 128
+
+
+# the CPU tests' sweep blocks and the vector cases of the card tests:
+# (block, narrow?); the interleaved-plane blocks are all narrow
+DMA_BLOCKS = [(port_block(sb), True) for sb in INTERLEAVED] + [
+    (tc.StridedBlock(8, (8, 2, 2), (1, 1040, 4160)), True),       # a halo corner
+    (tc.StridedBlock(8, (8, 64, 4), (1, 1040, 66560)), True),     # a cut x face
+    (tc.StridedBlock(16, (12, 5, 2), (1, 64, 320)), True),        # 12-byte rows, V = 4
+    (tc.StridedBlock(16, (16, 5, 3), (1, 64, 512)), True),        # one 16-byte vector
+    (tc.StridedBlock(1, (13, 4, 2), (1, 100, 500)), True),        # W = 1
+    (tc.StridedBlock(12, (8, 5, 3), (1, 40, 400)), True),
+    (tc.StridedBlock(0, (24, 5), (1, 64)), False),                # 24-byte rows: tiled
+    (tc.StridedBlock(4, (1040, 4, 3), (1, 2080, 10400)), False),
+]
+
+
+@pytest.mark.parametrize("k", range(len(DMA_BLOCKS)))
+@pytest.mark.parametrize("batch", [1, 8])
+def test_dma_plan_on_the_sweep_blocks(k, batch):
+    """Rows of at most 16 bytes take the narrow path, longer ones the
+    tiled path in W-byte words.  On the narrow path the per-row rule of
+    the unpack kernel (skip row i of plane p when p + 1 < planes and
+    i >= plane_rows) writes each byte once and gives the plain version's
+    bytes, whatever order the rows run in."""
+    sb, narrow = DMA_BLOCKS[k]
+    geom = plan_geometry(sb)
+    buf = torch.from_numpy(RNG.integers(0, 256, size=(batch, (geom.span_bytes + 15) // 16 * 16),
+                                        dtype=np.uint8))
+    packed = torch.from_numpy(RNG.integers(0, 256, size=(batch, geom.packed_bytes),
+                                           dtype=np.uint8))
+    vec, path, tile_rows = dma_args(geom, buf, packed)
+    assert (DMA_PATHS[path] == "narrow") == narrow
+    assert (geom.lanes * geom.word_bytes <= NARROW_ROW_BYTES) == narrow
+    if not narrow:
+        assert (vec, tile_rows) == (geom.word_bytes, 0)
+        return
+    assert vec == check_vector_bytes(geom, buf, packed)
+    check_narrow_tiles(geom, batch, tile_rows)
+    idx = block_index(geom, "cpu").reshape(geom.planes * geom.rows, -1)
+    rows = packed.reshape(batch, geom.planes * geom.rows, -1)
+    got, written = buf.clone(), torch.zeros(buf.shape[1], dtype=torch.int64)
+    for j in RNG.permutation(geom.planes * geom.rows):
+        p, i = divmod(int(j), geom.rows)
+        if p + 1 < geom.planes and i >= geom.plane_rows:
+            continue
+        got[:, idx[j]] = rows[:, j]
+        written[idx[j]] += 1
+    assert written.max() == 1
+    assert torch.equal(got, unpack_plain(buf.clone(), packed, geom))
+
+
+@pytest.mark.parametrize(
+    "n,batch,want",
+    [
+        (65536, 8, 512),    # x faces: 2 rows a thread
+        (512, 8, 32),       # edges: 128 tiles of a warp
+        (512, 1, 32),
+        (5000, 8, 256),     # 160 tiles of 256 rows
+        (40000, 8, 512),    # a ragged last tile of 64 rows
+        (10, 8, 32),        # one ragged tile a buffer
+        (4, 1, 32),
+    ],
+)
+def test_narrow_tiles_spread_over_the_sms(n, batch, want):
+    geom = plan_geometry(tc.StridedBlock(8, (8, n), (1, 1040)))
+    tile_rows = narrow_tile_rows(geom, batch)
+    assert tile_rows == want
+    tiles = check_narrow_tiles(geom, batch, tile_rows)
+    assert batch * tiles >= 128 or tile_rows == 32 or tile_rows // 2 < n <= tile_rows
+
+
+def brute_sectors(geom):
+    """(touched, whole) from every block byte: the plain count."""
+    sectors, counts = (block_index(geom, "cpu").reshape(-1).unique() // SECTOR_BYTES).unique(
+        return_counts=True)
+    return len(sectors), int((counts == SECTOR_BYTES).sum())
+
+
+@pytest.mark.parametrize(
+    "sb,word",
+    [
+        (tc.StridedBlock(8, (8, 256, 256), (1, 1040, 270400)), None),   # full-width x face
+        (tc.StridedBlock(8, (8, 64, 4), (1, 1040, 66560)), None),
+        (tc.StridedBlock(8, (1024, 4, 2), (1, 1040, 4160)), None),      # rows cross sectors
+        (tc.StridedBlock(8, (8, 200, 200), (1, 40, 8000)), None),
+        (tc.StridedBlock(4, (8, 20, 3), (1, 12, 240)), None),           # pitch under 32
+        (tc.StridedBlock(0, (4, 50), (1, 8)), None),
+        (tc.StridedBlock(0, (64, 10), (1, 64)), None),                  # contiguous rows
+        (tc.StridedBlock(48, (48, 10), (1, 48)), None),                 # ... from mid-sector
+        (tc.StridedBlock(3, (5, 7, 2), (1, 33, 231)), None),            # W = 1
+        (tc.StridedBlock(0, (1024, 3, 2), (1, 2048, 8192)), 1),
+    ] + [(port_block(sb), None) for sb in INTERLEAVED],                 # planes share rows
+)
+def test_block_sectors_counts_what_block_index_touches(sb, word):
+    geom = plan_geometry(sb, word_bytes=word)
+    assert block_sectors(geom) == brute_sectors(geom)
