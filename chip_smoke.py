@@ -13,8 +13,10 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            2, 1 bytes) on both their paths (a warp per row, one thread
            per vector) and the dma kernels through every V on their
            narrow path (rows of at most 16 bytes) and through their
-           tiled path, and on the 26 send and 26 receive types of the
-           full-width halo, 8 ranks per launch;
+           tiled path, on the 26 send and 26 receive types of the
+           full-width halo, and at every point of the calibration sweep
+           (``Vector(nblocks, blk, pitch, BYTE)``, blk 8-512 bytes, up to
+           524,288 rows), 8 ranks per launch;
 3. main    8 ranks on a periodic 2x2x2 grid, 256^3 float32 interior per
            rank, radius 2, all ranks in one (8, 260, 260, 260) tensor.
            One exchange under ``tempi``, ``rows``, ``dma`` and
@@ -27,7 +29,21 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            launch counts are zeroed just before this phase and read just
            after it; every kernel must have run, and each mode's launches
            per exchange must match its plan;
-4. timing  CUDA-event times of each kernel (L2 flushed before every
+4. measure the §5 model's tables calibrated on the card (full grid, 8
+           ranks a launch) through ``production_communicator`` into a
+           temporary store; launch counts are zeroed before the
+           calibration and read after it, and every kernel must have run.
+           Then the full-width ``tempi`` exchange with the measured and
+           with the analytic tables and with the measured plan
+           rescheduled to ``grouped`` and to ``uniform``, each bit-exact
+           (launches zeroed before, read after, equal to the plans'): the
+           picks, schedules and host-clock ms per exchange.  Rows, dma and
+           xla pack + unpack are timed for each of the 26 send types and
+           the measured pick is held against the fastest.  A second
+           communicator reloads the store and replays every pick from the
+           saved decisions file, and a third replays them over the
+           analytic table;
+5. timing  CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
            (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
            counts the block bytes read and written, ``bound_sectors_ms``
@@ -38,12 +54,15 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            shape the ``tempi`` plan launches each kernel at, with its
            launches per exchange and the vector width, path and (dma)
            rows per tile it took; the dma kernels at the x faces at
-           three tile sizes (``dma_tile_sweep``); the timer's floor (an
+           three tile sizes (``dma_tile_sweep``); each kernel and the
+           library call also by ``repro_torch.measure.time_fn`` (200
+           back-to-back launches between two synchronizations, L2 warm,
+           the host's enqueue included); the timer's floor (an
            empty launch; the y/z-face row kernels with L2 left clean);
            host-clock ms per exchange and CUDA-event ms per stencil
            application.
 
-Prints one JSON line ``{"kernels": [...]}``, the card's name and power
+Prints a ``{"measure": ...}`` line, one JSON line ``{"kernels": [...]}``, the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
 Needs one card; run from the repository root: ``python3 chip_smoke.py``.
@@ -65,6 +84,8 @@ SENTINEL = -1.0e30
 FLUSH_BYTES = 256 << 20    # > the 50 MB L2
 SLEEP_CYCLES = 2_000_000   # keeps the card busy while the host enqueues a timed call
 REPS = 20
+TIME_FN_ITERS = 200        # launches per time_fn reading
+RECALIBRATIONS = 4         # calibrations past the stored one, for the spread of the picks
 
 
 def fail(msg: str) -> None:
@@ -134,10 +155,10 @@ def wall_ms(torch, fn, reps: int) -> float:
 # ---------------------------------------------------------------------------
 
 KERNEL_INFO = {
-    "pack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/pack.py:100"),
-    "pack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/pack.py:143"),
-    "unpack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/unpack.py:77"),
-    "unpack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/unpack.py:113"),
+    "pack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/pack.py:106"),
+    "pack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/pack.py:157"),
+    "unpack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/unpack.py:83"),
+    "unpack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/unpack.py:128"),
 }
 
 
@@ -205,8 +226,14 @@ class KernelCheck:
             self._diff(name, got, want, what)
         return want if wire_offset is None else got
 
-    def unpack_side(self, dst, packed, geom, what):
-        want = self.unpack_plain(dst.clone(), packed, geom)
+    def unpack_side(self, dst, packed, geom, what, want=None):
+        """Unpack ``packed`` into a copy of ``dst`` with every unpack
+        kernel and hold each against the plain version (and, when given,
+        against ``want``)."""
+        plain = self.unpack_plain(dst.clone(), packed, geom)
+        if want is not None and not self.torch.equal(plain, want):
+            fail(f"the plain unpack differs from the expected bytes on {what}")
+        want = plain
         for name, fn in self.unpack.items():
             if name == "unpack_rows" and geom.interleaved:
                 continue  # the rows kernel takes disjoint planes only
@@ -322,9 +349,47 @@ def phase_kernels(torch, dev, spec, check):
         check.unpack_side(state, packed, plan_geometry(recv_ct.block), f"recv {d}")
     torch.cuda.synchronize()
     del state
+    sweep_check(torch, dev, spec.nranks, check, gen)
     print(f"[kernels] {check.checks} comparisons, all bit-exact; "
           f"max |diff| per kernel {check.err}; (vector bytes, path) pairs run: "
           f"{ {k: sorted(v) for k, v in check.paths.items()} }")
+
+
+def sweep_check(torch, dev, ranks, check, gen):
+    """Every kernel against its plain version at every (blk, total) point
+    of the calibration sweep, ``ranks`` ranks a launch, and the ``xla``
+    strategy's per-block copies against the plain pack where the sweep
+    times them (up to its calibration cap)."""
+    from repro_torch.comm import resolve_strategy
+    from repro_torch.kernels.geometry import plan_geometry
+    from repro_torch.kernels.pack import pack_plain
+    from repro_torch.measure.bench import BLOCK_BYTES, TOTAL_BYTES, sweep_types
+
+    xla = resolve_strategy("xla")
+    points = 0
+    for blk, nblocks, ct in sweep_types(BLOCK_BYTES, TOTAL_BYTES):
+        geom = plan_geometry(ct.block)
+        if geom is None:
+            fail(f"no kernel geometry for sweep type {ct.block}")
+        n = ct.extent + 64
+        what = f"sweep blk {blk} total {nblocks * blk} ({nblocks} rows, pitch {geom.pitch * geom.word_bytes} B)"
+        src = torch.randint(0, 256, (ranks, n), dtype=torch.uint8, device=dev, generator=gen)
+        packed = check.pack_side(src, geom, what)
+        if nblocks <= xla.calibration_cap:
+            got = xla.pack(src, ct, batched=True)
+            if not torch.equal(got, packed):
+                fail(f"xla differs from the plain pack on {what}")
+            want = src.clone()
+            xla.unpack(want, packed.flip(0), ct, batched=True)
+            check.unpack_side(src, packed.flip(0), geom, what, want=want)
+        else:
+            check.unpack_side(src, packed.flip(0), geom, what)
+        del src, packed
+        points += 1
+    torch.cuda.synchronize()
+    print(f"[kernels] {points} sweep points at {ranks} ranks a launch: every kernel "
+          f"bit-exact against its plain version, xla against the plain pack up to "
+          f"{xla.calibration_cap} blocks")
 
 
 def global_layout(torch, spec, dev):
@@ -385,7 +450,7 @@ def phase_main(torch, dev, spec, timings):
             ms, exchanges = wall_ms(torch, lambda: step(local), 5), 6
         timings[f"exchange_ms_{mode}"] = ms
         per_mode[mode] = {k: launch_counts()[k] - before[k] for k in before}
-        planned = plan_launches(step.plan)
+        planned = plan_launches(step.plan, comm)
         if any(per_mode[mode][k] != exchanges * planned[k] for k in planned):
             fail(f"{mode}: {per_mode[mode]} launches in {exchanges} exchanges; the plan "
                  f"launches {planned} per exchange")
@@ -456,15 +521,200 @@ def phase_main(torch, dev, spec, timings):
     return counts
 
 
-def plan_launches(plan):
-    """Kernel launches one exchange of ``plan`` makes: a pack and an
-    unpack per region whose strategy has a kernel (the halo's planes
-    never share rows, so a ``rows`` region unpacks with ``unpack_rows``)."""
+def region_names(plan):
+    """``{"-0+": strategy}``: each region's direction (dz, dy, dx) and the
+    strategy the plan picked for it."""
+    from repro_torch.halo import DIRECTIONS
+
+    return {"".join("-0+"[c + 1] for c in d): s.name
+            for d, s in zip(DIRECTIONS, plan.strategies)}
+
+
+def phase_measure(torch, dev, spec, card):
+    """Calibrate the §5 model's tables on the card through
+    ``production_communicator`` into a temporary store, then run the
+    full-width ``tempi`` exchange with them: the measured picks beside
+    those of the analytic and the checked-in H100 tables, the picks of
+    ``RECALIBRATIONS`` more calibrations (their spread), ms per exchange
+    under each table and under both wire schedules, the measured pick
+    against the fastest of rows, dma and xla for each of the 26 send
+    types, and a second communicator that replays every region pick
+    from the saved decisions file."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.comm import Communicator, H100_ANALYTIC, reschedule
+    from repro_torch.halo import DIRECTIONS, halo_exchange, make_halo_plan, make_halo_types
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.measure import (calibrate_params, load_h100_params,
+                                     production_communicator, time_fn)
+
+    out = {"card": card, "ranks": spec.nranks}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_measure_") as root:
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        comm, save = production_communicator(root, ranks=spec.nranks, device=dev)
+        torch.cuda.synchronize()
+        out["calibration_s"] = time.perf_counter() - t0
+        out["calibration_launches"] = launch_counts()
+        if not all(out["calibration_launches"].values()):
+            fail(f"calibration never launched a kernel: {out['calibration_launches']}")
+        params, model = comm.model.params, comm.model
+        for name in ("rows", "dma"):
+            for look in (model.measured, model.measured_unpack):
+                if look(name, 8, 1 << 14) is None:
+                    fail(f"no measured {look.__name__} table for {name}")
+        if params.wire_latency is None or params.wire_bw is None:
+            fail(f"the wire fit came back empty: {params.wire_latency}, {params.wire_bw}")
+        out.update(
+            wire_latency=params.wire_latency, wire_bw=params.wire_bw, hbm_bw=params.hbm_bw,
+            rows={f"{kind}/{k}": len(v) for kind, tables in
+                  (("pack", params.pack_table), ("unpack", params.unpack_table))
+                  for k, v in tables.items()},
+        )
+        out["rows"].update(wire=len(params.wire_table), copy=len(params.copy_table))
+        print(json.dumps({"measure_params": json.loads(params.to_json()), "card": card}))
+
+        # the picks, measured against analytic and the checked-in table
+        comms = {"measured": comm,
+                 "analytic": Communicator(params=H100_ANALYTIC, device=dev),
+                 "checked_in": Communicator(params=load_h100_params(), device=dev)}
+        analytic = comms["analytic"]
+        plans = {k: make_halo_plan(spec, c) for k, c in comms.items()}
+        for key, plan in plans.items():
+            m = comms[key].model
+            out[f"picks_{key}"] = region_names(plan)
+            out[f"schedule_{key}"] = plan.wire.schedule
+            out[f"issued_bytes_{key}"] = plan.wire.issued_bytes
+            out[f"priced_{key}"] = m.price_wire_schedules(plan.wire, comm.transport.native_ragged)
+        base = plans["measured"]
+        for sched in ("grouped", "uniform"):
+            plans[sched] = dataclasses.replace(base, wire=reschedule(base.wire, sched))
+            comms[sched] = comm
+
+        # the spread of the picks over calibrations of this card
+        out["recalibrations"] = []
+        for _ in range(RECALIBRATIONS):
+            c = Communicator(params=calibrate_params(ranks=spec.nranks, device=dev), device=dev)
+            plan = make_halo_plan(spec, c)
+            names = list(region_names(plan).values())
+            out["recalibrations"].append({
+                "schedule": plan.wire.schedule,
+                "picks": {n: names.count(n) for n in sorted(set(names))},
+                "priced": c.model.price_wire_schedules(plan.wire, c.transport.native_ragged),
+                "wire_latency": c.model.params.wire_latency, "wire_bw": c.model.params.wire_bw})
+
+        # ms per exchange under each, bit-exact against the periodic field
+        _, start, want = global_layout(torch, spec, dev)
+        local = start.clone()
+        order = list(plans)
+        ms = {k: [] for k in order}
+        reps, rounds = 10, 6
+        reset_launch_counts()
+        for rnd in range(rounds):
+            for key in (order if rnd % 2 == 0 else order[::-1]):
+                c = comms[key]
+                run = lambda: halo_exchange(local, spec, c, plan=plans[key])
+                local.copy_(start)  # poisoned halos
+                run()
+                torch.cuda.synchronize()
+                if not torch.equal(local, want):
+                    fail(f"measured-params exchange ({key}) differs from the periodic field")
+                ms[key].append(wall_ms(torch, run, reps))
+        counts = launch_counts()
+        planned = {k: 0 for k in counts}
+        for key, plan in plans.items():
+            for k, v in plan_launches(plan, comms[key]).items():
+                planned[k] += rounds * (reps + 1) * v
+        if counts != planned:
+            fail(f"measured-params exchanges launched {counts}; the plans launch {planned}")
+        out["exchange_ms"] = ms
+        out["exchange_launches"] = counts
+        del local, start, want
+
+        # each send type: rows, dma and xla pack + unpack, 8 ranks a launch
+        types = make_halo_types(spec, comm)
+        state = torch.randn((spec.nranks,) + spec.alloc, device=dev).view(spec.nranks, -1)
+        state = state.view(torch.uint8)
+        per_type, hits, hits_analytic = [], 0, 0
+        for d in DIRECTIONS:
+            send_ct, recv_ct = types[d]
+            times = {}
+            for rnd in range(3):  # rows and dma in turns, the least of 3 readings
+                for name in ("rows", "dma", "xla") if rnd == 0 else ("dma", "rows"):
+                    strat = comm.strategies.get(name)
+
+                    def both(strat=strat):
+                        strat.unpack(state, strat.pack(state, send_ct, batched=True), recv_ct,
+                                     batched=True)
+
+                    t = time_fn(both, iters=1 if name == "xla" else 20) * 1e3
+                    times[name] = min(times.get(name, t), t)
+            fastest = min(times, key=times.get)
+            pick = model.select(send_ct, 1, allow_bounding=False).strategy
+            pick_a = analytic.model.select(send_ct, 1, allow_bounding=False).strategy
+            hits += pick == fastest
+            hits_analytic += pick_a == fastest
+            per_type.append({"region": list(d), "ms": times, "fastest": fastest,
+                             "measured_pick": pick, "analytic_pick": pick_a,
+                             "predicted_ms": {n: model.estimate(send_ct, 1, n).t_pack * 1e3
+                                              + model.estimate(send_ct, 1, n).t_unpack * 1e3
+                                              for n in times}})
+        del state
+        out["fastest_matches"] = {"measured": hits, "analytic": hits_analytic,
+                                  "types": len(per_type)}
+        print(json.dumps({"measure_types": per_type, "card": card}))
+
+        # a second communicator replays every pick from the saved pins
+        save()
+        out["decisions"] = len(comm.model.decisions)
+        for key, params2 in (("pinned", None), ("pinned_over_analytic", H100_ANALYTIC)):
+            again, _ = production_communicator(root, params=params2, ranks=spec.nranks,
+                                                device=dev)
+            if params2 is None and again.model.params != params:
+                fail("the stored envelope did not load back as the calibrated params")
+            plan2 = make_halo_plan(spec, again)
+            hits2 = again.model.decisions.pinned_hits
+            # one hit a region: the schedule is re-priced, not pinned
+            if region_names(plan2) != out["picks_measured"] or hits2 < len(plan2.strategies):
+                fail(f"{key}: picks {region_names(plan2)} from {hits2} pins; "
+                     f"recorded {out['picks_measured']}")
+            if params2 is None and plan2.wire.schedule != base.wire.schedule:
+                fail(f"pinned rerun picked schedule {plan2.wire.schedule}")
+            out[f"{key}_hits"] = hits2
+            out[f"{key}_schedule"] = plan2.wire.schedule
+    torch.cuda.empty_cache()
+    print(f"[measure] calibrated in {out['calibration_s']:.2f} s; wire fit "
+          f"{out['wire_latency'] * 1e6:.2f} us + n / {out['wire_bw'] / 1e9:.1f} GB/s; "
+          f"schedule measured {out['schedule_measured']}, analytic {out['schedule_analytic']}, "
+          f"checked-in {out['schedule_checked_in']}, recalibrated "
+          f"{[r['schedule'] for r in out['recalibrations']]}; "
+          f"measured pick fastest in {hits}/{len(per_type)} send types (analytic {hits_analytic})")
+    print(json.dumps({"measure": out}))
+    return out
+
+
+def plan_launches(plan, comm):
+    """Kernel launches one exchange of ``plan`` on ``comm`` makes: per
+    region, a pack by its send strategy (for ``bounding``, the receiver's
+    extraction from the window, by the static choice) and an unpack by
+    the strategy ``comm`` selects for the receive type (the halo's planes
+    never share rows, so a ``rows`` unpack is ``unpack_rows``)."""
+    from repro_torch.comm import static_choice
+    from repro_torch.core import StridedBlock
+    from repro_torch.kernels.geometry import plan_geometry
+
     counts = dict.fromkeys(KERNEL_INFO, 0)
-    for strat in plan.strategies:
-        for side in ("pack", "unpack"):
-            if f"{side}_{strat.name}" in counts:
-                counts[f"{side}_{strat.name}"] += 1
+    for strat, send_ct, recv_ct in zip(plan.strategies, plan.send_cts, plan.recv_cts):
+        packer = strat.name
+        if strat.name == "bounding":
+            sb = send_ct.block
+            rb = StridedBlock(0, sb.counts, sb.strides)
+            packer = static_choice(plan_geometry(rb)).name if rb.ndims > 1 else None
+        for kernel in (f"pack_{packer}", f"unpack_{comm.select(recv_ct, 1, wire=False).name}"):
+            if kernel in counts:
+                counts[kernel] += 1
     return counts
 
 
@@ -527,6 +777,7 @@ def time_kernel(torch, timer, kernel, geom, words):
     and written, and the sectors they touch (:func:`sector_bytes`)."""
     from repro_torch.kernels.pack import pack_dma, pack_plain, pack_rows
     from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
+    from repro_torch.measure import time_fn
 
     R = words.shape[0]
     state = words.view(torch.uint8)
@@ -548,12 +799,16 @@ def time_kernel(torch, timer, kernel, geom, words):
         fns = (lambda: fn(state, packed, geom), lambda: unpack_plain(state, packed, geom),
                lambda: strided.copy_(pk_words))
     ms, plain_ms, library_ms = (timer.ms(f) for f in fns)
+    # the port's own timer: N back-to-back launches between two
+    # synchronizations, L2 left warm, the host's enqueue included
+    ms_fn, library_ms_fn = (time_fn(f, iters=TIME_FN_ITERS) * 1e3 for f in (fns[0], fns[2]))
     if state.stride(0) % 32:
         fail(f"state buffers {state.stride(0)} bytes apart: not on sector boundaries")
     nbytes, sectors = R * geom.packed_bytes, R * sector_bytes(kernel, geom)
     row = {"kernel": kernel, "lanes": geom.lanes, "rows": geom.rows, "planes": geom.planes,
            "pitch": geom.pitch, "batch": R, "bytes": 2 * nbytes, "sector_bytes": sectors,
            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+           "time_fn_ms": ms_fn, "library_time_fn_ms": library_ms_fn,
            "bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3,
            "bound_sectors_ms": sectors / HBM_BYTES_PER_S * 1e3}
     row["vector_bytes"], row["path"], tile_rows = kernel_launch(kernel, geom, state, packed)
@@ -657,6 +912,7 @@ def main() -> int:
     check = KernelCheck(torch, dev)
     phase_kernels(torch, dev, spec, check)
     counts = phase_main(torch, dev, spec, timings)
+    measure = phase_measure(torch, dev, spec, card)
     faces, shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -665,10 +921,14 @@ def main() -> int:
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": counts[kernel], "max_abs_err": check.err[kernel],
+            "launches_calibration": measure["calibration_launches"][kernel],
+            "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),
             "bound_ms": sum(f["bound_ms"] for f in mine), "bound_by": "bytes",
             "bound_sectors_ms": sum(f["bound_sectors_ms"] for f in mine),
             "library_ms": sum(f["library_ms"] for f in mine),
+            "time_fn_ms": sum(f["time_fn_ms"] for f in mine),
+            "library_time_fn_ms": sum(f["library_time_fn_ms"] for f in mine),
             "ms_per_tempi_exchange": sum(r["ms"] * r["launches_per_exchange"]
                                          for r in shapes if r["kernel"] == kernel),
         })

@@ -108,8 +108,8 @@ class Strategy:
     wire_only: bool = False
     #: participates in automatic PerfModel selection
     selectable: bool = True
-    #: measured tables never answer for more blocks than this (None =
-    #: unbounded); kept for the measurement step
+    #: calibration sweep cap on block count (None = unbounded); the
+    #: measured tables never answer for more blocks than this
     calibration_cap: Optional[int] = None
 
     def applicable(self, ct: CommittedType) -> bool:
@@ -130,6 +130,9 @@ class Strategy:
         return 1.5 * self.model_pack(model, ct, incount)
 
     def _table_covers(self, sb: StridedBlock, incount: int) -> bool:
+        """Whether this strategy's measured tables may answer for an
+        object of this many blocks: the sweep never measures past
+        ``calibration_cap``, so past it the analytic model prices."""
         cap = self.calibration_cap
         return cap is None or sb.num_blocks * incount <= cap
 
@@ -260,7 +263,7 @@ class XlaBlocks(Strategy):
     every implementation shares (the reference's ``xla`` strategy)."""
 
     name = "xla"
-    calibration_cap = 512
+    calibration_cap = 512  # one host-issued copy per block: slow past this
 
     def model_pack(self, model, ct, incount):
         p, size, sb, m = _analytic_prologue(model, self, ct, incount)
@@ -435,6 +438,12 @@ class StrategyRegistry:
 
     def selectable(self) -> Tuple[Strategy, ...]:
         return tuple(s for s in self._by_name.values() if s.selectable)
+
+    def measurable(self) -> Tuple[Strategy, ...]:
+        """Strategies with a real pack path worth calibrating."""
+        return tuple(
+            s for s in self._by_name.values() if s.selectable and not s.wire_only
+        )
 
     def __iter__(self):
         return iter(self._by_name.values())
@@ -633,6 +642,9 @@ class Communicator:
         ``device``.
     device: where the buffers live: ``"cuda"`` (the default; raises when
         no card is present) or ``"cpu"``.
+    decisions: optional :class:`repro_torch.measure.DecisionCache` —
+        pins strategy selections (fingerprint-keyed) and records them
+        with every priced wire plan in its audit log.
     """
 
     def __init__(
@@ -643,12 +655,13 @@ class Communicator:
         policy: Optional[Policy] = None,
         transport=None,
         device="cuda",
+        decisions=None,
     ):
         self.device = resolve_device(device)
         self.transport = transport or LocalMeshTransport(self.device)
         self.registry = registry or TypeRegistry()
         self.strategies = strategies or default_registry()
-        self.model = PerfModel(params)
+        self.model = PerfModel(params, decisions=decisions)
         self.policy = policy or ModelPolicy()
 
     @property
@@ -731,7 +744,9 @@ class Communicator:
         ``schedule_policy``: ``"model"`` (default) lets the performance
         model price the feasible schedules; ``"exact"`` keeps the
         byte-exact ladder.  Whether a native ragged collective exists is
-        the transport's answer (``transport.native_ragged``)."""
+        the transport's answer (``transport.native_ragged``).  The plan is
+        priced and, with a decision cache, recorded with the prices of
+        the schedules the model rejected."""
         if schedule_policy is None:
             schedule_policy = DEFAULT_SCHEDULE_POLICY
         if schedule_policy not in ("exact", "model"):
@@ -752,8 +767,13 @@ class Communicator:
             uniform_waste_tolerance=uniform_waste_tolerance,
             native=native,
         )
+        note = ""
         if schedule_policy == "model":
-            plan, _ = self.model.choose_wire_schedule(plan, native)
+            plan, costs = self.model.choose_wire_schedule(plan, native)
+            note = " priced[" + " ".join(
+                f"{k}={v:.3e}" for k, v in sorted(costs.items())
+            ) + "]"
+        self.model.price_exchange(plan, note=note)
         return strats, plan
 
     def ineighbor_alltoallv(

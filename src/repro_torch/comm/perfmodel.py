@@ -13,16 +13,19 @@ packages make the same choice from the same parameter values:
     bounding  send the *contiguous bounding extent* of the object with
               no pack; the receiver extracts             ≙ "one-shot"
 
-Each strategy time decomposes as  T = T_pack + T_link(bytes) + T_unpack.
-This slice carries the analytic part only: every term comes from a
-:class:`SystemParams` table of constants, and the measured-table lookups
-(:meth:`PerfModel.measured`, :meth:`PerfModel.measured_unpack`) answer
-None until the port measures its own tables (ROADMAP Queue 1 step 7).
+Each strategy time decomposes as  T = T_pack + T_link(bytes) + T_unpack,
+with terms read from a :class:`SystemParams` table: either the analytic
+H100 constants or the measured tables ``repro_torch.measure`` records
+on the card (the paper's "binary that records system performance
+parameters").  The lookups (interpolation on sparse log2 grids, the
+fitted link latency and bandwidth past the grid) are the reference's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
@@ -35,19 +38,50 @@ __all__ = [
     "H100_ANALYTIC",
 ]
 
+#: 2D measured table rows: (log2_contig_block_bytes, log2_total_bytes, sec)
+Table2D = Tuple[Tuple[float, float, float], ...]
+#: 1D measured table rows: (log2_total_bytes, sec)
+Table1D = Tuple[Tuple[float, float], ...]
+
 #: reference field name -> port field name (the link terms follow the card)
 _REFERENCE_FIELDS = {"ici_bw": "link_bw", "ici_latency": "link_latency"}
+_TO_REFERENCE = {v: k for k, v in _REFERENCE_FIELDS.items()}
+
+#: reference tables of later roadmap items: a non-empty one is refused
+#: rather than silently priced as if it were absent
+_LATER_FIELDS = {
+    "wire_tables": "Queue 1, measurement: the per-axis sweeps",
+    "wire_fits": "Queue 1, measurement: the per-axis sweeps",
+    "link_tables": "Queue 1, hierarchy and scale",
+    "link_fits": "Queue 1, hierarchy and scale",
+    "compress_table": "Queue 1, compressed wire and the varlen schedule",
+}
+
+
+def _freeze2d(v) -> Optional[Dict[str, Table2D]]:
+    if not v:
+        return None
+    return {k: tuple(tuple(row) for row in rows) for k, rows in v.items()}
+
+
+def _freeze1d(v) -> Optional[Table1D]:
+    if not v:
+        return None
+    return tuple(tuple(row) for row in v)
 
 
 @dataclass(frozen=True)
 class SystemParams:
-    """Analytic system parameters of the §5 model.
+    """Measured or analytic system parameters of the §5 model.
 
-    The defaults are those of one H100 SXM and are **unmeasured**:
-    ``hbm_bw`` (3.35 TB/s) and ``link_bw`` (NVLink 4: 900 GB/s per card,
-    450 GB/s each way) are NVIDIA data-sheet figures; the latency and
-    per-operation constants are placeholders of the right order until
-    the port's measurement step replaces them.
+    The analytic defaults are those of one H100 SXM and are
+    **unmeasured**: ``hbm_bw`` (3.35 TB/s) and ``link_bw`` (NVLink 4:
+    900 GB/s per card, 450 GB/s each way) are NVIDIA data-sheet figures;
+    the latency and per-operation constants are placeholders of the right
+    order.  A calibration (``repro_torch.measure``) fills the measured
+    tables, and the model then reads every term of T = T_pack + T_link +
+    T_unpack from them; the constants stay as fallbacks for whatever the
+    tables do not cover.
     """
 
     name: str
@@ -57,12 +91,44 @@ class SystemParams:
     kernel_launch: float = 3.0e-6     # fixed cost of one kernel launch
     dma_setup: float = 1.0e-8         # per staged tile of the dma kernel
     xla_copy_overhead: float = 2.0e-6  # per-block copy (cudaMemcpyAsync)
+    # measured tables ({strategy: rows} / rows) — sparse grids in log2
+    # space, interpolated at query time (nearest-neighbour off-grid)
+    pack_table: Optional[Dict[str, Table2D]] = None
+    unpack_table: Optional[Dict[str, Table2D]] = None
+    wire_table: Optional[Table1D] = None   # one-hop collective time
+    copy_table: Optional[Table1D] = None   # contiguous device copy time
+    # least-squares (latency, bandwidth) fit of wire_table: the per-extra-
+    # hop latency and the rate past the measured grid
+    wire_latency: Optional[float] = None
+    wire_bw: Optional[float] = None
+    # the reference's stencil-application sweep, carried through load and
+    # save unread: its consumer comes with the deep-halo programs
+    stencil_table: Optional[Table2D] = None
+
+    def __post_init__(self):
+        # normalize list-of-lists (JSON) into hashable tuple tables
+        object.__setattr__(self, "pack_table", _freeze2d(self.pack_table))
+        object.__setattr__(self, "unpack_table", _freeze2d(self.unpack_table))
+        object.__setattr__(self, "wire_table", _freeze1d(self.wire_table))
+        object.__setattr__(self, "copy_table", _freeze1d(self.copy_table))
+        object.__setattr__(self, "stencil_table", _freeze1d(self.stencil_table))
+
+    def to_json(self) -> str:
+        """JSON under the reference's field names (``ici_bw``,
+        ``ici_latency``), so ``repro.comm.perfmodel.SystemParams`` reads
+        it."""
+        d = {_TO_REFERENCE.get(k, k): v for k, v in dataclasses.asdict(self).items()}
+        return json.dumps(d, indent=2)
+
+    @staticmethod
+    def from_json(s: str) -> "SystemParams":
+        return SystemParams.from_reference(**json.loads(s))
 
     @staticmethod
     def from_reference(**fields) -> "SystemParams":
         """Parameters from the reference's ``SystemParams`` field values
         (``ici_bw``/``ici_latency`` become ``link_bw``/``link_latency``).
-        Measured tables are not ported yet: a non-empty one raises."""
+        A non-empty table of a later roadmap item raises."""
         known = {f.name for f in dataclasses.fields(SystemParams)}
         out = {}
         for k, v in fields.items():
@@ -70,7 +136,8 @@ class SystemParams:
             if k in known:
                 out[k] = v
             elif v:
-                raise ValueError(f"reference field {k!r} is not ported yet")
+                later = _LATER_FIELDS.get(k, "no roadmap item")
+                raise ValueError(f"reference field {k!r} is not ported yet (ROADMAP {later})")
         return SystemParams(**out)
 
 
@@ -92,19 +159,99 @@ class StrategyEstimate:
         return self.t_pack + self.t_link + self.t_unpack
 
 
+class _Interp2D:
+    """Bilinear interpolation on a sparse (log2 block, log2 total) grid.
+
+    The axis vectors, the dense grid (NaN holes) and the point list are
+    built once per table.  Cells with a missing corner, and degenerate
+    one-row or one-column grids, answer with the nearest measured point.
+    """
+
+    def __init__(self, table: Table2D):
+        import numpy as np
+
+        self._np = np
+        pts = np.asarray(table, dtype=float)
+        self.pts = pts
+        self.xs = np.unique(pts[:, 0])
+        self.ys = np.unique(pts[:, 1])
+        grid = np.full((len(self.xs), len(self.ys)), np.nan)
+        xi = np.searchsorted(self.xs, pts[:, 0])
+        yi = np.searchsorted(self.ys, pts[:, 1])
+        grid[xi, yi] = pts[:, 2]
+        self.grid = grid
+
+    def _nearest(self, x: float, y: float) -> float:
+        np = self._np
+        d = (self.pts[:, 0] - x) ** 2 + (self.pts[:, 1] - y) ** 2
+        return float(self.pts[int(np.argmin(d)), 2])
+
+    def __call__(self, x: float, y: float) -> float:
+        np = self._np
+        xs, ys = self.xs, self.ys
+        if len(xs) < 2 or len(ys) < 2:
+            return self._nearest(x, y)
+        x = min(max(x, xs[0]), xs[-1])
+        y = min(max(y, ys[0]), ys[-1])
+        i = min(int(np.searchsorted(xs, x, side="right") - 1), len(xs) - 2)
+        j = min(int(np.searchsorted(ys, y, side="right") - 1), len(ys) - 2)
+        q = self.grid[i : i + 2, j : j + 2]
+        if np.isnan(q).any():
+            return self._nearest(x, y)
+        tx = (x - xs[i]) / (xs[i + 1] - xs[i])
+        ty = (y - ys[j]) / (ys[j + 1] - ys[j])
+        return float(
+            q[0, 0] * (1 - tx) * (1 - ty)
+            + q[1, 0] * tx * (1 - ty)
+            + q[0, 1] * (1 - tx) * ty
+            + q[1, 1] * tx * ty
+        )
+
+
+class _Interp1D:
+    """Piecewise-linear interpolation on a (log2 total) -> seconds table,
+    clamped at the ends."""
+
+    def __init__(self, table: Table1D):
+        import numpy as np
+
+        self._np = np
+        pts = np.asarray(sorted(table), dtype=float)
+        self.xs = pts[:, 0]
+        self.vs = pts[:, 1]
+
+    def __call__(self, x: float) -> float:
+        return float(self._np.interp(x, self.xs, self.vs))
+
+
+def _interp2d(table, x, y) -> Optional[float]:
+    """Interpolated lookup on a measured 2D table (None iff empty), with
+    a fresh interpolator; model queries go through the per-model cache."""
+    if not table:
+        return None
+    return _Interp2D(tuple(tuple(r) for r in table))(x, y)
+
+
 class PerfModel:
     """Strategy selection per (committed type, incount, hop count).
 
     The per-strategy cost formulas live on the
     :class:`~repro_torch.comm.api.Strategy` plugins; this model supplies
-    the shared terms (link time, system parameters) and picks the
-    cheapest among whatever strategies are registered.  Queries are pure
-    functions of their arguments, so results are cached (paper §4/§6.3).
+    the shared terms (link time, measured tables, system parameters) and
+    picks the cheapest among whatever strategies are registered.  Queries
+    are pure functions of their arguments, so results are cached (paper
+    §4/§6.3).  With a ``decisions`` cache
+    (:class:`repro_torch.measure.DecisionCache`) a recorded selection is
+    pinned instead of re-derived, and every new one is recorded.
     """
 
-    def __init__(self, params: SystemParams = H100_ANALYTIC):
+    def __init__(self, params: SystemParams = H100_ANALYTIC, decisions=None):
         self.params = params
+        self.decisions = decisions
         self._cache: Dict[Tuple, StrategyEstimate] = {}
+        # interpolators, built once per measured table and keyed by the
+        # (frozen, hashable) table, so they live as long as this model
+        self._interp: Dict[Tuple, object] = {}
         self.lookups = 0
         self.hits = 0
 
@@ -114,48 +261,105 @@ class PerfModel:
 
         return resolve_strategy(strategy, registry)
 
-    # -- measured tables (none yet: ROADMAP Queue 1 step 7) ---------------
-    def measured(self, strategy: str, contig: int, total: int) -> Optional[float]:
-        """Measured pack time for a named strategy; None until measured."""
-        return None
+    # -- measured tables ------------------------------------------------
+    def _interp_for(self, table, cls):
+        it = self._interp.get(table)
+        if it is None:
+            it = cls(table)
+            self._interp[table] = it
+        return it
 
-    def measured_unpack(
-        self, strategy: str, contig: int, total: int
-    ) -> Optional[float]:
-        """Measured unpack time; None until measured."""
-        return None
+    def _lookup2d(self, tables, strategy: str, contig: int, total: int) -> Optional[float]:
+        if not tables or strategy not in tables or not tables[strategy]:
+            return None
+        return self._interp_for(tables[strategy], _Interp2D)(
+            math.log2(max(contig, 1)), math.log2(max(total, 1))
+        )
+
+    def measured(self, strategy: str, contig: int, total: int) -> Optional[float]:
+        """Interpolated measured pack time for a named strategy, or None
+        when no calibration table covers it."""
+        return self._lookup2d(self.params.pack_table, strategy, contig, total)
+
+    def measured_unpack(self, strategy: str, contig: int, total: int) -> Optional[float]:
+        """Interpolated measured unpack time, or None when uncovered."""
+        return self._lookup2d(self.params.unpack_table, strategy, contig, total)
+
+    def measured_copy(self, nbytes: int) -> Optional[float]:
+        """Interpolated measured contiguous-copy time, or None."""
+        t = self.params.copy_table
+        if not t:
+            return None
+        return self._interp_for(t, _Interp1D)(math.log2(max(nbytes, 1)))
 
     # -- link term ------------------------------------------------------
+    def _hop_latency(self) -> float:
+        lat = self.params.wire_latency
+        return lat if lat is not None else self.params.link_latency
+
     def t_link(self, nbytes: int, hops: int = 1) -> float:
         p = self.params
+        if p.wire_table:
+            # measured one-hop collective time; extra hops add the fitted
+            # (or analytic) latency floor, not another bandwidth term
+            interp = self._interp_for(p.wire_table, _Interp1D)
+            x = math.log2(max(nbytes, 1))
+            t = interp(x)
+            end = float(interp.xs[-1])
+            if x > end:
+                # past the measured grid: the fitted (or analytic) rate
+                # for the excess bytes instead of a flat clamp
+                bw = p.wire_bw if p.wire_bw else p.link_bw
+                t += (nbytes - 2.0 ** end) / bw
+            return t + (hops - 1) * self._hop_latency()
         return hops * p.link_latency + nbytes / p.link_bw
 
     # -- exchange pricing (exact-byte wire plans) -----------------------
     def _price_schedule(self, plan, schedule: str) -> float:
         """Predicted seconds of ``plan``'s layout under ``schedule``: the
-        link term on the bytes the schedule issues plus one launch
-        latency per extra collective."""
+        link term on the bytes the schedule issues plus one hop latency
+        per extra collective."""
         if schedule == "grouped":
             t = self.t_link(plan.wire_bytes, 1)
-            return t + (plan.ngroups - 1) * self.params.link_latency
+            return t + (plan.ngroups - 1) * self._hop_latency()
         if schedule == "uniform":
             return self.t_link(plan.nranks * plan.seg_bytes, 1)
         if schedule == "ragged":
             return self.t_link(plan.wire_bytes, 1)
-        if schedule in ("tiered", "varlen"):
+        if schedule == "varlen":
             raise NotImplementedError(
-                f"schedule {schedule!r} is not ported yet (ROADMAP)"
+                "schedule 'varlen' is not ported yet (ROADMAP Queue 1, compressed "
+                "wire and the varlen schedule)"
+            )
+        if schedule == "tiered":
+            raise NotImplementedError(
+                "schedule 'tiered' is not ported yet (ROADMAP Queue 1, hierarchy and scale)"
             )
         raise ValueError(f"unknown wire schedule {schedule!r}")
 
-    def price_exchange(self, plan) -> StrategyEstimate:
+    def price_exchange(self, plan, note: str = "") -> StrategyEstimate:
         """Price a :class:`~repro_torch.comm.wireplan.WirePlan`: the link
         term for the bytes its schedule actually issues, plus the
-        per-extra-collective latency of the grouped schedule."""
+        per-extra-collective latency of the grouped schedule.  The
+        estimate is recorded once per plan fingerprint in the attached
+        decision cache; ``note`` is appended to its signature."""
         t = self._price_schedule(plan, plan.schedule)
-        return StrategyEstimate(
+        est = StrategyEstimate(
             f"wire/{plan.schedule}", 0.0, t, 0.0, wire_bytes=plan.issued_bytes
         )
+        if self.decisions is not None:
+            key = (plan.fingerprint, plan.ngroups, plan.wire_ops, True)
+            if self.decisions.lookup(*key) is None:
+                self.decisions.record(
+                    *key,
+                    est,
+                    signature=(
+                        f"exchange schedule={plan.schedule}"
+                        f" groups={plan.ngroups} ranks={plan.nranks}"
+                        f" ragged_bytes={plan.wire_bytes}{note}"
+                    ),
+                )
+        return est
 
     def price_wire_schedules(self, plan, native: bool = False) -> Dict[str, float]:
         """Predicted seconds for every wire schedule that could carry the
@@ -202,29 +406,39 @@ class PerfModel:
         """Pick the cheapest applicable registered strategy (cached per
         call signature).  ``allow_bounding`` admits wire-only strategies
         (data actually crosses a link, so shipping the bounding window
-        is meaningful)."""
+        is meaningful).  A selection pinned in the decision cache is
+        replayed when its strategy is registered; a new one is
+        recorded."""
         if registry is None:
             from repro_torch.comm.api import default_registry
 
             registry = default_registry()
         # keyed on the type's CONTENT fingerprint and the registry's
         # mutation counter, so a newly registered plugin invalidates
-        key = (ct.fingerprint, incount, hops, allow_bounding, id(registry),
-               registry.version)
+        sig = ct.fingerprint
+        key = (sig, incount, hops, allow_bounding, id(registry), registry.version)
         self.lookups += 1
         hit = self._cache.get(key)
         if hit is not None:
             self.hits += 1
             return hit
-        cands = [
-            s
-            for s in registry.selectable()
-            if (allow_bounding or not s.wire_only) and s.applicable(ct)
-        ]
-        if not cands:
-            raise ValueError(f"no applicable strategy registered for {ct!r}")
-        best = min(
-            (s.plan(self, ct, incount, hops) for s in cands), key=lambda e: e.total
-        )
+        pinned = None
+        if self.decisions is not None:
+            pinned = self.decisions.lookup(sig, incount, hops, allow_bounding)
+        if pinned is not None and pinned.strategy in registry:
+            best = registry.get(pinned.strategy).plan(self, ct, incount, hops)
+        else:
+            cands = [
+                s
+                for s in registry.selectable()
+                if (allow_bounding or not s.wire_only) and s.applicable(ct)
+            ]
+            if not cands:
+                raise ValueError(f"no applicable strategy registered for {ct!r}")
+            best = min(
+                (s.plan(self, ct, incount, hops) for s in cands), key=lambda e: e.total
+            )
+            if self.decisions is not None:
+                self.decisions.record(sig, incount, hops, allow_bounding, best, ct=ct)
         self._cache[key] = best
         return best

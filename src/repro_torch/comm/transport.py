@@ -77,11 +77,13 @@ class LocalMeshTransport:
             return self._ragged(wire, plan)
         if sched == "varlen":
             raise NotImplementedError(
-                "the varlen schedule is not ported yet (ROADMAP Queue 1 step 9)"
+                "the varlen schedule is not ported yet (ROADMAP Queue 1, compressed "
+                "wire and the varlen schedule)"
             )
         if sched == "tiered":
             raise NotImplementedError(
-                "the tiered schedule is not ported yet (ROADMAP Queue 1 step 10)"
+                "the tiered schedule is not ported yet (ROADMAP Queue 1, hierarchy "
+                "and scale)"
             )
         raise ValueError(f"unknown wire schedule {sched!r}")
 

@@ -12,9 +12,11 @@ nothing else — no per-block metadata ever lives in device memory.
 The applicability predicates are those of the reference planner, kept
 unchanged so both packages hand the ``rows``/``dma`` strategies exactly
 the same types: W is capped at 4 bytes and a pitch row must fit
-:data:`PITCH_ROW_BUDGET_BYTES`.  Neither limit binds a Hopper kernel;
-widening W to 8/16 bytes and lifting the row budget are the first
-kernel-speed items of the roadmap.
+:data:`PITCH_ROW_BUDGET_BYTES`.  Neither limit binds a Hopper kernel,
+and W stays 4 on purpose: each kernel picks its own vector width V (up
+to 16 bytes) from the pointers, strides and block at launch
+(``kernels/pack.py`` ``vector_bytes``), so a wider W would buy nothing
+and the strategy choices would no longer compare with the reference's.
 
 All planning happens on host scalars at commit time.
 """

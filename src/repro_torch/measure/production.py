@@ -1,0 +1,95 @@
+"""Production wiring: measured params plus pinned decisions.
+
+The §6.3 lifecycle for a long-running job in one call: the first run
+calibrates (or loads an earlier calibration for this system fingerprint)
+and records every strategy selection it makes; the decisions file is
+saved at the store's root, so every later run of the job **pins** those
+selections and never consults the model for them again.
+
+    comm, save = production_communicator()
+    ... every datatype exchange of the job goes through comm ...
+    save()          # persist the (possibly grown) decisions file
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+from typing import Callable, Optional, Tuple, Union
+
+from repro_torch.comm.api import Communicator
+from repro_torch.comm.perfmodel import H100_ANALYTIC, SystemParams
+from repro_torch.device import resolve_device
+from repro_torch.measure.bench import RANKS
+from repro_torch.measure.decisions import DecisionCache
+from repro_torch.measure.store import ParamsStore
+
+__all__ = ["DECISIONS_FILENAME", "production_communicator"]
+
+#: the decisions file lives at the root of the params store
+DECISIONS_FILENAME = "decisions.json"
+
+#: reference options whose machinery is a later roadmap item
+_LATER = {
+    "telemetry": "Queue 1, observability and fleet",
+    "tracer": "Queue 1, observability and fleet",
+    "halo_steps": "Queue 1, deep-halo programs and overlap",
+    "topology": "Queue 1, hierarchy and scale",
+}
+
+
+def production_communicator(
+    cache_dir: Optional[Union[str, Path]] = None,
+    *,
+    calibrate: bool = True,
+    reduced: Optional[bool] = None,
+    params: Optional[SystemParams] = None,
+    ranks: int = RANKS,
+    device="cuda",
+    telemetry=None,
+    tracer=None,
+    halo_steps=None,
+    topology=None,
+) -> Tuple[Communicator, Callable[[], Path]]:
+    """A :class:`Communicator` wired for production reuse.
+
+    Parameters
+    ----------
+    cache_dir: params-store root (default: ``$REPRO_TORCH_MEASURE_DIR``
+        or the user cache dir).
+    calibrate: when True (default), a missing calibration for this
+        system fingerprint is measured once and stored; when False, a
+        missing calibration falls back to the analytic table.
+    reduced: grid size of a fresh calibration; defaults to the full grid
+        on the card and the reduced one on the CPU.
+    params: explicit SystemParams (skips the store's tables).
+    ranks: the local-mesh rank count the tables are measured for.
+    device: ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
+    telemetry, tracer, halo_steps, topology: the reference's options of
+        later roadmap items; passing one raises NotImplementedError.
+
+    Returns ``(comm, save)``: ``save()`` writes the decisions file.
+    """
+    for opt, value in (("telemetry", telemetry), ("tracer", tracer),
+                       ("halo_steps", halo_steps), ("topology", topology)):
+        if value is not None and value is not False:
+            raise NotImplementedError(
+                f"production_communicator({opt}=...) is not ported yet "
+                f"(ROADMAP {_LATER[opt]})"
+            )
+    dev = resolve_device(device)
+    store = ParamsStore(cache_dir, ranks=ranks, device=dev)
+    if params is None:
+        if calibrate:
+            if reduced is None:
+                reduced = dev.type != "cuda"
+            params = store.load_or_calibrate(reduced=reduced)
+        else:
+            params = store.load() or H100_ANALYTIC
+    decisions_path = store.root / DECISIONS_FILENAME
+    decisions = DecisionCache.load(decisions_path)
+    comm = Communicator(params=params, decisions=decisions, device=dev)
+
+    def save() -> Path:
+        return decisions.save(decisions_path)
+
+    return comm, save

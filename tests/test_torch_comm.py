@@ -2,9 +2,10 @@
 transport.
 
 * Strategy selection: for the 52 send and receive types of a small halo
-  and the same parameter values on both sides, ``PerfModel.select``
-  picks the same strategy at the same price (rel 1e-12), and every
-  strategy's estimate agrees term by term.
+  and the same parameter values on both sides (the analytic tables and
+  three measured ones), ``PerfModel.select`` picks the same strategy at
+  the same price (rel 1e-12), and every strategy's estimate agrees term
+  by term.
 * Wire plans: ``plan_wire`` with ``native`` passed explicitly to both
   packages gives the identical layout, schedule and byte accounting, and
   the model-priced schedule choice agrees.
@@ -13,6 +14,7 @@ transport.
 """
 
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -52,10 +54,58 @@ def _ref_values(name):
     return {f: getattr(H100_ANALYTIC, PORT_FIELD.get(f, f)) for f in REF_FIELDS}
 
 
+def synthetic_fields(seed=16):
+    """Reference SystemParams fields with seeded measured tables: the
+    measurement grid with a fifth of its points dropped (holes), an
+    ``xla`` table only up to the calibration cap, and a wire table with
+    its least-squares fit."""
+    rng = np.random.default_rng(seed)
+
+    def table(scale):
+        rows = [(float(b), float(t), scale * (2e-6 + 2.0 ** t / rng.uniform(2e10, 2e11)))
+                for b in (3, 5, 7, 9) for t in (10, 14, 18, 22)]
+        keep = rng.random(len(rows)) > 0.2
+        keep[0] = True
+        return [r for r, k in zip(rows, keep) if k]
+
+    def capped(rows):
+        return [r for r in rows if r[1] - r[0] <= 9]
+
+    wire = [(float(t), 1.5e-5 * rng.uniform(0.9, 1.1) + 2.0 ** t / 6e11)
+            for t in (10, 14, 18, 22)]
+    from repro.measure import fit_latency_bandwidth
+
+    lat, bw = fit_latency_bandwidth(wire)
+    return dict(
+        _ref_values("h100"),
+        pack_table={"rows": table(1.0), "dma": table(1.1), "xla": capped(table(3.0))},
+        unpack_table={"rows": table(1.2), "dma": table(1.3), "xla": capped(table(3.5))},
+        wire_table=wire, copy_table=[(float(t), 1e-6 + 2.0 ** t / 1e12) for t in (10, 22)],
+        wire_latency=lat, wire_bw=bw,
+    )
+
+
 def _param_pair(name):
-    values = _ref_values(name)
+    """The same parameter values as the reference's and the port's
+    SystemParams: the two analytic tables, the reference's checked-in
+    ``ci_params.json``, a seeded synthetic table with holes, and the
+    port's checked-in H100 tables."""
+    if name == "ci":
+        from repro.measure import ci_params_path, load_ci_params
+        from repro_torch.measure import ParamsStore
+
+        return load_ci_params(), ParamsStore.read_envelope(ci_params_path())
+    if name == "h100_measured":
+        from repro.measure import ParamsStore as RefStore
+        from repro_torch.measure import h100_params_path, load_h100_params
+
+        return RefStore.read_envelope(h100_params_path()), load_h100_params()
+    values = synthetic_fields() if name == "synthetic" else _ref_values(name)
     return (rpm.SystemParams(name=name, **values),
             SystemParams.from_reference(name=name, **values))
+
+
+MEASURED_TABLES = ["ci", "synthetic", "h100_measured"]
 
 
 def _halo_types(interior=(6, 5, 4), params="tpu_v5e"):
@@ -77,14 +127,56 @@ def test_from_reference_maps_the_link_fields():
     p = SystemParams.from_reference(name="x", ici_bw=1.0, ici_latency=2.0, hbm_bw=3.0,
                                     pack_table=None)
     assert (p.link_bw, p.link_latency, p.hbm_bw) == (1.0, 2.0, 3.0)
-    with pytest.raises(ValueError, match="not ported"):
-        SystemParams.from_reference(name="x", pack_table={"rows": ((1, 1, 1.0),)})
+    assert json.loads(p.to_json())["ici_bw"] == 1.0 and "link_bw" not in p.to_json()
+    assert SystemParams.from_json(p.to_json()) == p
     assert H100_ANALYTIC.name == "h100_sxm_analytic_unmeasured"
     assert H100_ANALYTIC.hbm_bw == 3.35e12
 
 
+PORTED_TABLES = {
+    "pack_table": {"rows": [[3.0, 10.0, 1e-6], [3.0, 14.0, 2e-6]]},
+    "unpack_table": {"dma": [[3.0, 10.0, 1e-6]]},
+    "wire_table": [[10.0, 1e-5], [22.0, 2e-5]],
+    "copy_table": [[10.0, 1e-6]],
+    "wire_latency": 1e-5,
+    "wire_bw": 1e11,
+    "stencil_table": [[4.7, 10.0, 1e-6]],
+}
+LATER_TABLES = {
+    "wire_tables": ({"ici": [[10.0, 1e-5]]}, "per-axis"),
+    "wire_fits": ({"ici": [1e-5, 1e11]}, "per-axis"),
+    "link_tables": ({"inter": [[10.0, 1e-5]]}, "hierarchy"),
+    "link_fits": ({"inter": [1e-5, 1e11]}, "hierarchy"),
+    "compress_table": ({"rle": [[10.0, 1e-6, 1e-6, 0.5]]}, "compressed wire"),
+}
+
+
+@pytest.mark.parametrize("field", sorted(PORTED_TABLES) + sorted(LATER_TABLES))
+def test_from_reference_maps_the_ported_tables_and_refuses_later_ones(field):
+    """Each measured table this slice prices maps (frozen into tuples, so
+    it is hashable and equal after a JSON round trip); each table of a
+    later roadmap item raises, naming the item."""
+    if field in LATER_TABLES:
+        value, item = LATER_TABLES[field]
+        with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
+            SystemParams.from_reference(name="x", **{field: value})
+        SystemParams.from_reference(name="x", **{field: None})  # empty is fine
+        return
+    value = PORTED_TABLES[field]
+    p = SystemParams.from_reference(name="x", **{field: value})
+    ref = rpm.SystemParams(name="x", **{field: value})
+    assert getattr(p, field) == getattr(ref, field)
+    got = getattr(p, field)
+    for table in (got.values() if isinstance(got, dict) else [got]):
+        hash(table)  # the model keys its interpolators on the table
+    assert SystemParams.from_json(p.to_json()) == p
+    back = rpm.SystemParams.from_json(p.to_json())
+    assert getattr(back, field) == getattr(ref, field)
+    assert (back.ici_bw, back.ici_latency) == (p.link_bw, p.link_latency)
+
+
 @pytest.mark.parametrize("allow_bounding", [True, False])
-@pytest.mark.parametrize("params", ["tpu_v5e", "h100"])
+@pytest.mark.parametrize("params", ["tpu_v5e", "h100"] + MEASURED_TABLES)
 def test_selection_matches_the_reference_on_the_52_halo_types(params, allow_bounding):
     ref_comm, comm, _, _, pairs = _halo_types(params=params)
     assert len(pairs) == 52
