@@ -14,7 +14,8 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            per vector) and the dma kernels through every V on their
            narrow path (rows of at most 16 bytes) and through their
            tiled path, on the 26 send and 26 receive types of the
-           full-width halo, and at every point of the calibration sweep
+           full-width halo at radius 1, 2 and 3 (the shapes the main
+           path and the s = 1, 2, 3 programs launch), and at every point of the calibration sweep
            (``Vector(nblocks, blk, pitch, BYTE)``, blk 8-512 bytes, up to
            524,288 rows), 8 ranks per launch;
 3. main    8 ranks on a periodic 2x2x2 grid, 256^3 float32 interior per
@@ -25,7 +26,9 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            (and ``plan.wire_bytes`` in 7 wire ops under the exact
            schedule).  Then 5 iterations of exchange + 2 stencil
            applications against a ``torch.roll`` periodic oracle
-           (rtol = atol = 1e-5: float32 sums in another order).  Kernel
+           (rtol = atol = 1e-5: float32 sums in another order), ms per
+           iteration back to back and synchronized each, and the
+           device's idle share over 2 iterations (``torch.profiler``).  Kernel
            launch counts are zeroed just before this phase and read just
            after it; every kernel must have run, and each mode's launches
            per exchange must match its plan;
@@ -43,7 +46,20 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            communicator reloads the store and replays every pick from the
            saved decisions file, and a third replays them over the
            analytic table;
-5. timing  CUDA-event times of each kernel (L2 flushed before every
+5. program the deep-halo programs and the overlapped iteration at the same
+           full width (launch counts zeroed before, read after; every
+           kernel must run and each variant's launches must be its
+           plan's): the s = 2 ``HaloProgram`` ``torch.equal`` to the main
+           path's loop; s = 1, 2, 3 with equal interiors after 6
+           applications, ms per iteration and per application;
+           ``steps="auto"`` under the analytic and the calibrated tables
+           (now with a stencil table), pinned by a reloaded decisions
+           file; the overlapped iteration in ``monolithic``, ``region``
+           and ``auto`` modes, each ``torch.equal`` to the plain program
+           and computing as many stencil cells as it (none twice), with
+           ms per iteration, its probe and the device's idle share from
+           ``torch.profiler``;
+6. timing  CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
            (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
            counts the block bytes read and written, ``bound_sectors_ms``
@@ -51,8 +67,8 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            bytes written; unpack: packed bytes read + sectors written
            back + partly written sectors filled first).  At the x-, y-
            and z-face shapes for all four kernels, and at every distinct
-           shape the ``tempi`` plan launches each kernel at, with its
-           launches per exchange and the vector width, path and (dma)
+           shape the ``tempi`` plan and the s = 1 and s = 3 programs'
+           plans launch each kernel at, with its launches per exchange and the vector width, path and (dma)
            rows per tile it took; the dma kernels at the x faces at
            three tile sizes (``dma_tile_sweep``); each kernel and the
            library call also by ``repro_torch.measure.time_fn`` (200
@@ -62,7 +78,9 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            host-clock ms per exchange and CUDA-event ms per stencil
            application.
 
-Prints a ``{"measure": ...}`` line, one JSON line ``{"kernels": [...]}``, the card's name and power
+Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, one JSON line
+``{"kernels": [...]}`` (``launches``: the main path's loop plus the
+program phase), the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
 Needs one card; run from the repository root: ``python3 chip_smoke.py``.
@@ -71,6 +89,7 @@ Needs one card; run from the repository root: ``python3 chip_smoke.py``.
 from __future__ import annotations
 
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -86,6 +105,9 @@ SLEEP_CYCLES = 2_000_000   # keeps the card busy while the host enqueues a timed
 REPS = 20
 TIME_FN_ITERS = 200        # launches per time_fn reading
 RECALIBRATIONS = 4         # calibrations past the stored one, for the spread of the picks
+PROGRAM_ITERS = 3          # iterations a [program] variant is checked over
+PROGRAM_REPS = 5           # timed [program] iterations a variant and round
+PROGRAM_DEPTHS = (1, 2, 3)  # the deep-halo programs' s, and their halo radii
 
 
 def fail(msg: str) -> None:
@@ -314,7 +336,7 @@ def vector_cases():
 
 def phase_kernels(torch, dev, spec, check):
     from repro_torch.comm import Communicator
-    from repro_torch.halo import make_halo_types
+    from repro_torch.halo import HaloSpec, make_halo_types
     from repro_torch.kernels.geometry import plan_geometry
     from repro_torch.kernels.pack import ROW_PATHS, VECTOR_BYTES
 
@@ -340,17 +362,33 @@ def phase_kernels(torch, dev, spec, check):
         need = want if name.endswith("rows") else want_dma
         if not need <= ran:
             fail(f"{name} never ran (vector bytes, path) {sorted(need - ran)}")
-    # the 52 region types of the full-width halo, all 8 ranks per launch
-    types = make_halo_types(spec, Communicator(device=dev))
-    state = torch.randint(0, 256, (spec.nranks, 4 * int(torch.tensor(spec.alloc).prod())),
-                          dtype=torch.uint8, device=dev, generator=gen)
-    for d, (send_ct, recv_ct) in types.items():
-        packed = check.pack_side(state, plan_geometry(send_ct.block), f"send {d}")
-        check.unpack_side(state, packed, plan_geometry(recv_ct.block), f"recv {d}")
-    torch.cuda.synchronize()
-    del state
+    # the 52 region types of the full-width halo at radius 1, 2 and 3 (the
+    # main path's, and the programs' at s = 1, 2, 3), all 8 ranks per
+    # launch.  A region that is one contiguous run (at radius 1 the
+    # corners and the dx = 0 edges along z) is one slice copy: no kernel
+    # takes it.
+    contiguous = {}
+    for radius in PROGRAM_DEPTHS:
+        rspec = HaloSpec(grid=spec.grid, interior=spec.interior, radius=radius)
+        types = make_halo_types(rspec, Communicator(device=dev))
+        state = torch.randint(0, 256, (rspec.nranks, 4 * math.prod(rspec.alloc)),
+                              dtype=torch.uint8, device=dev, generator=gen)
+        contiguous[radius] = 0
+        for d, (send_ct, recv_ct) in types.items():
+            blocks = (send_ct.block, recv_ct.block)
+            if all(b.ndims == 1 for b in blocks):
+                contiguous[radius] += 1
+                continue
+            sg, rg = (plan_geometry(b) for b in blocks)
+            if sg is None or rg is None:
+                fail(f"radius {radius} region {d}: no kernel geometry for {blocks}")
+            packed = check.pack_side(state, sg, f"radius {radius} send {d}")
+            check.unpack_side(state, packed, rg, f"radius {radius} recv {d}")
+        torch.cuda.synchronize()
+        del state
     sweep_check(torch, dev, spec.nranks, check, gen)
-    print(f"[kernels] {check.checks} comparisons, all bit-exact; "
+    print(f"[kernels] {check.checks} comparisons, all bit-exact (the halo's region types "
+          f"at radius 1, 2, 3; contiguous regions, no kernel: {contiguous}); "
           f"max |diff| per kernel {check.err}; (vector bytes, path) pairs run: "
           f"{ {k: sorted(v) for k, v in check.paths.items()} }")
 
@@ -502,8 +540,17 @@ def phase_main(torch, dev, spec, timings):
         torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
         err = max(err, (got - ref).abs().max().item())
     timings["stencil_max_abs_err"] = err
+
+    def iteration():
+        step(local)
+        stencil_iterations(local, spec, steps=steps)
+
+    timings["iteration_ms_synchronized"] = wall_ms(torch, iteration, iters)
+    timings["iteration_profile"] = device_busy(torch, iteration)
     print(f"[main] {iters} iterations of exchange + {steps} stencil applications match "
-          f"the roll oracle, max |err| {err:.3e}; {timings['iteration_ms']:.3f} ms/iteration")
+          f"the roll oracle, max |err| {err:.3e}; {timings['iteration_ms']:.3f} ms/iteration "
+          f"back to back, {timings['iteration_ms_synchronized']:.3f} synchronized each, "
+          f"device idle {timings['iteration_profile']['idle_share']:.4f} of 2 iterations")
     counts = launch_counts()
     zero = [k for k, v in counts.items() if v == 0]
     if zero:
@@ -692,7 +739,316 @@ def phase_measure(torch, dev, spec, card):
           f"{[r['schedule'] for r in out['recalibrations']]}; "
           f"measured pick fastest in {hits}/{len(per_type)} send types (analytic {hits_analytic})")
     print(json.dumps({"measure": out}))
+    return out, params
+
+
+class CellCount:
+    """While active, counts the output cells (all ranks) of every
+    stencil window update: the one primitive that the plain path, the
+    interior chain, the shell slabs and the rim regions all call."""
+
+    def __init__(self):
+        import repro_torch.halo.stencil as stencil
+        import repro_torch.kernels.ops as ops
+
+        self.modules = (ops, stencil)
+        self.orig = ops.stencil_window_update
+        self.cells = 0
+
+    def __enter__(self):
+        orig = self.orig
+
+        def counted(arr, offsets, weight, origin, shape):
+            out = orig(arr, offsets, weight, origin, shape)
+            self.cells += out.numel()
+            return out
+
+        for m in self.modules:
+            m.stencil_window_update = counted
+        return self
+
+    def __exit__(self, *exc):
+        for m in self.modules:
+            m.stencil_window_update = self.orig
+
+
+def rank_blocks(torch, spec, g):
+    """Every rank's block of the global field ``g`` inside halos of
+    ``spec.radii``, the halo cells poisoned."""
+    n, r = spec.interior, spec.radii
+    out = torch.full((spec.nranks,) + spec.alloc, SENTINEL, device=g.device)
+    for rank in range(spec.nranks):
+        c = spec.coords(rank)
+        out[rank, r[0]:r[0] + n[0], r[1]:r[1] + n[1], r[2]:r[2] + n[2]] = g[
+            c[0] * n[0]:(c[0] + 1) * n[0], c[1] * n[1]:(c[1] + 1) * n[1],
+            c[2] * n[2]:(c[2] + 1) * n[2]]
     return out
+
+
+def interior_of(spec, x):
+    n, r = spec.interior, spec.radii
+    return x[:, r[0]:r[0] + n[0], r[1]:r[1] + n[1], r[2]:r[2] + n[2]]
+
+
+def device_busy(torch, fn, iters=2):
+    """``torch.profiler`` over ``iters`` back-to-back calls of ``fn``,
+    synchronized before and after: the wall time, the union of the
+    card's activity intervals (busy), the sum of their durations (above
+    busy where two streams ran at once), the idle share, and the host's
+    stream synchronizations (``cudaStreamSynchronize`` calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e6
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        fail("torch.profiler recorded no activity on the card")
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo, hi = busy + hi - lo, a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    syncs = sum(e.name == "cudaStreamSynchronize" for e in prof.events())
+    return {"wall_us": wall, "busy_us": busy, "activity_sum_us": sum(b - a for a, b in spans),
+            "activities": len(spans), "idle_share": 1.0 - busy / wall, "stream_syncs": syncs}
+
+
+def split_application(torch, dev, spec, x):
+    """CUDA-event ms of the first application of an s = 2 iteration
+    (``STENCIL26``, valid depth ``spec.radii``) computed whole, against
+    the overlapped path's split of it: the chain block (the interior
+    shrunk by the stencil radius) and the six shell slabs around it."""
+    from repro_torch.halo import STENCIL26
+    from repro_torch.halo.stencil import _shell_slabs
+    from repro_torch.kernels.ops import stencil_window_update
+
+    timer = Timer(torch, dev)
+    op = STENCIL26
+
+    def update(origin, shape):
+        return timer.ms(lambda: stencil_window_update(x, op.offsets, op.weight, origin, shape),
+                        reps=5)
+
+    shell = tuple(v - r for v, r in zip(spec.radii, op.radii))
+    origin = tuple(hr - s for hr, s in zip(spec.radii, shell))
+    shape = tuple(n + 2 * s for n, s in zip(spec.interior, shell))
+    inner = tuple(hr + r for hr, r in zip(spec.radii, op.radii))
+    inner_shape = tuple(n - 2 * r for n, r in zip(spec.interior, op.radii))
+    slabs = [{"origin": list(o), "shape": list(s), "ms": update(o, s)}
+             for o, s in _shell_slabs(origin, shape, inner, inner_shape)]
+    out = {"window": list(shape), "window_ms": update(origin, shape),
+           "chain_block": list(inner_shape), "chain_block_ms": update(inner, inner_shape),
+           "slabs": slabs, "slabs_ms": sum(s["ms"] for s in slabs)}
+    del timer
+    return out
+
+
+def phase_program(torch, dev, spec, card, measured):
+    """The deep-halo programs and the overlapped iteration at full width
+    (8 ranks, 256^3 each).  Launch counts are zeroed just before and read
+    just after; every kernel must have run, and each variant's launches
+    must be its plan's per exchange.
+
+    * the s = 2 program against the main-path loop (``make_halo_step`` +
+      ``stencil_iterations(steps=2)``) from the same start: ``torch.equal``;
+    * s = 1, 2, 3 over 6 applications each: equal interiors; ms per
+      iteration and per application (host clock, synchronized each
+      iteration, and back to back);
+    * ``steps="auto"`` under the analytic and the calibrated tables, the
+      candidates' predicted seconds per application, and a reloaded
+      decisions file that must pin the pick;
+    * the overlapped iteration in each mode against the plain s = 2
+      program: ``torch.equal``, stencil cells computed equal to the plain
+      path's (no cell of an application twice), ms per iteration, the
+      probe, and the device's idle share under ``torch.profiler``; and
+      the first application whole against its chain block + shell slabs
+      (:func:`split_application`)."""
+    import tempfile
+
+    from repro_torch.comm import H100_ANALYTIC, Communicator
+    from repro_torch.halo import (OVERLAP_MODES, build_halo_program, make_halo_step,
+                                  overlap_region_descriptors, stencil_iterations)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.measure import DecisionCache
+
+    if not measured.stencil_table:
+        fail("the calibration filled no stencil table")
+    grid, interior = spec.grid, spec.interior
+    out = {"card": card, "ranks": spec.nranks, "interior": list(interior)}
+    g, start, want = global_layout(torch, spec, dev)
+    del want
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    comm = Communicator(device=dev)
+    progs = {s: build_halo_program(grid, interior, comm, steps=s) for s in PROGRAM_DEPTHS}
+    p2 = progs[2]
+
+    def run(prog, x, n, what, overlap=False, probe=None):
+        before = launch_counts()
+        for _ in range(n):
+            prog.iteration(x, comm, overlap=overlap, probe=probe)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in launch_counts().items()}
+        planned = plan_launches(prog.plan, comm)
+        if any(got[k] != n * planned[k] for k in planned):
+            fail(f"{what}: {got} launches in {n} iterations; the plan launches {planned} "
+                 f"per exchange")
+        return planned
+
+    # the s = 2 program against today's main-path loop
+    loop = make_halo_step(spec, device=dev)
+    want = start.clone()
+    for _ in range(PROGRAM_ITERS):
+        loop(want)
+        stencil_iterations(want, spec, steps=2)
+    got = start.clone()
+    run(p2, got, PROGRAM_ITERS, "program s=2")
+    if not torch.equal(got, want):
+        fail(f"the s = 2 program differs from the main-path loop after {PROGRAM_ITERS} "
+             f"iterations: {(got != want).sum().item()} cells")
+    del got, want
+
+    # fixed depths: 6 applications each, equal interiors, then timings
+    apps, states, first = 6, {}, None
+    out["depths"] = {}
+    for s, prog in progs.items():
+        x = rank_blocks(torch, prog.spec, g)
+        planned = run(prog, x, apps // s, f"program s={s}")
+        inner = interior_of(prog.spec, x)
+        if not torch.isfinite(inner).all():
+            fail(f"s={s}: non-finite values after {apps} applications")
+        if first is None:
+            first = inner.clone()
+        elif not torch.equal(inner, first):
+            fail(f"s={s}: the interior after {apps} applications differs from s=1's")
+        states[s] = x
+        out["depths"][s] = {"radius": list(prog.spec.radii), "schedule": prog.plan.wire.schedule,
+                            "issued_bytes": prog.plan.wire.issued_bytes,
+                            "launches_per_exchange": planned,
+                            "predicted_per_step_ms": prog.estimate.per_step * 1e3,
+                            "ms_per_iteration": [], "back_to_back_ms_per_application": []}
+    del first
+    for rnd in range(2):
+        for s in ((1, 2, 3) if rnd == 0 else (3, 2, 1)):
+            row, prog, x = out["depths"][s], progs[s], states[s]
+            row["ms_per_iteration"].append(wall_ms(torch, lambda: prog.iteration(x, comm),
+                                                   PROGRAM_REPS))
+            t0 = time.perf_counter()
+            for _ in range(apps // s):
+                prog.iteration(x, comm)
+            torch.cuda.synchronize()
+            row["back_to_back_ms_per_application"].append(
+                (time.perf_counter() - t0) * 1e3 / apps)
+    for s, row in out["depths"].items():
+        row["ms_per_application"] = [t / s for t in row["ms_per_iteration"]]
+    del states
+
+    # steps="auto": the model's pick under both tables, pinned on reload
+    out["auto"] = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_program_") as root:
+        for key, params in (("analytic", H100_ANALYTIC), ("measured", measured)):
+            decisions = DecisionCache()
+            c = Communicator(params=params, device=dev, decisions=decisions)
+            prog = build_halo_program(grid, interior, c, steps="auto")
+            path = decisions.save(os.path.join(root, f"{key}.json"))
+            again = build_halo_program(
+                grid, interior,
+                Communicator(params=params, device=dev, decisions=DecisionCache.load(path)),
+                steps="auto")
+            if prog.pinned or not again.pinned or again.steps != prog.steps:
+                fail(f"{key}: steps={prog.steps} (pinned {prog.pinned}), reloaded "
+                     f"steps={again.steps} (pinned {again.pinned})")
+            out["auto"][key] = {
+                "steps": prog.steps, "reloaded_steps": again.steps, "reloaded_pinned": True,
+                "program_rows": len(decisions.program_rows()),
+                "candidates": {e.steps: {"per_step_ms": e.per_step * 1e3,
+                                         "t_exchange_ms": e.t_exchange * 1e3,
+                                         "t_redundant_ms": e.t_redundant * 1e3}
+                               for e in prog.candidates}}
+    measured_fastest = min(out["depths"], key=lambda s: min(out["depths"][s]["ms_per_application"]))
+    out["fastest_depth_measured"] = measured_fastest
+
+    # the overlapped iteration in each mode against the plain s = 2 program
+    modes = ("plain",) + OVERLAP_MODES
+    overlap = {m: (False if m == "plain" else m) for m in modes}
+    out["overlap"] = {m: {"ms_per_iteration": [], "back_to_back_ms_per_iteration": []}
+                      for m in modes}
+    finals, xs = {}, {}
+    for m in modes:
+        x, probe = start.clone(), {}
+        with CellCount() as cc:
+            run(p2, x, 1, f"overlap {m}", overlap[m], probe)
+        run(p2, x, PROGRAM_ITERS - 1, f"overlap {m}", overlap[m])
+        row = out["overlap"][m]
+        row["cells_first_iteration"] = cc.cells
+        row["probe"] = {k: (list(v) if isinstance(v, tuple) else v) for k, v in probe.items()
+                        if k != "region_order"}
+        if m == "plain":
+            finals[m] = x
+        else:
+            if not torch.equal(x, finals["plain"]):
+                fail(f"overlap {m}: {(x != finals['plain']).sum().item()} cells differ from "
+                     f"the plain program after {PROGRAM_ITERS} iterations")
+            if cc.cells != out["overlap"]["plain"]["cells_first_iteration"]:
+                fail(f"overlap {m}: computed {cc.cells} stencil cells in one iteration; the "
+                     f"plain path computes {out['overlap']['plain']['cells_first_iteration']}")
+        xs[m] = x
+    del finals
+    windows = sum(
+        spec.nranks * ((interior[0] + 2 * v) * (interior[1] + 2 * v) * (interior[2] + 2 * v))
+        for v in (1, 0))
+    if out["overlap"]["plain"]["cells_first_iteration"] != windows:
+        fail(f"the plain s = 2 iteration computed "
+             f"{out['overlap']['plain']['cells_first_iteration']} cells; its windows hold {windows}")
+    out["overlap_auto_resolved"] = out["overlap"]["auto"]["probe"]["overlap_mode"]
+    core, rims = overlap_region_descriptors(p2.spec, p2.ops, p2.plan.wire)
+    for key, c in (("analytic", comm), ("measured", Communicator(params=measured, device=dev))):
+        mode, ests, _ = c.model.choose_overlap_mode(p2.plan.wire, rims, core,
+                                                    p2.ops[0].nneighbors)
+        out[f"overlap_pick_{key}"] = {"mode": mode, **{f"{m}_ms": e.t_total * 1e3
+                                                       for m, e in ests.items()}}
+    for rnd in range(2):
+        for m in (modes if rnd == 0 else modes[::-1]):
+            row, x = out["overlap"][m], xs[m]
+            row["ms_per_iteration"].append(
+                wall_ms(torch, lambda: p2.iteration(x, comm, overlap=overlap[m]), PROGRAM_REPS))
+            t0 = time.perf_counter()
+            for _ in range(PROGRAM_REPS):
+                p2.iteration(x, comm, overlap=overlap[m])
+            torch.cuda.synchronize()
+            row["back_to_back_ms_per_iteration"].append(
+                (time.perf_counter() - t0) * 1e3 / PROGRAM_REPS)
+    for m in ("plain", "monolithic", "region"):
+        x = xs[m]
+        out["overlap"][m]["profile"] = device_busy(
+            torch, lambda: p2.iteration(x, comm, overlap=overlap[m]))
+    out["first_application"] = split_application(torch, dev, p2.spec, xs["plain"])
+    del xs, start, g
+    torch.cuda.empty_cache()
+    counts = launch_counts()
+    zero = [k for k, v in counts.items() if v == 0]
+    if zero:
+        fail(f"kernels never launched in the program phase: {zero}")
+    out["launches"] = counts
+    d = out["depths"]
+    print(f"[program] s=2 program == main-path loop; s=1,2,3 interiors equal after {apps} "
+          f"applications; ms/application (synchronized iterations) "
+          + ", ".join(f"s={s} {min(r['ms_per_application']):.3f}" for s, r in d.items())
+          + f"; auto picks s={out['auto']['analytic']['steps']} (analytic), "
+          f"s={out['auto']['measured']['steps']} (calibrated), pinned on reload; overlap "
+          + ", ".join(f"{m} {min(r['ms_per_iteration']):.3f}" for m, r in out["overlap"].items())
+          + f" ms/iteration, all torch.equal to the plain path, auto -> "
+          f"{out['overlap_auto_resolved']}; {card}")
+    print(json.dumps({"program": out}))
+    return counts
 
 
 def plan_launches(plan, comm):
@@ -723,13 +1079,23 @@ def main_path_shapes(spec, dev):
     launches of one ``tempi`` exchange: its geometry, the first region
     that launches it, and its launches per exchange."""
     from repro_torch.comm import Communicator, policy_for_mode
-    from repro_torch.halo import DIRECTIONS, make_halo_plan
+    from repro_torch.halo import make_halo_plan
+
+    return plan_shapes(make_halo_plan(spec, Communicator(policy=policy_for_mode("tempi"),
+                                                         device=dev)))
+
+
+def plan_shapes(plan):
+    """:func:`main_path_shapes` for the exchange of any halo plan.  A
+    region that is one contiguous run is a slice copy (no kernel)."""
+    from repro_torch.halo import DIRECTIONS
     from repro_torch.kernels.geometry import plan_geometry
 
-    plan = make_halo_plan(spec, Communicator(policy=policy_for_mode("tempi"), device=dev))
     shapes = {}
     for d, strat, send_ct, recv_ct in zip(DIRECTIONS, plan.strategies, plan.send_cts,
                                           plan.recv_cts):
+        if send_ct.block.ndims == 1 and recv_ct.block.ndims == 1:
+            continue
         for side, ct in (("pack", send_ct), ("unpack", recv_ct)):
             kernel = f"{side}_{strat.name}"
             if kernel not in KERNEL_INFO:
@@ -854,8 +1220,12 @@ def dma_tile_sweep(torch, timer, faces, words):
 
 
 def phase_timing(torch, dev, spec):
-    """Every kernel at the x-, y- and z-face shapes (PR 11's table), and
-    every kernel at each shape the ``tempi`` exchange launches it at."""
+    """Every kernel at the x-, y- and z-face shapes, at
+    each shape the ``tempi`` exchange launches it at, and at each shape
+    the exchange of the s = 1 and s = 3 programs launches it at."""
+    from repro_torch.comm import Communicator
+    from repro_torch.halo import build_halo_program
+
     timer = Timer(torch, dev)
     R = spec.nranks
     words = torch.randn((R,) + spec.alloc, device=dev).view(R, -1)  # float32 state
@@ -871,6 +1241,19 @@ def phase_timing(torch, dev, spec):
         shapes.append(dict(region=list(shape["region"]), launches_per_exchange=shape["launches"],
                            **row))
     sweep = dma_tile_sweep(torch, timer, face_geoms, words)
+    # the programs at the other depths: every shape their exchange
+    # launches, on a state of their own halo radius
+    program_shapes = []
+    for s in PROGRAM_DEPTHS:
+        if s == spec.radius:
+            continue  # the s = 2 program's exchange is the main path's
+        prog = build_halo_program(spec.grid, spec.interior, Communicator(device=dev), steps=s)
+        deep = torch.randn((R,) + prog.spec.alloc, device=dev).view(R, -1)
+        for shape in plan_shapes(prog.plan):
+            row = time_kernel(torch, timer, shape["kernel"], shape["geom"], deep)
+            program_shapes.append(dict(steps=s, region=list(shape["region"]),
+                                       launches_per_exchange=shape["launches"], **row))
+        del deep
     # the timer's floor: an empty launch, and the y/z-face row kernels and
     # library call after a flush that leaves L2 clean
     clean = Timer(torch, dev, clean_l2=True)
@@ -884,7 +1267,7 @@ def phase_timing(torch, dev, spec):
                 floor[f"library_{kernel}_{face}_ms_clean_l2"] = row["library_ms"]
     del words, timer, clean
     torch.cuda.empty_cache()
-    return faces, shapes, floor, sweep
+    return faces, shapes, program_shapes, floor, sweep
 
 
 def main() -> int:
@@ -912,15 +1295,17 @@ def main() -> int:
     check = KernelCheck(torch, dev)
     phase_kernels(torch, dev, spec, check)
     counts = phase_main(torch, dev, spec, timings)
-    measure = phase_measure(torch, dev, spec, card)
-    faces, shapes, floor, sweep = phase_timing(torch, dev, spec)
+    measure, measured = phase_measure(torch, dev, spec, card)
+    program = phase_program(torch, dev, spec, card, measured)
+    faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
     for kernel, (source, replaces) in KERNEL_INFO.items():
         mine = [f for f in faces if f["kernel"] == kernel]
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kernel], "max_abs_err": check.err[kernel],
+            "launches": counts[kernel] + program[kernel], "max_abs_err": check.err[kernel],
+            "launches_main_loop": counts[kernel], "launches_program": program[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),
@@ -931,11 +1316,17 @@ def main() -> int:
             "library_time_fn_ms": sum(f["library_time_fn_ms"] for f in mine),
             "ms_per_tempi_exchange": sum(r["ms"] * r["launches_per_exchange"]
                                          for r in shapes if r["kernel"] == kernel),
+            "ms_per_program_exchange": {
+                s: sum(r["ms"] * r["launches_per_exchange"] for r in program_shapes
+                       if r["kernel"] == kernel and r["steps"] == s)
+                for s in PROGRAM_DEPTHS if s != spec.radius},
         })
     for f in faces:
         print(json.dumps({"face": f, "card": card}))
     for r in shapes:
         print(json.dumps({"main_path_shape": r, "card": card}))
+    for r in program_shapes:
+        print(json.dumps({"program_shape": r, "card": card}))
     print(json.dumps({"timer_floor": floor, "card": card}))
     print(json.dumps({"dma_tile_sweep": sweep, "card": card}))
     timings["total_s"] = time.perf_counter() - t_start

@@ -5,6 +5,7 @@ from repro_torch.comm.api import (
     DEFAULT_SCHEDULE_POLICY,
     MODES,
     BaselinePolicy,
+    ClassRequest,
     Communicator,
     FixedPolicy,
     ModelPolicy,
@@ -22,7 +23,9 @@ from repro_torch.comm.api import (
 )
 from repro_torch.comm.perfmodel import (
     H100_ANALYTIC,
+    OverlapEstimate,
     PerfModel,
+    ProgramEstimate,
     StrategyEstimate,
     SystemParams,
 )
@@ -34,14 +37,17 @@ __all__ = [
     "DEFAULT_SCHEDULE_POLICY",
     "MODES",
     "BaselinePolicy",
+    "ClassRequest",
     "Communicator",
     "FixedPolicy",
     "H100_ANALYTIC",
     "LocalMeshTransport",
     "ModelPolicy",
     "NeighborRequest",
+    "OverlapEstimate",
     "PerfModel",
     "Policy",
+    "ProgramEstimate",
     "Request",
     "SendRequest",
     "Strategy",

@@ -30,7 +30,8 @@ point moves a datatype for all ranks at once.  Unpacks write in place.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+import contextlib
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -67,6 +68,7 @@ __all__ = [
     "MODES",
     "Request",
     "SendRequest",
+    "ClassRequest",
     "NeighborRequest",
     "Communicator",
     "WirePlan",
@@ -597,26 +599,109 @@ class SendRequest(Request):
         self.segment = segment
 
 
-class NeighborRequest(Request):
-    """The request :meth:`Communicator.ineighbor_alltoallv` returns: one
-    received payload per delta class, each with exactly the unpacks that
-    consume it.  :meth:`wait` drains every class into the buffer (in
-    place, in plan order) and returns it."""
+class ClassRequest(Request):
+    """One delta class of a fused neighborhood exchange: the class's
+    received ``(R, nbytes)`` payload plus exactly the unpacks that
+    consume it.  Classes complete independently of each other — the
+    receive regions of distinct transfers never overlap, so classes may
+    be unpacked in any order and the buffer comes out the same.
 
-    def __init__(self, buf: torch.Tensor, classes, plan: WirePlan):
+    ``transfers`` names the plan's transfer indices riding in this class
+    (for the halo they map one to one onto ``DIRECTIONS``), which lets a
+    region scheduler turn "this class landed" into "these rim regions
+    are computable".  On the card ``event`` is recorded on the
+    communicator's side stream right after the class's wire op."""
+
+    def __init__(self, index: int, payload: torch.Tensor, transfers: Sequence[int],
+                 nbytes: int, unpack: Callable[[torch.Tensor, torch.Tensor], None],
+                 event: Optional["torch.cuda.Event"] = None):
+        super().__init__(value=payload)
+        self.index = int(index)
+        self.transfers = tuple(transfers)
+        self.nbytes = int(nbytes)
+        self._unpack = unpack
+        self.event = event
+        #: set once the class's unpacks have been enqueued into the buffer
+        self.applied = False
+
+    def ready(self) -> bool:
+        """Whether the class's wire op has finished on the device (its
+        event has completed).  Without a card there is no stream: the
+        payload exists when the request does, and this is True."""
+        return True if self.event is None else self.event.query()
+
+    def unpack_into(self, buf: torch.Tensor) -> torch.Tensor:
+        """Enqueue this class's unpacks into ``buf`` (in place) and
+        return it.  On the card the caller's stream first waits on the
+        class's event — the device waits, not the host — and the payload,
+        made on the side stream, is marked as used by the caller's
+        stream so the allocator does not hand its memory out again while
+        the unpacks still read it."""
+        if self.event is not None:
+            stream = torch.cuda.current_stream(buf.device)
+            stream.wait_event(self.event)
+            self._value.record_stream(stream)
+        self._unpack(buf, self._value)
+        self.applied = True
+        return buf
+
+
+class NeighborRequest(Request):
+    """The request :meth:`Communicator.ineighbor_alltoallv` returns: a
+    fused exchange split into independently completable per-class
+    :class:`ClassRequest` handles.
+
+    ``wait()`` keeps the monolithic contract — drain every class,
+    return the buffer.  Overlap-aware callers (the region-split stencil)
+    instead call :meth:`wait_any` in a loop and read :attr:`buffer`
+    between drains: each drained class has written its receive
+    regions, and every other region of the buffer is untouched.  An
+    exchange with no classes is complete at once."""
+
+    def __init__(self, buf: torch.Tensor, classes: Sequence[ClassRequest],
+                 plan: Optional[WirePlan] = None, drains: Optional[Dict[str, int]] = None):
         super().__init__()
         self._buf = buf
-        self.classes = tuple(classes)  # (payload, unpack(dst, payload))
+        self.classes = tuple(classes)
         self.plan = plan
-        self.drained = 0
+        #: class indices in the order they were drained
+        self.drained: List[int] = []
+        #: the communicator's ``wire_class_drains``: each drain writes the
+        #: class's 1-based position under ``"<plan fp>/c<class>"``
+        self._drains = drains
+        if not self.classes:
+            self._value = buf
+
+    @property
+    def buffer(self) -> torch.Tensor:
+        """The exchange buffer with every *drained* class unpacked."""
+        return self._buf
+
+    @property
+    def pending(self) -> Tuple[ClassRequest, ...]:
+        return tuple(c for c in self.classes if not c.applied)
+
+    def wait_any(self) -> ClassRequest:
+        """Drain one class: the first whose wire op has already finished,
+        else the first pending one in plan order; enqueue its unpacks
+        into :attr:`buffer` and return it.  Raises ``ValueError`` once
+        every class is drained."""
+        pend = self.pending
+        if not pend:
+            raise ValueError("wait_any() on a fully drained request")
+        pick = next((c for c in pend if c.ready()), pend[0])
+        pick.unpack_into(self._buf)
+        self.drained.append(pick.index)
+        if self._drains is not None:
+            self._drains[f"{self.plan.fingerprint}/c{pick.index}"] = len(self.drained)
+        if len(self.drained) == len(self.classes):
+            self._value = self._buf
+        return pick
 
     def wait(self) -> torch.Tensor:
-        while self.drained < len(self.classes):
-            payload, unpack = self.classes[self.drained]
-            unpack(self._buf, payload)
-            self.drained += 1
-        self._value = self._buf
-        return self._buf
+        while self._value is _PENDING:
+            self.wait_any()
+        return self._value
 
 
 # ===========================================================================
@@ -663,6 +748,20 @@ class Communicator:
         self.strategies = strategies or default_registry()
         self.model = PerfModel(params, decisions=decisions)
         self.policy = policy or ModelPolicy()
+        # per-delta-class wire accounting, keyed "<plan fp>/c<class>":
+        # issue counts and exact bytes per class, and the 1-based drain
+        # position wait_any() last saw the class at
+        self.wire_class_ops: Dict[str, int] = {}
+        self.wire_class_bytes: Dict[str, int] = {}
+        self.wire_class_drains: Dict[str, int] = {}
+        self._side: Optional["torch.cuda.Stream"] = None
+
+    def _side_stream(self) -> "torch.cuda.Stream":
+        """The stream this communicator issues its packs and wire ops on
+        (on the card; made at first use)."""
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        return self._side
 
     @property
     def wire_ops(self) -> int:
@@ -784,20 +883,32 @@ class Communicator:
         perms: Sequence[Sequence[Tuple[int, int]]],
         plan: Optional[WirePlan] = None,
         strategies: Optional[Sequence[Strategy]] = None,
-    ) -> Request:
+    ) -> "NeighborRequest":
         """Fused neighborhood exchange: transfer ``i`` packs
         ``send_cts[i]`` out of every rank of ``buf``, ships it along
         ``perms[i]``, and unpacks into ``recv_cts[i]`` of the same
         buffer.  Every region is packed at its exact wire extent straight
         into one flat buffer laid out by the plan, and the transport
-        moves exactly those bytes.  The wire is issued now; ``wait()``
-        runs the unpacks (in place into ``buf``)."""
+        moves exactly those bytes.  The wire is issued now.
+
+        Returns a :class:`NeighborRequest`: one :class:`ClassRequest` per
+        delta class, each completable on its own through ``wait_any()``;
+        ``wait()`` runs every unpack (in place into ``buf``).
+
+        On the card the packs and the wire ops run on the communicator's
+        side stream, after the caller's stream has reached this call, and
+        one event per class is recorded right after its wire op, so the
+        caller's stream may go on (an interior stencil chain) while the
+        exchange is on the wire.  The packs read only interior cells and
+        the unpacks write only halo cells; no unpack runs before the
+        caller's stream has waited on its class's event, and whatever
+        writes the packed cells must first drain every class."""
         if not (len(send_cts) == len(recv_cts) == len(perms)):
             raise ValueError("send_cts, recv_cts, perms must align")
         self._check(buf)
         n = len(send_cts)
         if n == 0:
-            return Request(value=buf)
+            return NeighborRequest(buf, ())
         if strategies is None:
             strategies = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
         if plan is None:
@@ -810,13 +921,29 @@ class Communicator:
         def leaf_packer(strat: Strategy, ct: CommittedType):
             return lambda b, out: strat.pack(b, ct, out=out, batched=True)
 
-        wire = pack_ragged(
-            buf,
-            [(plan.segments[i].offset, plan.segments[i].nbytes,
-              leaf_packer(strategies[i], send_cts[i])) for i in range(n)],
-            plan.wire_bytes,
-        )
-        group_rows = self.transport.exchange(wire, plan)
+        leaves = [(plan.segments[i].offset, plan.segments[i].nbytes,
+                   leaf_packer(strategies[i], send_cts[i])) for i in range(n)]
+        events: List[Optional[torch.cuda.Event]] = [None] * plan.ngroups
+        on_class = None
+        if buf.is_cuda:
+            side = self._side_stream()
+            side.wait_stream(torch.cuda.current_stream(buf.device))
+            # the side stream reads buf: keep its memory from being handed
+            # out again before those reads are done
+            buf.record_stream(side)
+
+            def on_class(g: int) -> None:
+                events[g] = torch.cuda.Event()
+                events[g].record(side)
+
+        with torch.cuda.stream(side) if buf.is_cuda else contextlib.nullcontext():
+            wire = pack_ragged(buf, leaves, plan.wire_bytes)
+            group_rows = self.transport.exchange(wire, plan, on_class)
+        fp = plan.fingerprint
+        for g, grp in enumerate(plan.groups):
+            key = f"{fp}/c{g}"
+            self.wire_class_ops[key] = self.wire_class_ops.get(key, 0) + 1
+            self.wire_class_bytes[key] = self.wire_class_bytes.get(key, 0) + grp.nbytes
 
         def leaf_unpacker(strat, recv_ct, send_ct):
             return lambda dst, part: strat.unpack_wire(self, dst, part, recv_ct, send_ct, 1)
@@ -830,9 +957,11 @@ class Communicator:
             return lambda dst, payload: unpack_ragged(dst, payload, leaves)
 
         classes = [
-            (group_rows[g], class_unpacker(grp)) for g, grp in enumerate(plan.groups)
+            ClassRequest(g, group_rows[g], grp.transfers, grp.nbytes,
+                         class_unpacker(grp), events[g])
+            for g, grp in enumerate(plan.groups)
         ]
-        return NeighborRequest(buf, classes, plan)
+        return NeighborRequest(buf, classes, plan, self.wire_class_drains)
 
     def neighbor_alltoallv(self, buf, send_cts, recv_cts, perms, plan=None,
                            strategies=None) -> torch.Tensor:

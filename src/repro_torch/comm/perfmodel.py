@@ -24,16 +24,19 @@ fitted link latency and bandwidth past the grid) are the reference's.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 from repro_torch.core.commit import CommittedType
 
 __all__ = [
     "SystemParams",
     "StrategyEstimate",
+    "ProgramEstimate",
+    "OverlapEstimate",
     "PerfModel",
     "H100_ANALYTIC",
 ]
@@ -101,8 +104,9 @@ class SystemParams:
     # hop latency and the rate past the measured grid
     wire_latency: Optional[float] = None
     wire_bw: Optional[float] = None
-    # the reference's stencil-application sweep, carried through load and
-    # save unread: its consumer comes with the deep-halo programs
+    # one stencil application over (log2 neighbours, log2 window bytes):
+    # prices the deep-halo programs' redundant compute and the overlap
+    # modes' regions
     stencil_table: Optional[Table2D] = None
 
     def __post_init__(self):
@@ -157,6 +161,71 @@ class StrategyEstimate:
     @property
     def total(self) -> float:
         return self.t_pack + self.t_link + self.t_unpack
+
+
+@dataclass(frozen=True)
+class ProgramEstimate:
+    """Predicted cost of one deep-halo iteration: a single exchange at
+    halo depth ``steps * cycle_radii`` amortized over ``steps`` repeats
+    of a (possibly heterogeneous) op cycle, plus the redundant
+    ghost-shell re-evaluation the shrinking-region schedule pays instead
+    of the saved exchanges.
+
+    ``steps`` counts cycle repeats; :attr:`applications` counts the
+    stencil applications (``steps * cycle_len``).  :attr:`op_redundant`
+    splits :attr:`t_redundant` per op position in the cycle, summed over
+    the repeats.  The figure of merit is :attr:`per_step`, seconds per
+    stencil application, which ``steps="auto"`` minimizes.
+    """
+
+    steps: int
+    t_exchange: float   # one deep exchange: member pack/unpack + wire
+    t_redundant: float  # ghost-region re-evaluation across the fused steps
+    wire_bytes: int     # bytes that one exchange puts on the wire
+    cycle_len: int = 1  # ops per cycle pass (1 = the single-op program)
+    #: redundant seconds per cycle position, summed over the repeats
+    op_redundant: Tuple[float, ...] = ()
+
+    @property
+    def applications(self) -> int:
+        """Stencil applications one iteration performs."""
+        return self.steps * max(self.cycle_len, 1)
+
+    @property
+    def total(self) -> float:
+        return self.t_exchange + self.t_redundant
+
+    @property
+    def per_step(self) -> float:
+        """Seconds per stencil application (the argmin of the auto
+        chooser)."""
+        return self.total / max(self.applications, 1)
+
+    @property
+    def per_cycle(self) -> float:
+        """Seconds per cycle repeat."""
+        return self.total / max(self.steps, 1)
+
+
+@dataclass(frozen=True)
+class OverlapEstimate:
+    """Predicted cost of hiding one halo exchange behind compute, for
+    one overlap mode.
+
+    ``monolithic`` waits for the fused collective then applies every
+    rim region: ``max(wire, core) + sum(rims)``.  ``region`` drains
+    delta classes as they complete and computes each rim region as soon
+    as its dependency classes have landed, on a single compute resource:
+    the core first, then rims in ready order, each starting at
+    ``max(busy, ready)``.  ``class_completions`` is the per-class wire
+    completion profile the region simulation consumed."""
+
+    mode: str
+    t_total: float
+    t_core: float
+    t_wire: float
+    t_rims: Tuple[float, ...] = ()
+    class_completions: Tuple[float, ...] = ()
 
 
 class _Interp2D:
@@ -292,6 +361,18 @@ class PerfModel:
             return None
         return self._interp_for(t, _Interp1D)(math.log2(max(nbytes, 1)))
 
+    def measured_stencil(self, n_neighbors: int, nbytes: int) -> Optional[float]:
+        """Interpolated measured time of one stencil application with
+        ``n_neighbors`` neighbor reads over a window of ``nbytes``, or
+        None when no stencil sweep was calibrated (the redundant-compute
+        term then falls back to the contiguous-copy proxy)."""
+        t = self.params.stencil_table
+        if not t:
+            return None
+        return self._interp_for(t, _Interp2D)(
+            math.log2(max(n_neighbors, 1)), math.log2(max(nbytes, 1))
+        )
+
     # -- link term ------------------------------------------------------
     def _hop_latency(self) -> float:
         lat = self.params.wire_latency
@@ -388,6 +469,226 @@ class PerfModel:
         costs = self.price_wire_schedules(plan, native)
         best = min(costs, key=costs.get)
         return reschedule(plan, best), costs
+
+    # -- region-split overlap pricing -----------------------------------
+    def _stencil_seconds(self, n_neighbors: int, nbytes: int) -> float:
+        """Seconds of one ``n_neighbors``-point stencil application over
+        a window of ``nbytes``: the measured stencil sweep when
+        calibrated, else the contiguous-copy / HBM proxy the
+        redundant-compute term falls back to."""
+        if nbytes <= 0:
+            return 0.0
+        t_app = self.measured_stencil(n_neighbors, nbytes)
+        if t_app is not None:
+            return t_app
+        touches = n_neighbors + 2
+        copy = self.measured_copy(nbytes)
+        per_touch = (
+            copy / 2.0 if copy is not None else nbytes / self.params.hbm_bw
+        )
+        return touches * per_touch
+
+    def price_class_completions(self, plan) -> Tuple[float, ...]:
+        """Predicted completion time of each delta class of ``plan``,
+        measured from issue.  Under the grouped schedule class ``k``
+        rides the ``k``-th per-class wire op: it cannot complete before
+        every earlier class's bytes are on the link
+        (``class_cum_bytes``) plus one launch latency per earlier op.
+        The fused schedules (uniform/ragged) complete every class
+        together at the whole-collective time."""
+        lat = self._hop_latency()
+        if plan.schedule == "grouped":
+            return tuple(
+                self.t_link(cum, 1) + k * lat
+                for k, cum in enumerate(plan.class_cum_bytes)
+            )
+        t = self._price_schedule(plan, plan.schedule)
+        return (t,) * plan.ngroups
+
+    def price_overlap(
+        self,
+        plan,
+        regions: Sequence[Tuple[int, Sequence[int]]],
+        core_bytes: int,
+        n_neighbors: int,
+    ) -> Dict[str, OverlapEstimate]:
+        """Price both overlap modes for one exchange-hiding stencil
+        application.  ``regions`` describes the rim regions as
+        ``(window_bytes, dep_class_ids)`` pairs — the model only sees
+        bytes and dependencies; ``core_bytes`` is the core window
+        (computable with no halo) and ``n_neighbors`` the stencil's
+        neighbor count.
+
+        Both modes run compute on a single resource.  ``monolithic``
+        blocks on the fused wire: ``max(wire, core) + sum(rims)``.
+        ``region`` starts the core at issue and each rim at
+        ``max(resource free, its classes' completion)``.
+        """
+        completions = self.price_class_completions(plan)
+        t_wire = max(completions) if completions else 0.0
+        t_core = self._stencil_seconds(n_neighbors, core_bytes)
+        rims = tuple(
+            self._stencil_seconds(n_neighbors, rb) for rb, _ in regions
+        )
+
+        def ready(i: int) -> float:
+            deps = regions[i][1]
+            return max((completions[c] for c in deps), default=0.0)
+
+        mono = max(t_wire, t_core) + sum(rims)
+        busy = t_core
+        for i in sorted(range(len(regions)), key=ready):
+            busy = max(busy, ready(i)) + rims[i]
+        return {
+            "monolithic": OverlapEstimate(
+                "monolithic", mono, t_core, t_wire, rims, completions
+            ),
+            "region": OverlapEstimate(
+                "region", max(busy, t_wire), t_core, t_wire, rims,
+                completions
+            ),
+        }
+
+    def choose_overlap_mode(
+        self,
+        plan,
+        regions: Sequence[Tuple[int, Sequence[int]]],
+        core_bytes: int,
+        n_neighbors: int,
+    ) -> Tuple[str, Dict[str, OverlapEstimate], bool]:
+        """Pick monolithic vs region-split overlap for one exchange,
+        pinned as an ``overlap/mode=...`` decision like the
+        ``program/s=N`` depth choice: a cache hit with that strategy
+        prefix short-circuits the choice (``pinned=True``); a miss
+        records the choice with both prices in the signature.  Ties go
+        to ``monolithic``: region-split must win, not draw.  Returns
+        ``(mode, estimates, pinned)``."""
+        regions = tuple(
+            (int(rb), tuple(sorted(int(c) for c in deps)))
+            for rb, deps in regions
+        )
+        key_src = (
+            "overlap.v1", plan.fingerprint, int(core_bytes),
+            int(n_neighbors), regions,
+        )
+        fp = hashlib.sha256(repr(key_src).encode()).hexdigest()[:16]
+        ests = self.price_overlap(plan, regions, core_bytes, n_neighbors)
+        if self.decisions is not None:
+            pin = self.decisions.lookup(fp, 0, 1, True)
+            if pin is not None and pin.strategy.startswith("overlap/mode="):
+                mode = pin.strategy.split("=", 1)[1]
+                if mode in ests:
+                    return mode, ests, True
+        mode = (
+            "region"
+            if ests["region"].t_total < ests["monolithic"].t_total
+            else "monolithic"
+        )
+        if self.decisions is not None:
+            best = ests[mode]
+            self.decisions.record(
+                fp, 0, 1, True,
+                StrategyEstimate(
+                    f"overlap/mode={mode}",
+                    t_pack=best.t_core + sum(best.t_rims),
+                    t_link=best.t_wire,
+                    t_unpack=0.0,
+                    wire_bytes=plan.issued_bytes,
+                ),
+                signature=(
+                    f"overlap plan={plan.fingerprint}"
+                    f" classes={plan.ngroups} regions={len(regions)}"
+                    f" core_B={int(core_bytes)} "
+                    + " ".join(
+                        f"{m}:{e.t_total:.3e}"
+                        for m, e in sorted(ests.items())
+                    )
+                ),
+            )
+        return mode, ests, False
+
+    # -- deep-halo program pricing (exchange vs redundant compute) ------
+    def _redundant_time(
+        self, n_neighbors: int, window_bytes: int, red_bytes: int
+    ) -> float:
+        """Seconds of redundant ghost-shell work inside one application
+        whose full window is ``window_bytes``, of which ``red_bytes`` are
+        shell cells some neighbor also computes: the measured stencil
+        sweep's rate at this window size times the redundant bytes, else
+        the contiguous-copy proxy (``n_neighbors + 2`` touches per cell,
+        a touch being half a measured copy, else analytic HBM)."""
+        t_app = self.measured_stencil(n_neighbors, window_bytes)
+        if t_app is not None and window_bytes > 0:
+            return t_app * (red_bytes / window_bytes)
+        touches = n_neighbors + 2
+        copy = self.measured_copy(red_bytes)
+        per_touch = (
+            copy / 2.0 if copy is not None else red_bytes / self.params.hbm_bw
+        )
+        return touches * per_touch
+
+    def price_program(
+        self,
+        plan,
+        interior: Tuple[int, int, int],
+        op_radii,
+        n_neighbors,
+        steps: int,
+        element_bytes: int = 4,
+        t_members: float = 0.0,
+    ) -> ProgramEstimate:
+        """Price one deep-halo iteration: ONE exchange at halo depth
+        ``steps * cycle_radii`` (wire plan ``plan``, member pack/unpack
+        time ``t_members``) amortized over ``steps`` repeats of an op
+        cycle, against the redundant ghost-shell re-evaluation the
+        shrinking valid region pays.
+
+        ``op_radii`` is one per-dimension radii tuple or a sequence of
+        them (the cycle, in application order), with ``n_neighbors`` an
+        int or a matching sequence.  Application ``j`` of the flattened
+        ``steps * k`` schedule writes interior plus a shell of
+        ``total - cum_j`` per dimension; every shell cell is one some
+        neighbor also computes.  Compare ``per_step`` across depths to
+        pick ``s``.
+        """
+        if op_radii and isinstance(op_radii[0], (tuple, list)):
+            cycle = [tuple(r) for r in op_radii]
+        else:
+            cycle = [tuple(op_radii)]
+        if isinstance(n_neighbors, (tuple, list)):
+            neighbors = [int(n) for n in n_neighbors]
+        else:
+            neighbors = [int(n_neighbors)] * len(cycle)
+        if len(neighbors) != len(cycle):
+            raise ValueError(
+                f"n_neighbors ({len(neighbors)}) must match the cycle "
+                f"length ({len(cycle)})"
+            )
+        wire = self._price_schedule(plan, plan.schedule)
+        t_exchange = t_members + wire
+        interior_cells = math.prod(interior)
+        total = tuple(steps * sum(r[d] for r in cycle) for d in range(3))
+        op_red = [0.0] * len(cycle)
+        cum = (0, 0, 0)
+        for j in range(steps * len(cycle)):
+            pos = j % len(cycle)
+            cum = tuple(c + r for c, r in zip(cum, cycle[pos]))
+            shell = tuple(t - c for t, c in zip(total, cum))
+            cells = math.prod(n + 2 * s for n, s in zip(interior, shell))
+            red_bytes = (cells - interior_cells) * element_bytes
+            if red_bytes <= 0:
+                continue
+            op_red[pos] += self._redundant_time(
+                neighbors[pos], cells * element_bytes, red_bytes
+            )
+        return ProgramEstimate(
+            steps=steps,
+            t_exchange=t_exchange,
+            t_redundant=sum(op_red),
+            wire_bytes=plan.issued_bytes,
+            cycle_len=len(cycle),
+            op_redundant=tuple(op_red),
+        )
 
     # -- full strategy estimates (Eqs. 1-3 analogue) ----------------------
     def estimate(

@@ -19,7 +19,7 @@ same two methods on the rank's own row; it is not in this slice.
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -42,6 +42,10 @@ class LocalMeshTransport:
         self.ops = 0    # wire ops issued
         self.bytes = 0  # bytes each rank put on the wire
         self._ragged_index: Tuple = (None, None)
+        # a plan's row-index tensors, made on the device once: a copy
+        # from host memory on every call would synchronize the stream
+        # it runs on, so the host could not run ahead of the device
+        self._plan_index: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
 
     def _count(self, nbytes: int) -> None:
         self.ops += 1
@@ -49,6 +53,21 @@ class LocalMeshTransport:
 
     def _rows(self, table, device) -> torch.Tensor:
         return torch.as_tensor(table, dtype=torch.long, device=device)
+
+    def _index(self, plan, device) -> Tuple[torch.Tensor, ...]:
+        """The plan's index tensors on ``device``, made once per plan:
+        per delta class, the source rank of every row (grouped); or the
+        send and receive row tables (uniform)."""
+        key = (plan.fingerprint, plan.schedule, str(device))
+        index = self._plan_index.get(key)
+        if index is None:
+            if plan.schedule == "grouped":
+                tables = [[row[g] for row in plan.recv_rows] for g in range(plan.ngroups)]
+            else:
+                tables = [plan.send_rows, plan.recv_rows]
+            index = tuple(self._rows(t, device) for t in tables)
+            self._plan_index[key] = index
+        return index
 
     def permute(self, payload: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """One permutation send: rank ``src`` sends its row to ``dst``
@@ -59,33 +78,44 @@ class LocalMeshTransport:
         self._count(payload.shape[1])
         return payload.index_select(0, self._rows(src, payload.device))
 
-    def exchange(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:
+    def exchange(self, wire: torch.Tensor, plan,
+                 on_class: Optional[Callable[[int], None]] = None) -> List[torch.Tensor]:
         """Put ``wire`` (``(R, plan.wire_bytes)`` uint8) on the link with
         the plan's schedule; returns one received payload per delta
-        class (exact ``nbytes`` wide, or the padded uniform row)."""
+        class (exact ``nbytes`` wide, or the padded uniform row).
+        ``on_class(g)`` is called once per class, right after the wire op
+        that completes class ``g`` is issued (the grouped schedule's own
+        op; the fused schedules' one op for every class)."""
         sched = plan.schedule
         if sched == "grouped":
             out = []
+            index = self._index(plan, wire.device)
             for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
-                src = self._rows([row[g] for row in plan.recv_rows], wire.device)
                 self._count(grp.nbytes)
-                out.append(wire[:, goff : goff + grp.nbytes].index_select(0, src))
+                out.append(wire[:, goff : goff + grp.nbytes].index_select(0, index[g]))
+                if on_class is not None:
+                    on_class(g)
             return out
         if sched == "uniform":
-            return self._uniform(wire, plan)
-        if sched == "ragged":
-            return self._ragged(wire, plan)
-        if sched == "varlen":
+            out = self._uniform(wire, plan)
+        elif sched == "ragged":
+            out = self._ragged(wire, plan)
+        elif sched == "varlen":
             raise NotImplementedError(
                 "the varlen schedule is not ported yet (ROADMAP Queue 1, compressed "
                 "wire and the varlen schedule)"
             )
-        if sched == "tiered":
+        elif sched == "tiered":
             raise NotImplementedError(
                 "the tiered schedule is not ported yet (ROADMAP Queue 1, hierarchy "
                 "and scale)"
             )
-        raise ValueError(f"unknown wire schedule {sched!r}")
+        else:
+            raise ValueError(f"unknown wire schedule {sched!r}")
+        if on_class is not None:
+            for g in range(len(out)):
+                on_class(g)
+        return out
 
     def _uniform(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:
         # destination-ordered rows padded to seg_bytes, plus the zero
@@ -94,11 +124,12 @@ class LocalMeshTransport:
         stacked = torch.zeros((R, G + 1, seg), dtype=torch.uint8, device=wire.device)
         for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
             stacked[:, g, : grp.nbytes] = wire[:, goff : goff + grp.nbytes]
+        send_rows, recv_rows = self._index(plan, wire.device)
         ranks = torch.arange(R, device=wire.device).view(-1, 1)
-        sendbuf = stacked[ranks, self._rows(plan.send_rows, wire.device)]
+        sendbuf = stacked[ranks, send_rows]
         got = sendbuf.transpose(0, 1).contiguous()
         self._count(R * seg)
-        by_group = got[ranks, self._rows(plan.recv_rows, wire.device)]
+        by_group = got[ranks, recv_rows]
         return [by_group[:, g] for g in range(G)]
 
     def _ragged(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:

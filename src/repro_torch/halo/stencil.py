@@ -10,24 +10,45 @@ invalid, so :func:`stencil_apply` computes exactly the still-valid
 window and :func:`stencil_steps` walks ``valid`` down step by step: one
 radius-2 exchange hosts two radius-1 applications.
 
+Ops also compose into *cycles*: a heterogeneous sequence applied in
+order and repeated; one pass consumes :func:`cycle_radii` of valid halo.
+
+Overlap (:func:`overlapped_stencil_iteration`): the exchange is issued,
+and while it is on the wire :func:`stencil_interior_chain` computes each
+fused application's deep interior, the cells that read no halo at all.
+Each application then computes only what the chain did not: the shell
+around its chain block (six slabs), or, in ``region`` mode, the first
+application's rim regions (:func:`halo_regions`) as their delta classes
+land.  No cell of an application is computed twice.
+
 Every function takes the local block with any leading dimensions — the
 local mesh's ``(R, az, ay, ax)`` state updates all R ranks in one call —
 and updates it in place.  All window arithmetic goes through the shared
-:func:`repro_torch.kernels.ops.stencil_window_update` primitive, which
-accumulates in the reference's order.  The stencil is plain torch: the
-reference computes it in jnp, with no Pallas kernel.
+:func:`repro_torch.kernels.ops.stencil_window_update` /
+:func:`~repro_torch.kernels.ops.stencil_window_chain` primitives, which
+accumulate in the reference's order, element by element, so a cell
+comes out bit-identical whichever window computed it: that is what makes
+the chain, the slabs and the regions splice into the plain path's
+result.  The stencil is plain torch: the reference computes it in jnp,
+with no Pallas kernel.
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from repro_torch.halo.exchange import HaloSpec
-from repro_torch.kernels.ops import stencil_window_update
+from repro_torch.halo.exchange import (
+    DIRECTIONS,
+    HaloPlan,
+    HaloSpec,
+    ihalo_exchange,
+    make_halo_plan,
+)
+from repro_torch.kernels.ops import stencil_window_chain, stencil_window_update
 
 __all__ = [
     "StencilOp",
@@ -37,10 +58,19 @@ __all__ = [
     "cycle_radii",
     "op_sequence",
     "stencil_apply",
-    "stencil_cycle",
     "stencil_steps",
-    "stencil_iterations",
+    "stencil_cycle",
+    "stencil_interior_chain",
+    "max_pipeline_depth",
     "stencil26",
+    "stencil26_interior",
+    "stencil_iterations",
+    "OVERLAP_MODES",
+    "HaloRegion",
+    "halo_regions",
+    "overlap_region_descriptors",
+    "resolve_overlap_mode",
+    "overlapped_stencil_iteration",
 ]
 
 #: one op or a heterogeneous cycle of them
@@ -127,17 +157,17 @@ def _as_radii(valid, spec: HaloSpec) -> Tuple[int, int, int]:
     return tuple(valid)
 
 
-def stencil_apply(
-    local: torch.Tensor, spec: HaloSpec, valid=None, op: StencilOp = STENCIL26
-) -> torch.Tensor:
-    """One stencil application over the still-valid window, in place.
+def _put(local: torch.Tensor, origin, values: torch.Tensor) -> None:
+    """Write ``values`` into ``local``'s window at ``origin`` (last three
+    dimensions), in place."""
+    (z, y, x), (nz, ny, nx) = origin, values.shape[-3:]
+    local[..., z : z + nz, y : y + ny, x : x + nx] = values
 
-    ``valid`` is the per-dimension halo depth whose cells currently hold
-    correct values (default: the full ``spec.radii`` — "the exchange
-    just ran").  The update writes interior plus a shell of
-    ``valid - op.radii``; returns ``local``.
-    """
-    valid = _as_radii(valid, spec)
+
+def _window_of(spec: HaloSpec, valid, op: StencilOp):
+    """``(origin, shape)`` of the window one application of ``op`` may
+    write when ``valid`` halo cells per side hold correct values:
+    interior plus a shell of ``valid - op.radii``."""
     radii = spec.radii
     for v, r, hr in zip(valid, op.radii, radii):
         if v < r:
@@ -150,9 +180,21 @@ def stencil_apply(
     shell = tuple(v - r for v, r in zip(valid, op.radii))
     origin = tuple(hr - s for hr, s in zip(radii, shell))
     shape = tuple(n + 2 * s for n, s in zip(spec.interior, shell))
-    updated = stencil_window_update(local, op.offsets, op.weight, origin, shape)
-    (z, y, x), (nz, ny, nx) = origin, shape
-    local[..., z : z + nz, y : y + ny, x : x + nx] = updated
+    return origin, shape
+
+
+def stencil_apply(
+    local: torch.Tensor, spec: HaloSpec, valid=None, op: StencilOp = STENCIL26
+) -> torch.Tensor:
+    """One stencil application over the still-valid window, in place.
+
+    ``valid`` is the per-dimension halo depth whose cells currently hold
+    correct values (default: the full ``spec.radii`` — "the exchange
+    just ran").  The update writes interior plus a shell of
+    ``valid - op.radii``; returns ``local``.
+    """
+    origin, shape = _window_of(spec, _as_radii(valid, spec), op)
+    _put(local, origin, stencil_window_update(local, op.offsets, op.weight, origin, shape))
     return local
 
 
@@ -178,12 +220,369 @@ def stencil_steps(local, spec: HaloSpec, steps: int, op: StencilOp = STENCIL26,
     return stencil_cycle(local, spec, (op,), steps, valid)
 
 
+def _cum_shrink(op: Ops, applications: int) -> List[Tuple[int, int, int]]:
+    """Cumulative per-dimension shrink after each of the first
+    ``applications`` applications of the repeating cycle."""
+    cum = (0, 0, 0)
+    out = []
+    for o in itertools.islice(itertools.cycle(as_ops(op)), applications):
+        cum = tuple(c + r for c, r in zip(cum, o.radii))
+        out.append(cum)
+    return out
+
+
+def max_pipeline_depth(spec: HaloSpec, op: Ops, steps: int) -> int:
+    """How many of the ``steps * len(ops)`` fused applications have a
+    nonempty deep interior (every dim keeps >= 1 cell after the
+    cumulative shrink from each side) — the depth
+    :func:`stencil_interior_chain` can compute while the exchange is on
+    the wire.  ``steps`` counts cycle repeats."""
+    ops = as_ops(op)
+    depth = 0
+    for k, cum in enumerate(_cum_shrink(ops, steps * len(ops)), 1):
+        if any(n - 2 * c < 1 for n, c in zip(spec.interior, cum)):
+            break
+        depth = k
+    return depth
+
+
+def stencil_interior_chain(
+    local: torch.Tensor, spec: HaloSpec, depth: int, op: Ops = STENCIL26
+) -> List[torch.Tensor]:
+    """Applications ``1..depth`` of the repeating op cycle, restricted to
+    the cells that need no halo data at all.
+
+    Block ``k`` (1-indexed) holds the application-``k`` values of the
+    interior shrunk by the cycle's cumulative radii per side, computed
+    from ``local``'s interior alone, before any exchange completes.  An
+    exchange only writes halo shells, so each block is bit-identical to
+    the same region of the post-exchange application, which is what
+    makes it legal to splice the chain into the iteration.  ``local`` is
+    only read.
+    """
+    r, n = spec.radii, spec.interior
+    x = local[..., r[0] : r[0] + n[0], r[1] : r[1] + n[1], r[2] : r[2] + n[2]]
+    seq = list(itertools.islice(itertools.cycle(as_ops(op)), depth))
+    try:
+        return stencil_window_chain(x, [(o.offsets, o.weight, o.radii) for o in seq])
+    except ValueError as e:
+        raise ValueError(
+            f"interior {spec.interior} too small for a depth-{depth} "
+            f"chain of the cycle {[o.radii for o in as_ops(op)]}: {e}"
+        ) from None
+
+
 def stencil26(local, spec: HaloSpec):
     """One 26-point update of the still-valid window (halos current)."""
     return stencil_apply(local, spec, op=STENCIL26)
+
+
+def stencil26_interior(local, spec: HaloSpec) -> torch.Tensor:
+    """First-application update of the deep interior (no halo reads);
+    returns the ``interior - 2`` block at origin ``radii + 1``."""
+    return stencil_interior_chain(local, spec, 1, STENCIL26)[0]
 
 
 def stencil_iterations(local, spec: HaloSpec, steps: int):
     """``steps`` 26-point applications on one exchange (shrinking valid
     region), in place."""
     return stencil_steps(local, spec, steps, STENCIL26)
+
+
+# ---------------------------------------------------------------------------
+# region decomposition: core + faces/edges/corners of the first application
+# ---------------------------------------------------------------------------
+
+#: how :func:`overlapped_stencil_iteration` consumes the wire:
+#: ``monolithic`` waits for the fused exchange, then applies every rim
+#: at once; ``region`` drains delta classes and computes each rim region
+#: as its classes land; ``auto`` lets the model pick (pinned as an
+#: ``overlap/mode=...`` decision)
+OVERLAP_MODES = ("monolithic", "region", "auto")
+
+
+@dataclass(frozen=True)
+class HaloRegion:
+    """One region of the FIRST fused application's output window.
+
+    ``sig`` places it in the 3^3 core/face/edge/corner decomposition:
+    ``sig[a] == 0`` means the region's axis-``a`` span reads no halo in
+    that axis; ``-1``/``+1`` mean it reads the low/high halo shell.  The
+    core is ``(0, 0, 0)`` (regions that come out empty for the geometry
+    are dropped).  ``origin``/``shape`` locate the region in the local
+    allocation; ``bands`` lists the halo-shell bands its cells may read
+    and ``transfers`` the ``DIRECTIONS`` indices of the receive transfers
+    that fill them: the region is computable once exactly those
+    transfers have been unpacked.
+    """
+
+    sig: Tuple[int, int, int]
+    origin: Tuple[int, int, int]
+    shape: Tuple[int, int, int]
+    bands: Tuple[Tuple[int, int, int], ...]
+    transfers: Tuple[int, ...]
+
+    @property
+    def cells(self) -> int:
+        return self.shape[0] * self.shape[1] * self.shape[2]
+
+
+def halo_regions(spec: HaloSpec, op: Ops) -> Tuple[HaloRegion, ...]:
+    """Decompose the first application's output window into core +
+    faces/edges/corners.
+
+    Per axis the window ``[0, w)`` (``w = n + 2 * (hr - r)``, origin
+    ``r`` in the allocation) splits at ``m1 = min(hr, w)`` and
+    ``m2 = max(w - hr, m1)``: cells below ``m1`` read the low halo
+    shell, cells at ``m2`` and above the high one, the middle neither.
+    The three intervals partition ``[0, w)`` — also when the interior is
+    shallower than ``2r`` and the boundary intervals' dependency sets
+    widen to both sides — so the nonempty regions exactly partition the
+    window.  The dependency set is the per-axis product of
+    ``{0} | sides`` minus the all-zero band: a superset of the bands
+    actually read, which can only delay a region, never corrupt it.
+    """
+    ops = as_ops(op)
+    first = ops[0]
+    axes = []
+    for n, hr, r in zip(spec.interior, spec.radii, first.radii):
+        shell = hr - r
+        o = r
+        w = n + 2 * shell
+        m1 = min(hr, w)
+        m2 = max(w - hr, m1)
+        low_sides = {-1} | ({+1} if m1 > w - hr else set())
+        high_sides = {+1} | ({-1} if m2 < hr else set())
+        axes.append({
+            -1: (o, m1, low_sides),
+            0: (o + m1, m2 - m1, set()),
+            +1: (o + m2, w - m2, high_sides),
+        })
+    regions = []
+    for sig in itertools.product((-1, 0, 1), repeat=3):
+        origin, shape, sides = [], [], []
+        for a, s in enumerate(sig):
+            start, length, sd = axes[a][s]
+            origin.append(start)
+            shape.append(length)
+            sides.append(sorted({0} | sd))
+        if any(length <= 0 for length in shape):
+            continue
+        bands = tuple(b for b in itertools.product(*sides) if b != (0, 0, 0))
+        transfers = tuple(sorted(
+            DIRECTIONS.index((-b[0], -b[1], -b[2])) for b in bands
+        ))
+        regions.append(HaloRegion(sig, tuple(origin), tuple(shape), bands, transfers))
+    return tuple(regions)
+
+
+def _transfer_classes(wire) -> dict:
+    """Transfer index -> delta-class index of the exchange's WirePlan."""
+    out = {}
+    for g, grp in enumerate(wire.groups):
+        for i in grp.transfers:
+            out[i] = g
+    return out
+
+
+def overlap_region_descriptors(
+    spec: HaloSpec, op: Ops, wire
+) -> Tuple[int, List[Tuple[int, Tuple[int, ...]]]]:
+    """Reduce the geometry to what the model prices: the core window
+    bytes plus one ``(window_bytes, dep_class_ids)`` pair per rim region
+    (:meth:`repro_torch.comm.perfmodel.PerfModel.price_overlap`)."""
+    eb = spec.element.size
+    cls_of = _transfer_classes(wire)
+    core_bytes = 0
+    rims: List[Tuple[int, Tuple[int, ...]]] = []
+    for reg in halo_regions(spec, op):
+        nb = reg.cells * eb
+        if reg.sig == (0, 0, 0):
+            core_bytes += nb
+        else:
+            deps = tuple(sorted({cls_of[i] for i in reg.transfers}))
+            rims.append((nb, deps))
+    return core_bytes, rims
+
+
+def resolve_overlap_mode(spec: HaloSpec, comm, plan: HaloPlan, op: Ops = STENCIL26) -> str:
+    """Model-priced monolithic-vs-region choice for this exchange,
+    pinned as an ``overlap/mode=...`` decision
+    (:meth:`~repro_torch.comm.perfmodel.PerfModel.choose_overlap_mode`)."""
+    ops = as_ops(op)
+    core_bytes, rims = overlap_region_descriptors(spec, ops, plan.wire)
+    mode, _, _ = comm.model.choose_overlap_mode(
+        plan.wire, rims, core_bytes, ops[0].nneighbors
+    )
+    return mode
+
+
+def _shell_slabs(origin, shape, inner_origin, inner_shape):
+    """The six boxes (z, then y, then x slabs; empty ones dropped) that
+    partition the window ``origin + shape`` minus the box
+    ``inner_origin + inner_shape`` inside it, as ``(origin, shape)``."""
+    (oz, oy, ox), (nz, ny, nx) = origin, shape
+    (iz, iy, ix), (mz, my, mx) = inner_origin, inner_shape
+    boxes = [
+        ((oz, oy, ox), (iz - oz, ny, nx)),
+        ((iz + mz, oy, ox), (oz + nz - iz - mz, ny, nx)),
+        ((iz, oy, ox), (mz, iy - oy, nx)),
+        ((iz, iy + my, ox), (mz, oy + ny - iy - my, nx)),
+        ((iz, iy, ox), (mz, my, ix - ox)),
+        ((iz, iy, ix + mx), (mz, my, ox + nx - ix - mx)),
+    ]
+    return [(o, s) for o, s in boxes if all(d > 0 for d in s)]
+
+
+def _apply_around(local: torch.Tensor, spec: HaloSpec, valid, op: StencilOp,
+                  block_origin, block: torch.Tensor) -> None:
+    """One application over the still-valid window, in place, whose
+    values inside the box at ``block_origin`` are already known
+    (``block``, a chain block): only the shell around it is computed.
+    Every slab reads the pre-application values, so all are computed
+    before any is written."""
+    origin, shape = _window_of(spec, valid, op)
+    patches = [
+        (o, stencil_window_update(local, op.offsets, op.weight, o, s))
+        for o, s in _shell_slabs(origin, shape, block_origin, block.shape[-3:])
+    ]
+    for o, values in patches:
+        _put(local, o, values)
+    _put(local, block_origin, block)
+
+
+def _apply_region_split(req, spec: HaloSpec, ops: Tuple[StencilOp, ...], wire,
+                        chain_core: Optional[torch.Tensor], probe: Optional[dict]):
+    """The first fused application, region-split: drain delta classes in
+    completion order (``NeighborRequest.wait_any``) and compute each rim
+    region the moment its dependency classes have been unpacked.
+
+    Rim windows read overlapping cells (a face's neighborhood reaches
+    into the adjacent edges), so the computed windows are kept as
+    deferred patches and written only after every class has drained:
+    each region reads pre-application values exactly like the full
+    window update.  The core, when nonempty, is the interior chain's
+    first block, computed while the wire was in flight; the rims and the
+    core partition the window.
+    """
+    first = ops[0]
+    cls_of = _transfer_classes(wire)
+    rims = [r for r in halo_regions(spec, ops) if r.sig != (0, 0, 0)]
+    deps = [frozenset(cls_of[i] for i in r.transfers) for r in rims]
+    landed: set = set()
+    done = [False] * len(rims)
+    patches = []
+    order: List[Tuple[int, int, int]] = []
+
+    def sweep() -> None:
+        for i, reg in enumerate(rims):
+            if not done[i] and deps[i] <= landed:
+                win = stencil_window_update(
+                    req.buffer, first.offsets, first.weight, reg.origin, reg.shape
+                )
+                patches.append((reg.origin, win))
+                done[i] = True
+                order.append(reg.sig)
+
+    while req.pending:
+        landed.add(req.wait_any().index)
+        sweep()
+    full = req.wait()
+    for origin, win in patches:
+        _put(full, origin, win)
+    if chain_core is not None:
+        _put(full, tuple(hr + r for hr, r in zip(spec.radii, first.radii)), chain_core)
+    if probe is not None:
+        probe["rim_regions"] = len(rims)
+        probe["region_order"] = tuple(order)
+        probe["class_drain_order"] = tuple(req.drained)
+    return full
+
+
+# ---------------------------------------------------------------------------
+# overlap: the exchange hidden behind the interior chain
+# ---------------------------------------------------------------------------
+
+def overlapped_stencil_iteration(
+    local: torch.Tensor,
+    spec: HaloSpec,
+    comm,
+    types=None,
+    steps: int = 2,
+    probe: Optional[dict] = None,
+    plan: Optional[HaloPlan] = None,
+    op: Ops = STENCIL26,
+    mode: str = "monolithic",
+) -> torch.Tensor:
+    """One exchange + ``steps`` cycle repeats, in place, with the wire
+    hidden behind the interior chain.
+
+    ``op`` is one op or a heterogeneous cycle; ``steps`` counts cycle
+    repeats.  The fused exchange is issued first (:func:`ihalo_exchange`;
+    on the card its packs and wire ops run on the communicator's side
+    stream); while it is in flight :func:`stencil_interior_chain`
+    computes every fused application's deep interior on the caller's
+    stream.  ``mode`` (:data:`OVERLAP_MODES`) picks how the first
+    application consumes the wire:
+
+    ``monolithic``  ``wait()`` for every class, then each application
+                    computes the shell around its chain block.
+    ``region``      drain delta classes in completion order and compute
+                    each rim region of the first application as its
+                    classes land (:func:`halo_regions`); applications
+                    ``2..`` follow the monolithic path.
+    ``auto``        the model prices both and the choice is pinned as an
+                    ``overlap/mode=...`` decision.
+
+    Every mode is bit-identical to ``halo_exchange`` + ``stencil_cycle``
+    and computes each cell of an application once.  No application
+    writes the state before every class has drained: the side stream's
+    packs read the interior cells the applications write.
+
+    ``probe``, when given, records ``pending_during_interior`` (the
+    exchange was still pending when the chain was enqueued),
+    ``pipeline_depth`` and ``overlap_mode`` (the resolved mode); region
+    mode adds ``rim_regions``, ``region_order`` and
+    ``class_drain_order``.
+    """
+    ops = as_ops(op)
+    if mode not in OVERLAP_MODES:
+        raise ValueError(f"unknown overlap mode {mode!r}; expected one of {OVERLAP_MODES}")
+    if any(n > v for n, v in zip(cycle_halo_radii(ops, steps), spec.radii)):
+        raise ValueError(
+            f"halo radii {spec.radii} cannot host {steps} repeats of "
+            f"cycle radii {cycle_radii(ops)}"
+        )
+    if plan is None:
+        plan = make_halo_plan(spec, comm, types)
+    if mode == "auto":
+        mode = resolve_overlap_mode(spec, comm, plan, ops)
+    depth = max_pipeline_depth(spec, ops, steps)
+    req = ihalo_exchange(local, spec, comm, plan=plan)  # the wire, now
+    chain = stencil_interior_chain(local, spec, depth, ops)  # beside the wire
+    if probe is not None:
+        probe["pending_during_interior"] = not req.completed
+        probe["pipeline_depth"] = depth
+        probe["overlap_mode"] = mode
+    valid = spec.radii
+    seq = op_sequence(ops, steps)
+    shrink = _cum_shrink(ops, len(seq))
+    if mode == "region":
+        full = _apply_region_split(
+            req, spec, ops, plan.wire, chain[0] if depth >= 1 else None, probe
+        )
+        valid = tuple(v - r for v, r in zip(valid, ops[0].radii))
+        first_k = 2
+    else:
+        full = req.wait()
+        first_k = 1
+    for k, o in enumerate(seq, 1):
+        if k < first_k:
+            continue
+        if k <= depth:
+            origin = tuple(hr + c for hr, c in zip(spec.radii, shrink[k - 1]))
+            _apply_around(full, spec, valid, o, origin, chain[k - 1])
+        else:
+            stencil_apply(full, spec, valid, o)
+        valid = tuple(v - r for v, r in zip(valid, o.radii))
+    return full

@@ -101,9 +101,10 @@ def stencil_window_update(arr, offsets, weight, origin, shape):
 
     Returns the updated window only (a new tensor; the caller splices
     it back).  The scalar factors are rounded to ``arr.dtype`` first, as
-    in the reference.
+    in the reference.  They stay on the host, 0-dim: a copy of a host
+    scalar to the card would synchronize the stream each call.
     """
-    w = torch.tensor(weight, dtype=arr.dtype, device=arr.device)
+    w = torch.tensor(weight, dtype=arr.dtype)
     acc = shifted_window_sum(arr, offsets, origin, shape)
     center = _window(arr, origin, shape)
     return acc.mul_(w / len(offsets)).add_(center * (1 - w))

@@ -7,7 +7,8 @@ system and used to pick the cheapest strategy transparently.  This
 package owns that data end to end:
 
 * :mod:`repro_torch.measure.bench`       — timed sweeps of the pack,
-  unpack, wire and contiguous-copy terms (``calibrate_params``);
+  unpack, wire, contiguous-copy and stencil terms
+  (``calibrate_params``);
 * :mod:`repro_torch.measure.fingerprint` — the keys everything below is
   stored under: the committed type's content hash, and the system's
   (platform, device name, ranks, torch version);
@@ -30,6 +31,7 @@ from repro_torch.measure.bench import (
     fit_latency_bandwidth,
     measure_copy_table,
     measure_pack_table,
+    measure_stencil_table,
     measure_unpack_table,
     measure_wire_table,
     time_fn,
@@ -67,6 +69,7 @@ __all__ = [
     "load_or_calibrate",
     "measure_copy_table",
     "measure_pack_table",
+    "measure_stencil_table",
     "measure_unpack_table",
     "measure_wire_table",
     "production_communicator",

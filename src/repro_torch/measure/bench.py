@@ -14,7 +14,11 @@ on the running device:
 * :func:`measure_wire_table` — one ring permutation of the local-mesh
   transport over message sizes, with a least-squares (latency,
   bandwidth) fit (:func:`fit_latency_bandwidth`);
-* :func:`measure_copy_table` — a contiguous read + write over sizes.
+* :func:`measure_copy_table` — a contiguous read + write over sizes;
+* :func:`measure_stencil_table` — one stencil application
+  (:func:`repro_torch.kernels.ops.stencil_window_update`) over (neighbor
+  count x window bytes), what the deep-halo programs' redundant compute
+  and the overlap modes' regions are priced on.
 
 On the local mesh one launch moves all R ranks, and one wire op moves
 every rank's message.  So every sweep runs batched over the same R: each
@@ -57,6 +61,7 @@ __all__ = [
     "measure_unpack_table",
     "measure_wire_table",
     "measure_copy_table",
+    "measure_stencil_table",
     "fit_latency_bandwidth",
     "calibrate_params",
 ]
@@ -69,6 +74,10 @@ TOTAL_BYTES: Tuple[int, ...] = (1 << 10, 1 << 14, 1 << 18, 1 << 22)
 REDUCED_BLOCK_BYTES: Tuple[int, ...] = (8, 128)
 REDUCED_TOTAL_BYTES: Tuple[int, ...] = (1 << 10, 1 << 14)
 PITCH = 512  # paper Fig. 7 uses a 512 B pitch
+#: stencil-sweep op shapes: per-dimension radii -> neighbor counts 26,
+#: 44 and 124
+STENCIL_RADII: Tuple[Tuple[int, int, int], ...] = ((1, 1, 1), (2, 1, 1), (2, 2, 2))
+REDUCED_STENCIL_RADII: Tuple[Tuple[int, int, int], ...] = ((1, 1, 1), (2, 1, 1))
 #: local-mesh ranks every launch of the sweep serves (the halo's 2x2x2)
 RANKS = 8
 
@@ -213,6 +222,53 @@ def measure_wire_table(
     return rows
 
 
+def measure_stencil_table(
+    radii_set: Sequence[Tuple[int, int, int]] = STENCIL_RADII,
+    total_bytes: Sequence[int] = TOTAL_BYTES,
+    iters: int = 5,
+    ranks: int = RANKS,
+    device="cuda",
+) -> List[Tuple[float, float, float]]:
+    """One weighted box-stencil application over (neighbor count x
+    window bytes): rows ``(log2_neighbors, log2_window_bytes, sec)``.
+
+    Times :func:`repro_torch.kernels.ops.stencil_window_update`, the
+    primitive every deep-halo application runs, on a float32 cube per
+    rank whose window holds about ``total`` bytes, for each op shape in
+    ``radii_set``; ``ranks`` ranks a call, as the halo state holds them,
+    the row keyed by one rank's window bytes.
+    """
+    import itertools
+
+    from repro_torch.kernels.ops import stencil_window_update
+
+    dev = resolve_device(device)
+    rows: List[Tuple[float, float, float]] = []
+    for radii in radii_set:
+        rz, ry, rx = radii
+        offsets = tuple(
+            d
+            for d in itertools.product(
+                range(-rz, rz + 1), range(-ry, ry + 1), range(-rx, rx + 1)
+            )
+            if d != (0, 0, 0)
+        )
+        for total in total_bytes:
+            m = max(int(round((total / 4) ** (1.0 / 3.0))), 1)
+            shape = (m, m, m)
+            arr = torch.zeros(
+                (ranks,) + tuple(s + 2 * r for s, r in zip(shape, radii)),
+                dtype=torch.float32, device=dev,
+            )
+            sec = time_fn(
+                lambda a: stencil_window_update(a, offsets, 0.4, radii, shape),
+                arr, iters=iters,
+            )
+            rows.append((math.log2(len(offsets)), math.log2(4 * m ** 3), sec))
+            del arr
+    return rows
+
+
 def fit_latency_bandwidth(
     rows: Sequence[Tuple[float, float]]
 ) -> Tuple[Optional[float], Optional[float]]:
@@ -241,9 +297,9 @@ def calibrate_params(
     ranks: int = RANKS,
     device="cuda",
 ) -> SystemParams:
-    """Full-term calibration: pack + unpack + wire + contiguous copy, all
-    batched over ``ranks`` local-mesh ranks on ``device`` (the card
-    unless ``device="cpu"``).
+    """Full-term calibration: pack + unpack + wire + contiguous copy +
+    stencil application, all batched over ``ranks`` local-mesh ranks on
+    ``device`` (the card unless ``device="cpu"``).
 
     The base is :data:`~repro_torch.comm.perfmodel.H100_ANALYTIC`, whose
     constants stay as fallbacks for what the tables do not cover.
@@ -253,6 +309,7 @@ def calibrate_params(
     dev = resolve_device(device)
     blocks = REDUCED_BLOCK_BYTES if reduced else BLOCK_BYTES
     totals = REDUCED_TOTAL_BYTES if reduced else TOTAL_BYTES
+    radii_set = REDUCED_STENCIL_RADII if reduced else STENCIL_RADII
     # 20 calls a point on the full grid (the reference takes 5): on the
     # card a call is host-bound, and 5 calls scatter by about 30%
     it = iters if iters is not None else (2 if reduced else 20)
@@ -261,6 +318,7 @@ def calibrate_params(
     pack = measure_pack_table(strategies, blocks, totals, **kw)
     unpack = measure_unpack_table(strategies, blocks, totals, **kw)
     copy = measure_copy_table(totals, **kw)
+    stencil = measure_stencil_table(radii_set, totals, **kw)
     wire = measure_wire_table(totals, **kw)
     wire_lat, wire_bw = fit_latency_bandwidth(wire)
 
@@ -275,6 +333,7 @@ def calibrate_params(
         unpack_table={k: tuple(v) for k, v in unpack.items() if v},
         wire_table=tuple(wire),
         copy_table=tuple(copy),
+        stencil_table=tuple(stencil),
         wire_latency=wire_lat,
         wire_bw=wire_bw,
         link_bw=wire_bw if wire_bw else H100_ANALYTIC.link_bw,

@@ -162,6 +162,12 @@ class DecisionCache:
             return DecisionCache()
         return DecisionCache.from_json(p.read_text())
 
+    def program_rows(self) -> List[Decision]:
+        """The deep-halo fusion-depth decisions (``program/s=N`` rows,
+        keyed by program fingerprint — one per distinct
+        grid/interior/cycle geometry)."""
+        return [d for d in self.log if d.strategy.startswith("program/s=")]
+
     # -- audit -----------------------------------------------------------
     def report(self) -> str:
         """The audit log as aligned text: one selection per line."""

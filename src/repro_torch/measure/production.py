@@ -32,7 +32,6 @@ DECISIONS_FILENAME = "decisions.json"
 _LATER = {
     "telemetry": "Queue 1, observability and fleet",
     "tracer": "Queue 1, observability and fleet",
-    "halo_steps": "Queue 1, deep-halo programs and overlap",
     "topology": "Queue 1, hierarchy and scale",
 }
 
@@ -64,18 +63,28 @@ def production_communicator(
     params: explicit SystemParams (skips the store's tables).
     ranks: the local-mesh rank count the tables are measured for.
     device: ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
-    telemetry, tracer, halo_steps, topology: the reference's options of
-        later roadmap items; passing one raises NotImplementedError.
+    halo_steps: when given (``"auto"`` or an int), installs the
+        process-wide deep-halo fusion-depth default
+        (:func:`repro_torch.halo.program.set_default_halo_steps`) beside
+        the decisions cache that pins ``"auto"``, so every
+        :func:`~repro_torch.halo.program.build_halo_program` of the job
+        resolves its depth through it and records it in the same file.
+    telemetry, tracer, topology: the reference's options of later
+        roadmap items; passing one raises NotImplementedError.
 
     Returns ``(comm, save)``: ``save()`` writes the decisions file.
     """
     for opt, value in (("telemetry", telemetry), ("tracer", tracer),
-                       ("halo_steps", halo_steps), ("topology", topology)):
+                       ("topology", topology)):
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"production_communicator({opt}=...) is not ported yet "
                 f"(ROADMAP {_LATER[opt]})"
             )
+    if halo_steps is not None:
+        from repro_torch.halo.program import set_default_halo_steps
+
+        set_default_halo_steps(halo_steps)
     dev = resolve_device(device)
     store = ParamsStore(cache_dir, ranks=ranks, device=dev)
     if params is None:

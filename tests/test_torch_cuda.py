@@ -14,7 +14,20 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.comm import Communicator, policy_for_mode
 from repro_torch.core import StridedBlock
-from repro_torch.halo import HaloSpec, from_reference, make_halo_step
+from repro_torch.halo import (
+    OVERLAP_MODES,
+    STENCIL26,
+    HaloSpec,
+    build_halo_program,
+    from_reference,
+    halo_exchange,
+    ihalo_exchange,
+    make_halo_plan,
+    make_halo_step,
+    make_program_step,
+    overlapped_stencil_iteration,
+    stencil_cycle,
+)
 from repro_torch.kernels import launch_counts, plan_geometry, reset_launch_counts
 from repro_torch.kernels.pack import (
     DMA_PATHS,
@@ -25,6 +38,7 @@ from repro_torch.kernels.pack import (
     pack_rows,
     row_args,
 )
+from repro_torch.kernels.ops import stencil_window_update
 from repro_torch.kernels.unpack import unpack_dma, unpack_plain, unpack_rows
 
 BLOCKS = [
@@ -319,3 +333,84 @@ def test_dma_kernels_refuse_a_launch_they_cannot_run():
             launch("pack", "tempi_pack_dma", src, out, geom, *args)
         with pytest.raises(RuntimeError, match="tempi_unpack_dma"):
             launch("unpack", "tempi_unpack_dma", src, out, geom, *args)
+
+
+# ---------------------------------------------------------------------------
+# per-class requests on the side stream, overlap and deep-halo programs
+# ---------------------------------------------------------------------------
+
+def _small_state(spec, dev, seed=5):
+    start = np.random.default_rng(seed).normal(size=(8,) + spec.alloc).astype(np.float32)
+    return from_reference(start, spec, device=dev)
+
+
+@pytest.mark.cuda
+def test_class_events_complete_and_wait_any_drains_every_class():
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(6, 5, 4), radius=2)
+    comm = Communicator(device=dev)
+    plan = make_halo_plan(spec, comm, schedule_policy="exact")  # grouped: one op a class
+    local = _small_state(spec, dev)
+    req = ihalo_exchange(local, spec, comm, plan=plan)
+    assert [c.index for c in req.classes] == list(range(plan.wire.ngroups)) == list(range(7))
+    assert all(c.event is not None for c in req.classes)
+    while req.pending:
+        req.wait_any()
+    assert sorted(req.drained) == list(range(7))
+    assert req.completed and req.wait() is local
+    torch.cuda.synchronize()
+    assert all(c.ready() for c in req.classes)
+    want = halo_exchange(_small_state(spec, "cpu"), spec, Communicator(device="cpu"),
+                         plan=make_halo_plan(spec, Communicator(device="cpu"),
+                                             schedule_policy="exact"))
+    assert torch.equal(local.cpu(), want)
+    assert sorted(comm.wire_class_drains.values()) == list(range(1, 8))
+    assert set(comm.wire_class_ops.values()) == {1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", OVERLAP_MODES)
+def test_overlapped_iteration_on_the_card_equals_the_plain_path(mode):
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(10, 9, 8), radius=2)
+    comm = Communicator(device=dev)
+    plan = make_halo_plan(spec, comm)
+    want = _small_state(spec, dev)
+    got = want.clone()
+    for _ in range(2):
+        stencil_cycle(halo_exchange(want, spec, comm, plan=plan), spec, STENCIL26, 2)
+        overlapped_stencil_iteration(got, spec, comm, steps=2, plan=plan, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_program_at_three_steps_runs_on_the_card():
+    dev = _card()
+    comm = Communicator(device=dev)
+    program = build_halo_program((2, 2, 2), (12, 10, 9), comm, steps=3)
+    step = make_program_step(program, comm, device=dev)
+    got = _small_state(program.spec, dev)
+    want = got.clone()
+    reset_launch_counts()
+    for _ in range(2):
+        step(got)
+        stencil_cycle(halo_exchange(want, program.spec, comm, plan=program.plan),
+                      program.spec, program.ops, 3)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all() and torch.equal(got, want)
+    assert sum(launch_counts().values()) > 0  # the kernels, not their plain versions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("weight", [STENCIL26.weight, 1 / 3, 0.9])
+def test_stencil_update_on_the_card_equals_the_cpu_bit_for_bit(weight):
+    # the scalar factors are rounded on the host, as on the CPU: the card
+    # then computes the same float32 values in the same order
+    dev = _card()
+    arr = torch.from_numpy(
+        np.random.default_rng(11).normal(size=(3, 14, 12, 11)).astype(np.float32))
+    origin, shape = (1, 1, 1), (12, 10, 9)
+    want = stencil_window_update(arr, STENCIL26.offsets, weight, origin, shape)
+    got = stencil_window_update(arr.to(dev), STENCIL26.offsets, weight, origin, shape)
+    assert got.is_cuda and torch.equal(got.cpu(), want)

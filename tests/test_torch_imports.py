@@ -38,6 +38,7 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro."))
 print("MODULES", len(names))
+print("HALO", sorted(m for m in names if m.startswith("repro_torch.halo.")))
 print("FORBIDDEN", bad)
 """
 
@@ -51,6 +52,8 @@ def test_no_module_imports_jax_or_the_reference():
     assert proc.returncode == 0, proc.stderr
     lines = dict(line.split(" ", 1) for line in proc.stdout.splitlines())
     assert int(lines["MODULES"]) >= 20
+    assert lines["HALO"] == str(["repro_torch.halo.exchange", "repro_torch.halo.program",
+                                 "repro_torch.halo.stencil"])
     assert lines["FORBIDDEN"] == "[]"
 
 

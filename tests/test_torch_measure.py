@@ -392,7 +392,7 @@ def test_production_communicator_records_then_pins(tmp_path):
         s.name for s in plan.strategies]
 
 
-@pytest.mark.parametrize("option", ["telemetry", "tracer", "halo_steps", "topology"])
+@pytest.mark.parametrize("option", ["telemetry", "tracer", "topology"])
 def test_production_options_of_later_items_raise(option, tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         production_communicator(tmp_path, device="cpu", **{option: True})
