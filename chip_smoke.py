@@ -59,7 +59,18 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            and computing as many stencil cells as it (none twice), with
            ms per iteration, its probe and the device's idle share from
            ``torch.profiler``;
-6. timing  CUDA-event times of each kernel (L2 flushed before every
+6. dist    one process per rank through ``torch.distributed``: a
+           world-size-1 NCCL group started in-process over a ``file://``
+           store, on a (1, 1, 1) grid of one 256^3 block, radius 2, where
+           all 26 neighbours are the process itself.  The exchange under
+           ``grouped``, ``uniform`` and ``ragged``, the s = 2 program plain,
+           ``monolithic`` and ``region``, and one ``sendrecv``, each
+           ``torch.equal`` to the same run through the local mesh at R = 1
+           with equal wire op and byte counts (launch counts zeroed before
+           and read after each NCCL run; every kernel must have run); ms
+           per exchange and per s = 2 iteration under NCCL and the local
+           mesh; the group is torn down before the next phase;
+7. timing  CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
            (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
            counts the block bytes read and written, ``bound_sectors_ms``
@@ -78,9 +89,10 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            host-clock ms per exchange and CUDA-event ms per stencil
            application.
 
-Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, one JSON line
-``{"kernels": [...]}`` (``launches``: the main path's loop plus the
-program phase), the card's name and power
+Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
+``{"dist": ...}`` line, one JSON line ``{"kernels": [...]}``
+(``launches``: the main path's loop plus the program and dist phases),
+the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
 Needs one card; run from the repository root: ``python3 chip_smoke.py``.
@@ -108,6 +120,8 @@ RECALIBRATIONS = 4         # calibrations past the stored one, for the spread of
 PROGRAM_ITERS = 3          # iterations a [program] variant is checked over
 PROGRAM_REPS = 5           # timed [program] iterations a variant and round
 PROGRAM_DEPTHS = (1, 2, 3)  # the deep-halo programs' s, and their halo radii
+DIST_REPS = 5              # timed [dist] calls a reading
+DIST_ROUNDS = 2            # [dist] rounds of NCCL, local, local, NCCL readings
 
 
 def fail(msg: str) -> None:
@@ -1051,6 +1065,151 @@ def phase_program(torch, dev, spec, card, measured):
     return counts
 
 
+def phase_dist(torch, dev, card):
+    """One process per rank through ``torch.distributed``: a world-size-1
+    NCCL group started in this process over a ``file://`` store, on
+    ``HaloSpec(grid=(1, 1, 1), interior=256^3, radius=2)``, where all 26
+    neighbours are the process itself (real NCCL collectives and
+    send/receive pairs to itself).  Every run is held ``torch.equal`` to
+    the same run through the local mesh at R = 1 on this card, with equal
+    wire op and byte counts: the exchange under ``grouped``, ``uniform``
+    and ``ragged``; the s = 2 program plain, ``monolithic`` and
+    ``region`` (the local mesh runs the NCCL program's plan); one
+    ``sendrecv`` of the x-face type.  Launch counts are zeroed before and
+    read after each NCCL run (the local-mesh runs are not counted); every
+    kernel must have run.  Times: host clock, synchronized, median of
+    ``DIST_REPS`` calls a reading, NCCL and the local mesh in turns.  The
+    group is torn down before the phase returns."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.comm import Communicator, DistributedTransport, reschedule
+    from repro_torch.halo import (HaloSpec, build_halo_program, halo_exchange,
+                                  make_halo_plan, make_halo_types)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.procgroup import destroy_process_group, init_process_group
+
+    spec = HaloSpec(grid=(1, 1, 1), interior=(256, 256, 256), radius=2)
+    out = {"card": card, "grid": list(spec.grid), "interior": list(spec.interior),
+           "radius": spec.radius, "exchange": {}, "program": {}}
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+
+    def counted(fn):
+        reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] += v
+
+    def same(what, xd, xl, cd, cl):
+        if not torch.equal(xd, xl):
+            fail(f"[dist] {what}: {(xd != xl).sum().item()} cells differ between NCCL and "
+                 f"the local mesh")
+        got = (cd.wire_ops, cd.wire_payload_bytes)
+        if got != (cl.wire_ops, cl.wire_payload_bytes):
+            fail(f"[dist] {what}: NCCL counted {got} wire ops and bytes, the local mesh "
+                 f"{(cl.wire_ops, cl.wire_payload_bytes)}")
+        return {"wire_ops": cd.wire_ops, "wire_bytes": cd.wire_payload_bytes}
+
+    def in_turns(nccl_fn, local_fn):
+        """ms per call under NCCL and the local mesh, ``DIST_ROUNDS``
+        rounds of NCCL, local, local, NCCL, each reading the median of
+        ``DIST_REPS`` synchronized calls."""
+        ms = {"ms_nccl": [], "ms_local": []}
+        for _ in range(DIST_ROUNDS):
+            for key, fn in (("ms_nccl", nccl_fn), ("ms_local", local_fn),
+                            ("ms_local", local_fn), ("ms_nccl", nccl_fn)):
+                ms[key].append(wall_ms(torch, fn, DIST_REPS))
+        return ms
+
+    t_phase = time.perf_counter()
+    g, start, want = global_layout(torch, spec, dev)
+    del g
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as root:
+        t0 = time.perf_counter()
+        info = init_process_group("nccl", dev, store_path=os.path.join(root, "store"),
+                                  rank=0, world_size=1)
+        out["init_s"] = time.perf_counter() - t0
+        out["nccl_socket_ifname"] = os.environ.get("NCCL_SOCKET_IFNAME")
+        try:
+            def nccl():
+                return Communicator(transport=DistributedTransport(device=info.device))
+
+            out["model_schedule"] = make_halo_plan(spec, nccl()).wire.schedule
+            for sched in ("grouped", "uniform", "ragged"):
+                cd, cl = nccl(), Communicator(device=dev)
+                pd, pl = (make_halo_plan(spec, c, schedule_policy="exact") for c in (cd, cl))
+                pd = dataclasses.replace(pd, wire=reschedule(pd.wire, sched))
+                pl = dataclasses.replace(pl, wire=reschedule(pl.wire, sched))
+                xd, xl = start.clone(), start.clone()
+                counted(lambda: halo_exchange(xd, spec, cd, plan=pd))
+                halo_exchange(xl, spec, cl, plan=pl)
+                torch.cuda.synchronize()
+                if not torch.equal(xd, want):
+                    fail(f"[dist] {sched}: the NCCL exchange differs from the periodic field")
+                row = same(f"exchange {sched}", xd, xl, cd, cl)
+                row.update(in_turns(lambda: halo_exchange(xd, spec, cd, plan=pd),
+                                    lambda: halo_exchange(xl, spec, cl, plan=pl)))
+                out["exchange"][sched] = row
+                del xd, xl
+
+            pd = build_halo_program(spec.grid, spec.interior, nccl(), steps=2)
+            pl = dataclasses.replace(
+                build_halo_program(spec.grid, spec.interior, Communicator(device=dev), steps=2),
+                plan=pd.plan)
+            out["program_schedule"] = pd.plan.wire.schedule
+            for mode in ("plain", "monolithic", "region"):
+                ov = False if mode == "plain" else mode
+                cd, cl = nccl(), Communicator(device=dev)
+                xd, xl = start.clone(), start.clone()
+                counted(lambda: [pd.iteration(xd, cd, overlap=ov) for _ in range(2)])
+                for _ in range(2):
+                    pl.iteration(xl, cl, overlap=ov)
+                torch.cuda.synchronize()
+                if not torch.isfinite(xd).all():
+                    fail(f"[dist] program {mode}: non-finite values")
+                row = same(f"program {mode}", xd, xl, cd, cl)
+                row.update(in_turns(lambda: pd.iteration(xd, cd, overlap=ov),
+                                    lambda: pl.iteration(xl, cl, overlap=ov)))
+                out["program"][mode] = row
+                del xd, xl
+
+            cd, cl = nccl(), Communicator(device=dev)
+            send_ct, recv_ct = make_halo_types(spec, cd)[(0, 0, 1)]
+            xd, xl = start.clone(), start.clone()
+            counted(lambda: cd.sendrecv(xd.view(1, -1), xd.view(1, -1), send_ct, [(0, 0)],
+                                        recv_ct))
+            cl.sendrecv(xl.view(1, -1), xl.view(1, -1), send_ct, [(0, 0)], recv_ct)
+            torch.cuda.synchronize()
+            out["sendrecv"] = same("sendrecv", xd, xl, cd, cl)
+            out["sendrecv"]["strategy"] = cd.select(send_ct).name
+            del xd, xl
+        finally:
+            destroy_process_group()
+    del start, want
+    torch.cuda.empty_cache()
+    zero = [k for k, v in counts.items() if v == 0]
+    if zero:
+        fail(f"kernels never launched through the NCCL transport: {zero}")
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    ex, pr = out["exchange"], out["program"]
+
+    def span(v):
+        return f"{min(v):.3f}-{max(v):.3f}"
+
+    print(f"[dist] world of 1 under NCCL (group and communicator up in {out['init_s']:.2f} s, "
+          f"phase {out['phase_s']:.1f} s), ms: exchange "
+          + ", ".join(f"{k} {span(r['ms_nccl'])} (local mesh {span(r['ms_local'])})"
+                      for k, r in ex.items())
+          + "; s=2 iteration " + ", ".join(f"{k} {span(r['ms_nccl'])} (local mesh "
+                                           f"{span(r['ms_local'])})" for k, r in pr.items())
+          + f"; all torch.equal to the local mesh at R=1, counts equal; launches {counts}; "
+          f"{card}")
+    print(json.dumps({"dist": out}))
+    return counts
+
+
 def plan_launches(plan, comm):
     """Kernel launches one exchange of ``plan`` on ``comm`` makes: per
     region, a pack by its send strategy (for ``bounding``, the receiver's
@@ -1297,6 +1456,7 @@ def main() -> int:
     counts = phase_main(torch, dev, spec, timings)
     measure, measured = phase_measure(torch, dev, spec, card)
     program = phase_program(torch, dev, spec, card, measured)
+    dist = phase_dist(torch, dev, card)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -1304,8 +1464,10 @@ def main() -> int:
         mine = [f for f in faces if f["kernel"] == kernel]
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kernel] + program[kernel], "max_abs_err": check.err[kernel],
+            "launches": counts[kernel] + program[kernel] + dist[kernel],
+            "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
+            "launches_dist": dist[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

@@ -29,6 +29,7 @@ from repro_torch.comm.perfmodel import (
     StrategyEstimate,
     SystemParams,
 )
+from repro_torch.comm.distributed import DistributedTransport
 from repro_torch.comm.topology import Topology
 from repro_torch.comm.transport import LocalMeshTransport
 from repro_torch.comm.wireplan import WireGroup, WirePlan, plan_wire, reschedule
@@ -39,6 +40,7 @@ __all__ = [
     "BaselinePolicy",
     "ClassRequest",
     "Communicator",
+    "DistributedTransport",
     "FixedPolicy",
     "H100_ANALYTIC",
     "LocalMeshTransport",

@@ -23,9 +23,13 @@ decision made here compares one to one with ``repro.comm.api``:
   :class:`~repro_torch.comm.wireplan.WirePlan` and hands it to the
   transport under the plan's schedule.
 
-Buffers carry the ranks on their leading dimension (the local-mesh
-transport keeps all R ranks in one tensor), so every Communicator entry
-point moves a datatype for all ranks at once.  Unpacks write in place.
+Buffers carry the ranks on their leading dimension, as many as the
+transport's ``local_ranks``: the local-mesh transport keeps all R ranks
+in one tensor, so every entry point moves a datatype for all ranks at
+once; under one process per rank
+(:class:`~repro_torch.comm.distributed.DistributedTransport`) the
+dimension is 1, this process's rank, and every rank calls the same entry
+points with the same arguments.  Unpacks write in place.
 """
 
 from __future__ import annotations
@@ -610,17 +614,20 @@ class ClassRequest(Request):
     (for the halo they map one to one onto ``DIRECTIONS``), which lets a
     region scheduler turn "this class landed" into "these rim regions
     are computable".  On the card ``event`` is recorded on the
-    communicator's side stream right after the class's wire op."""
+    communicator's side stream right after the class's wire op.  ``hold``
+    keeps the tensors the wire op reads (the flat send buffer) alive until
+    the class is unpacked."""
 
     def __init__(self, index: int, payload: torch.Tensor, transfers: Sequence[int],
                  nbytes: int, unpack: Callable[[torch.Tensor, torch.Tensor], None],
-                 event: Optional["torch.cuda.Event"] = None):
+                 event: Optional["torch.cuda.Event"] = None, hold=None):
         super().__init__(value=payload)
         self.index = int(index)
         self.transfers = tuple(transfers)
         self.nbytes = int(nbytes)
         self._unpack = unpack
         self.event = event
+        self._hold = hold
         #: set once the class's unpacks have been enqueued into the buffer
         self.applied = False
 
@@ -643,6 +650,7 @@ class ClassRequest(Request):
             self._value.record_stream(stream)
         self._unpack(buf, self._value)
         self.applied = True
+        self._hold = None
         return buf
 
 
@@ -726,7 +734,9 @@ class Communicator:
     transport: what moves the wire bytes; defaults to the local mesh on
         ``device``.
     device: where the buffers live: ``"cuda"`` (the default; raises when
-        no card is present) or ``"cpu"``.
+        no card is present) or ``"cpu"``.  With a transport given it
+        defaults to the transport's device (under one process per rank,
+        the process's own card), and a device that differs raises.
     decisions: optional :class:`repro_torch.measure.DecisionCache` —
         pins strategy selections (fingerprint-keyed) and records them
         with every priced wire plan in its audit log.
@@ -739,11 +749,18 @@ class Communicator:
         strategies: Optional[StrategyRegistry] = None,
         policy: Optional[Policy] = None,
         transport=None,
-        device="cuda",
+        device=None,
         decisions=None,
     ):
-        self.device = resolve_device(device)
-        self.transport = transport or LocalMeshTransport(self.device)
+        if transport is None:
+            self.device = resolve_device("cuda" if device is None else device)
+            transport = LocalMeshTransport(self.device)
+        else:
+            self.device = transport.device
+            if device is not None and resolve_device(device) != self.device:
+                raise ValueError(
+                    f"device {device!r} differs from the transport's {self.device}")
+        self.transport = transport
         self.registry = registry or TypeRegistry()
         self.strategies = strategies or default_registry()
         self.model = PerfModel(params, decisions=decisions)
@@ -774,9 +791,14 @@ class Communicator:
         return self.transport.bytes
 
     def _check(self, *bufs: torch.Tensor) -> None:
+        rows = self.transport.local_ranks
         for b in bufs:
             if b.device != self.device:
                 raise ValueError(f"buffer on {b.device}; communicator on {self.device}")
+            if rows is not None and (b.dim() == 0 or b.shape[0] != rows):
+                raise ValueError(
+                    f"buffer of shape {tuple(b.shape)}: the transport's buffers hold "
+                    f"{rows} rank(s) on the leading dimension")
 
     # -- commit / selection ---------------------------------------------
     def commit(self, dt: Datatype) -> CommittedType:
@@ -897,7 +919,8 @@ class Communicator:
 
         On the card the packs and the wire ops run on the communicator's
         side stream, after the caller's stream has reached this call, and
-        one event per class is recorded right after its wire op, so the
+        one event per class is recorded right after its wire op (under
+        NCCL, after the side stream has waited on the op), so the
         caller's stream may go on (an interior stencil chain) while the
         exchange is on the wire.  The packs read only interior cells and
         the unpacks write only halo cells; no unpack runs before the
@@ -958,7 +981,7 @@ class Communicator:
 
         classes = [
             ClassRequest(g, group_rows[g], grp.transfers, grp.nbytes,
-                         class_unpacker(grp), events[g])
+                         class_unpacker(grp), events[g], hold=wire)
             for g, grp in enumerate(plan.groups)
         ]
         return NeighborRequest(buf, classes, plan, self.wire_class_drains)

@@ -2,19 +2,47 @@
 
 The reference moves bytes with ``lax.ppermute`` / ``all_to_all`` /
 ``ragged_all_to_all`` inside ``shard_map``.  A transport is the port's
-counterpart: it takes the flat ``(R, total)`` wire buffer of a
-:class:`~repro_torch.comm.wireplan.WirePlan` and returns, per delta
-class, the ``(R, nbytes)`` payload every rank received — row ``r`` is
-what rank ``r`` got.  It counts the wire ops and the bytes it issues
-(per rank, the unit of ``WirePlan.wire_bytes``), so byte accounting is
-what the transport did, not what the plan promised.
+counterpart.  The :class:`~repro_torch.comm.api.Communicator` uses it
+through this interface:
 
-This slice has one backend, :class:`LocalMeshTransport`: all R ranks
-live in one process on one device as the leading dimension of one
-tensor, and every wire op is an on-device copy.  That runs the 8-rank
-halo exchange on one card (and on the CPU in the tests).  A backend with
-one process per rank (``torch.distributed``, NCCL or gloo) implements the
-same two methods on the rank's own row; it is not in this slice.
+``permute(payload, perm)``
+    one permutation send of the ``(local_ranks, n)`` payload: global
+    rank ``src`` sends its row to ``dst`` for every ``(src, dst)`` edge
+    of ``perm``.  Returns the received ``(local_ranks, n)`` rows; a rank
+    that no edge reaches receives zeros, as under ``lax.ppermute``.
+``exchange(wire, plan, on_class)``
+    put the flat ``(local_ranks, plan.wire_bytes)`` wire buffer of a
+    :class:`~repro_torch.comm.wireplan.WirePlan` on the link under the
+    plan's schedule; returns, per delta class, the payload every local
+    rank received.  ``on_class(g)`` is called once per class, after the
+    op that completes class ``g`` is issued and ordered on the current
+    stream.
+``ops`` / ``bytes``
+    the wire ops issued and the bytes each rank put on the wire (the
+    unit of ``WirePlan.wire_bytes``), so byte accounting is what the
+    transport did, not what the plan promised.
+``native_ragged``
+    whether a ragged all-to-all is one native op; the exact schedule
+    ladder takes ``ragged`` only then.
+``local_ranks``
+    how many ranks a buffer holds on its leading dimension: ``None`` on
+    the local mesh, where a buffer holds every rank of the exchange, and
+    1 for one process per rank.
+``rank``
+    the global rank of row 0.
+``device``
+    where the buffers live.
+``agree(what, key)``
+    raise unless every process holds the same ``key`` (a no-op within
+    one process).
+
+Two backends implement it: :class:`LocalMeshTransport` here, all R ranks
+in one process on one device as the leading dimension of one tensor,
+every wire op an on-device copy (the 8-rank halo exchange on one card,
+and on the CPU in the tests); and
+:class:`~repro_torch.comm.distributed.DistributedTransport`, one process
+per rank through ``torch.distributed`` (NCCL on the card, gloo on the
+CPU).
 """
 
 from __future__ import annotations
@@ -23,7 +51,22 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["LocalMeshTransport"]
+__all__ = ["LocalMeshTransport", "unported_schedule"]
+
+#: the schedules a plan can carry that no transport issues yet
+_UNPORTED = {
+    "varlen": "ROADMAP Queue 1, compressed wire and the varlen schedule",
+    "tiered": "ROADMAP Queue 1, hierarchy and scale",
+}
+
+
+def unported_schedule(sched: str) -> Exception:
+    """The error for a schedule no transport issues: NotImplementedError
+    naming its ROADMAP item, or ValueError for an unknown name."""
+    if sched in _UNPORTED:
+        return NotImplementedError(
+            f"the {sched} schedule is not ported yet ({_UNPORTED[sched]})")
+    return ValueError(f"unknown wire schedule {sched!r}")
 
 
 class LocalMeshTransport:
@@ -36,6 +79,8 @@ class LocalMeshTransport:
     """
 
     native_ragged = False
+    local_ranks = None
+    rank = 0
 
     def __init__(self, device: torch.device):
         self.device = torch.device(device)
@@ -69,14 +114,23 @@ class LocalMeshTransport:
             self._plan_index[key] = index
         return index
 
+    def agree(self, what: str, key: str) -> None:
+        """Every rank lives in this process: they agree."""
+
     def permute(self, payload: torch.Tensor, perm: Sequence[Tuple[int, int]]) -> torch.Tensor:
         """One permutation send: rank ``src`` sends its row to ``dst``
-        for every edge of ``perm``.  Returns the received ``(R, n)``."""
-        src = [0] * payload.shape[0]
+        for every edge of ``perm``.  Returns the received ``(R, n)``; a
+        rank that no edge reaches gets a zero row."""
+        src: List[Optional[int]] = [None] * payload.shape[0]
         for s, d in perm:
             src[d] = s
         self._count(payload.shape[1])
-        return payload.index_select(0, self._rows(src, payload.device))
+        out = payload.index_select(
+            0, self._rows([0 if s is None else s for s in src], payload.device))
+        missing = [r for r, s in enumerate(src) if s is None]
+        if missing:
+            out[missing] = 0
+        return out
 
     def exchange(self, wire: torch.Tensor, plan,
                  on_class: Optional[Callable[[int], None]] = None) -> List[torch.Tensor]:
@@ -100,18 +154,8 @@ class LocalMeshTransport:
             out = self._uniform(wire, plan)
         elif sched == "ragged":
             out = self._ragged(wire, plan)
-        elif sched == "varlen":
-            raise NotImplementedError(
-                "the varlen schedule is not ported yet (ROADMAP Queue 1, compressed "
-                "wire and the varlen schedule)"
-            )
-        elif sched == "tiered":
-            raise NotImplementedError(
-                "the tiered schedule is not ported yet (ROADMAP Queue 1, hierarchy "
-                "and scale)"
-            )
         else:
-            raise ValueError(f"unknown wire schedule {sched!r}")
+            raise unported_schedule(sched)
         if on_class is not None:
             for g in range(len(out)):
                 on_class(g)

@@ -13,9 +13,13 @@ grid the 26 directions collapse into 7 displacement classes.  The whole
 layout (committed types, strategies, wire plan) is built once at
 :func:`make_halo_step` time (:class:`HaloPlan`).
 
-The state of all R ranks is one tensor ``(R, az, ay, ax)`` on one device
-(the local-mesh transport): every pack and unpack kernel launch serves
-all ranks at once, and the exchange fills the halo shells in place.
+On the local-mesh transport the state of all R ranks is one tensor
+``(R, az, ay, ax)`` on one device: every pack and unpack kernel launch
+serves all ranks at once, and the exchange fills the halo shells in
+place.  Under one process per rank
+(:class:`~repro_torch.comm.distributed.DistributedTransport`) each
+process holds its own rank's ``(1, az, ay, ax)`` block and builds the
+same global plan as every other rank.
 
 Switching the communicator policy between ``baseline`` and ``tempi``
 reproduces the paper's comparison with zero changes here.
@@ -177,8 +181,9 @@ def make_halo_plan(
     return HaloPlan(spec, send_cts, recv_cts, perms, strategies, wire)
 
 
-def _check_local(local: torch.Tensor, spec: HaloSpec) -> None:
-    want = (spec.nranks,) + spec.alloc
+def _check_local(local: torch.Tensor, spec: HaloSpec, comm: Communicator) -> None:
+    rows = comm.transport.local_ranks
+    want = (spec.nranks if rows is None else rows,) + spec.alloc
     if tuple(local.shape) != want:
         raise ValueError(f"local has shape {tuple(local.shape)}; need {want}")
     if local.element_size() != spec.element.width:
@@ -190,10 +195,11 @@ def _check_local(local: torch.Tensor, spec: HaloSpec) -> None:
 
 def ihalo_exchange(local: torch.Tensor, spec: HaloSpec, comm: Communicator,
                    types=None, plan: Optional[HaloPlan] = None) -> Request:
-    """Nonblocking 26-neighbor halo exchange of all ranks' blocks
-    (``local``: ``(R, az, ay, ax)``): the fused wire transport is issued
-    now; ``wait()`` runs the 26 unpacks in place."""
-    _check_local(local, spec)
+    """Nonblocking 26-neighbor halo exchange of the blocks ``local``
+    holds (``(R, az, ay, ax)`` on the local mesh, this rank's
+    ``(1, az, ay, ax)`` under one process per rank): the fused wire
+    transport is issued now; ``wait()`` runs the 26 unpacks in place."""
+    _check_local(local, spec, comm)
     if plan is None:
         plan = make_halo_plan(spec, comm, types)
     return comm.ineighbor_alltoallv(
@@ -212,15 +218,19 @@ def halo_exchange(local: torch.Tensor, spec: HaloSpec, comm: Communicator,
 def make_halo_step(spec: HaloSpec, comm: Optional[Communicator] = None, *,
                    device="cuda", schedule_policy: Optional[str] = None):
     """A plain callable ``step(local) -> local`` that exchanges the
-    halos of the ``(R, az, ay, ax)`` state in place.  The halo plan is
-    built here, once.  Runs on the card unless ``device="cpu"``; a
-    given ``comm`` must live on the same device."""
+    halos of the state in place (``(R, az, ay, ax)`` on the local mesh,
+    this rank's ``(1, az, ay, ax)`` under one process per rank).  The
+    halo plan is built here, once: the whole global plan, on every
+    process, and every rank must hold the same one (checked through the
+    transport).  Runs on the card unless ``device="cpu"``; a given
+    ``comm`` must live on the same device."""
     dev = resolve_device(device)
     if comm is None:
         comm = Communicator(device=dev)
     elif comm.device != dev:
         raise ValueError(f"communicator on {comm.device}; step asked for {dev}")
     plan = make_halo_plan(spec, comm, schedule_policy=schedule_policy)
+    comm.transport.agree("the halo plan", plan.wire.fingerprint)
 
     def step(local: torch.Tensor) -> torch.Tensor:
         return halo_exchange(local, spec, comm, plan=plan)
@@ -230,10 +240,17 @@ def make_halo_step(spec: HaloSpec, comm: Optional[Communicator] = None, *,
     return step
 
 
-def from_reference(local_np: np.ndarray, spec: HaloSpec, device="cuda") -> torch.Tensor:
-    """The ``(R, az, ay, ax)`` state tensor from the reference's layout
-    (``(R*az, ay, ax)``, sharded on the leading axis) or from an
-    ``(R, az, ay, ax)`` array, on ``device`` (the card by default)."""
+def from_reference(local_np: np.ndarray, spec: HaloSpec, device="cuda",
+                   rank: Optional[int] = None) -> torch.Tensor:
+    """The state tensor from the reference's layout (``(R*az, ay, ax)``,
+    sharded on the leading axis) or from an ``(R, az, ay, ax)`` array, on
+    ``device`` (the card by default): all ranks' ``(R, az, ay, ax)``, or
+    with ``rank`` that rank's ``(1, az, ay, ax)`` block, the state of
+    one process per rank."""
     dev = resolve_device(device)
-    arr = np.ascontiguousarray(local_np).reshape((spec.nranks,) + spec.alloc)
-    return torch.from_numpy(arr.copy()).to(dev)
+    arr = np.asarray(local_np).reshape((spec.nranks,) + spec.alloc)
+    if rank is not None:
+        if not 0 <= rank < spec.nranks:
+            raise ValueError(f"rank {rank} is not one of the grid's {spec.nranks}")
+        arr = arr[rank : rank + 1]
+    return torch.from_numpy(np.array(arr, copy=True)).to(dev)

@@ -22,8 +22,15 @@ the interior against the step-per-exchange loop.  Programs also fuse
 heterogeneous cycles (``ops=[op_a, op_b]``): one exchange at depth
 ``s * cycle_radii(ops)`` hosts ``s`` whole cycle passes.
 
-The state is the local mesh's ``(R, az, ay, ax)`` tensor; every step
-runs on the card unless the communicator lives on the CPU.
+The state is the local mesh's ``(R, az, ay, ax)`` tensor, or under one
+process per rank this rank's ``(1, az, ay, ax)`` block; every step runs
+on the card unless the communicator lives on the CPU.  Under one process
+per rank every process builds the program from the same tables, and
+:func:`build_halo_program` checks through the transport (one
+``all_gather`` of the program's key) that every rank holds the same
+depth and plan.  Each rank records the ``program/s=N`` decision in its
+own cache; only rank 0 writes the decisions file
+(``repro_torch.measure.production_communicator``'s ``save``).
 """
 
 from __future__ import annotations
@@ -344,6 +351,7 @@ def build_halo_program(
     if built is None:
         built = _price_candidate(comm, grid, interior, ops, steps, element, schedule_policy)
     spec, plan, estimate = built
+    comm.transport.agree("the halo program", f"{fp} s={steps} {plan.wire.fingerprint}")
     return HaloProgram(
         spec=spec, ops=ops, steps=steps, plan=plan, estimate=estimate,
         candidates=candidates, pinned=pinned,
@@ -352,7 +360,9 @@ def build_halo_program(
 
 def make_program_step(program: HaloProgram, comm, *, device="cuda", overlap=False):
     """A plain callable ``step(local) -> local`` running one program
-    iteration on the ``(R, az, ay, ax)`` state in place (``overlap``: a
+    iteration on the state in place (the local mesh's
+    ``(R, az, ay, ax)``, or this rank's ``(1, az, ay, ax)`` block under
+    one process per rank; ``overlap``: a
     bool or an overlap-mode string, see :meth:`HaloProgram.iteration`).
     ``comm`` is the communicator the program was built with; it must live
     on ``device`` (the card unless ``device="cpu"``)."""

@@ -22,8 +22,9 @@ application's rim regions (:func:`halo_regions`) as their delta classes
 land.  No cell of an application is computed twice.
 
 Every function takes the local block with any leading dimensions — the
-local mesh's ``(R, az, ay, ax)`` state updates all R ranks in one call —
-and updates it in place.  All window arithmetic goes through the shared
+local mesh's ``(R, az, ay, ax)`` state updates all R ranks in one call,
+one process per rank passes its ``(1, az, ay, ax)`` block — and updates
+it in place.  All window arithmetic goes through the shared
 :func:`repro_torch.kernels.ops.stencil_window_update` /
 :func:`~repro_torch.kernels.ops.stencil_window_chain` primitives, which
 accumulate in the reference's order, element by element, so a cell

@@ -43,11 +43,12 @@ def production_communicator(
     reduced: Optional[bool] = None,
     params: Optional[SystemParams] = None,
     ranks: int = RANKS,
-    device="cuda",
+    device=None,
     telemetry=None,
     tracer=None,
     halo_steps=None,
     topology=None,
+    transport=None,
 ) -> Tuple[Communicator, Callable[[], Path]]:
     """A :class:`Communicator` wired for production reuse.
 
@@ -62,7 +63,9 @@ def production_communicator(
         on the card and the reduced one on the CPU.
     params: explicit SystemParams (skips the store's tables).
     ranks: the local-mesh rank count the tables are measured for.
-    device: ``"cuda"`` (the default; raises without a card) or ``"cpu"``.
+    device: ``"cuda"`` (the default; raises without a card) or ``"cpu"``;
+        with a transport given, the transport's device (one that differs
+        raises).
     halo_steps: when given (``"auto"`` or an int), installs the
         process-wide deep-halo fusion-depth default
         (:func:`repro_torch.halo.program.set_default_halo_steps`) beside
@@ -71,8 +74,15 @@ def production_communicator(
         resolves its depth through it and records it in the same file.
     telemetry, tracer, topology: the reference's options of later
         roadmap items; passing one raises NotImplementedError.
+    transport: what moves the wire bytes (default: the local mesh on
+        ``device``).  Under one process per rank
+        (:class:`~repro_torch.comm.distributed.DistributedTransport`) the
+        device is the transport's, and every rank must load the same
+        tables: calibrate once beforehand, or pass ``params``.
 
-    Returns ``(comm, save)``: ``save()`` writes the decisions file.
+    Returns ``(comm, save)``: ``save()`` writes the decisions file; under
+    one process per rank only rank 0 writes it (the others return its
+    path).
     """
     for opt, value in (("telemetry", telemetry), ("tracer", tracer),
                        ("topology", topology)):
@@ -85,7 +95,12 @@ def production_communicator(
         from repro_torch.halo.program import set_default_halo_steps
 
         set_default_halo_steps(halo_steps)
-    dev = resolve_device(device)
+    if transport is None:
+        dev = resolve_device("cuda" if device is None else device)
+    else:
+        dev = transport.device
+        if device is not None and resolve_device(device) != dev:
+            raise ValueError(f"device {device!r} differs from the transport's {dev}")
     store = ParamsStore(cache_dir, ranks=ranks, device=dev)
     if params is None:
         if calibrate:
@@ -96,9 +111,11 @@ def production_communicator(
             params = store.load() or H100_ANALYTIC
     decisions_path = store.root / DECISIONS_FILENAME
     decisions = DecisionCache.load(decisions_path)
-    comm = Communicator(params=params, decisions=decisions, device=dev)
+    comm = Communicator(params=params, decisions=decisions, device=dev, transport=transport)
 
     def save() -> Path:
+        if comm.transport.rank != 0:
+            return decisions_path
         return decisions.save(decisions_path)
 
     return comm, save

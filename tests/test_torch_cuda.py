@@ -414,3 +414,69 @@ def test_stencil_update_on_the_card_equals_the_cpu_bit_for_bit(weight):
     want = stencil_window_update(arr, STENCIL26.offsets, weight, origin, shape)
     got = stencil_window_update(arr.to(dev), STENCIL26.offsets, weight, origin, shape)
     assert got.is_cuda and torch.equal(got.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# one process per rank: a world of one under NCCL on this card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def nccl_world(tmp_path_factory):
+    """A world-size-1 NCCL group in this process over a file store; all
+    26 neighbours of a (1, 1, 1) grid are the process itself."""
+    dev = _card()
+    from repro_torch.launch.procgroup import destroy_process_group, init_process_group
+
+    info = init_process_group("nccl", dev, rank=0, world_size=1,
+                              store_path=str(tmp_path_factory.mktemp("nccl") / "store"))
+    yield info
+    destroy_process_group()
+
+
+def _one_rank_state(spec, dev, seed=7):
+    start = np.random.default_rng(seed).normal(size=(1,) + spec.alloc).astype(np.float32)
+    return from_reference(start, spec, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("schedule", ["grouped", "uniform", "ragged"])
+def test_world_of_one_nccl_exchange_equals_the_local_mesh(nccl_world, schedule):
+    import dataclasses
+
+    from repro_torch.comm import DistributedTransport, reschedule
+
+    dev = nccl_world.device
+    spec = HaloSpec(grid=(1, 1, 1), interior=(16, 12, 10), radius=2)
+    got, want = _one_rank_state(spec, dev), _one_rank_state(spec, dev)
+    comms = (Communicator(transport=DistributedTransport(device=dev)), Communicator(device=dev))
+    for comm, x in zip(comms, (got, want)):
+        plan = make_halo_plan(spec, comm, schedule_policy="exact")
+        plan = dataclasses.replace(plan, wire=reschedule(plan.wire, schedule))
+        reset_launch_counts()
+        halo_exchange(x, spec, comm, plan=plan)
+        torch.cuda.synchronize()
+        assert sum(launch_counts().values()) > 0
+    assert torch.equal(got, want)
+    assert (comms[0].wire_ops, comms[0].wire_payload_bytes) == (
+        comms[1].wire_ops, comms[1].wire_payload_bytes)
+
+
+@pytest.mark.cuda
+def test_nccl_unpack_right_after_wait_any_sees_the_payload(nccl_world):
+    """The class's event follows the side stream's wait on the NCCL op:
+    an unpack enqueued right after ``wait_any()`` reads the landed bytes."""
+    from repro_torch.comm import DistributedTransport
+
+    dev = nccl_world.device
+    spec = HaloSpec(grid=(1, 1, 1), interior=(128, 128, 128), radius=2)
+    want = _one_rank_state(spec, dev)
+    halo_exchange(want, spec, Communicator(device=dev))
+    comm = Communicator(transport=DistributedTransport(device=dev))
+    plan = make_halo_plan(spec, comm)
+    for _ in range(3):
+        x = _one_rank_state(spec, dev)
+        req = ihalo_exchange(x, spec, comm, plan=plan)
+        assert all(c.event is not None for c in req.classes)
+        while req.pending:
+            req.wait_any()
+        assert torch.equal(req.buffer.clone(), want)

@@ -2,7 +2,8 @@
 
 * In a fresh interpreter, importing every module of ``repro_torch``
   pulls in neither ``jax`` nor any module of the reference package
-  ``repro``, and builds or loads no kernel.
+  ``repro``, builds or loads no kernel, and starts no process group
+  (``repro_torch.launch`` included).
 * Every entry point runs on the card unless the caller passes
   ``device="cpu"``: without a card it raises instead of quietly running
   on the host.
@@ -33,12 +34,16 @@ names = ["repro_torch"] + [
 for name in names:
     importlib.import_module(name)
 from repro_torch.kernels import build
+import torch.distributed as dist
 assert not build._LIBS, "a kernel library was loaded at import time"
+assert not dist.is_initialized(), "a process group was started at import time"
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib")) or m == "repro"
              or m.startswith("repro."))
 print("MODULES", len(names))
 print("HALO", sorted(m for m in names if m.startswith("repro_torch.halo.")))
+print("LAUNCH", sorted(m for m in names if m.startswith(("repro_torch.launch.",
+                                                         "repro_torch.comm.d"))))
 print("FORBIDDEN", bad)
 """
 
@@ -54,6 +59,9 @@ def test_no_module_imports_jax_or_the_reference():
     assert int(lines["MODULES"]) >= 20
     assert lines["HALO"] == str(["repro_torch.halo.exchange", "repro_torch.halo.program",
                                  "repro_torch.halo.stencil"])
+    assert lines["LAUNCH"] == str(["repro_torch.comm.distributed",
+                                   "repro_torch.launch.procgroup",
+                                   "repro_torch.launch.stencil3d"])
     assert lines["FORBIDDEN"] == "[]"
 
 
