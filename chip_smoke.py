@@ -70,7 +70,24 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            and read after each NCCL run; every kernel must have run); ms
            per exchange and per s = 2 iteration under NCCL and the local
            mesh; the group is torn down before the next phase;
-7. timing  CUDA-event times of each kernel (L2 flushed before every
+7. compress the compressed wire at full width (launch counts zeroed before,
+           read after; every kernel must run): ``rlewire`` at capacity on
+           the 8-rank grid under ``uniform``, ``grouped`` and ``ragged``,
+           on a seeded normal field (every region stored) and on a point
+           source (regions rle), each ``torch.equal`` to ``tempi`` and the
+           periodic field; ``int8wire`` (interior bit-exact, every halo
+           value within its block's ``max|block| / 254``, 811,296 wire
+           bytes a rank) and one lossy iteration beside the plain one; a
+           27-rank 3x3x3 grid of 256^3 blocks with a point source in the
+           centre rank, planned with a probe of that rank's block, on the
+           ``varlen`` schedule, ``torch.equal`` to the capacity run,
+           ``tempi`` and the periodic field, its stream bytes a rank below
+           the 3,195,136-byte packed extent; ms per exchange and the
+           codecs' encode and decode per exchange (CUDA events).  The
+           dist phase runs a probed one-transfer ``varlen`` exchange
+           through NCCL too, and the measure phase prints the compress
+           sweep's rows;
+8. timing  CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
            (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
            counts the block bytes read and written, ``bound_sectors_ms``
@@ -90,8 +107,9 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            application.
 
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
-``{"dist": ...}`` line, one JSON line ``{"kernels": [...]}``
-(``launches``: the main path's loop plus the program and dist phases),
+``{"dist": ...}`` line, a ``{"compress": ...}`` line, one JSON line
+``{"kernels": [...]}`` (``launches``: the main path's loop plus the
+program, dist and compress phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -122,6 +140,10 @@ PROGRAM_REPS = 5           # timed [program] iterations a variant and round
 PROGRAM_DEPTHS = (1, 2, 3)  # the deep-halo programs' s, and their halo radii
 DIST_REPS = 5              # timed [dist] calls a reading
 DIST_ROUNDS = 2            # [dist] rounds of NCCL, local, local, NCCL readings
+BALL_RADIUS = 24           # the [compress] point source: a ball this many cells wide,
+BALL_INSET = 8             # centred this many cells inside its block's +x face
+VARLEN_RANK = 13           # the centre rank of the 3x3x3 grid, which the probe reads
+INT8_ULPS = 2.0 ** -14     # float32 rounding of an int8 value against its bound
 
 
 def fail(msg: str) -> None:
@@ -444,14 +466,16 @@ def sweep_check(torch, dev, ranks, check, gen):
           f"{xla.calibration_cap} blocks")
 
 
-def global_layout(torch, spec, dev):
-    """The seeded global field, every rank's block with poisoned halos,
-    and every cell as the periodic field has it (the exchange oracle)."""
+def global_layout(torch, spec, dev, g=None):
+    """The global field (seeded normal values unless ``g`` is given),
+    every rank's block with poisoned halos, and every cell as the
+    periodic field has it (the exchange oracle)."""
     r = spec.radius
     n = spec.interior
     g_shape = tuple(p * k for p, k in zip(spec.grid, n))
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    g = torch.randn(g_shape, generator=gen, device=dev, dtype=torch.float32)
+    if g is None:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        g = torch.randn(g_shape, generator=gen, device=dev, dtype=torch.float32)
     start = torch.full((spec.nranks,) + spec.alloc, SENTINEL, device=dev)
     want = torch.empty_like(start)
     for rank in range(spec.nranks):
@@ -635,6 +659,9 @@ def phase_measure(torch, dev, spec, card):
                   for k, v in tables.items()},
         )
         out["rows"].update(wire=len(params.wire_table), copy=len(params.copy_table))
+        if set(params.compress_table or ()) != {"rlewire", "int8wire"}:
+            fail(f"no compress sweep for both codecs: {params.compress_table}")
+        out["compress_table"] = params.compress_table
         print(json.dumps({"measure_params": json.loads(params.to_json()), "card": card}))
 
         # the picks, measured against analytic and the checked-in table
@@ -752,6 +779,11 @@ def phase_measure(torch, dev, spec, card):
           f"checked-in {out['schedule_checked_in']}, recalibrated "
           f"{[r['schedule'] for r in out['recalibrations']]}; "
           f"measured pick fastest in {hits}/{len(per_type)} send types (analytic {hits_analytic})")
+    for name, rows in out["compress_table"].items():
+        print(f"[measure] compress sweep {name} (log2 bytes a rank, encode us, decode us, "
+              f"ratio; 8 ranks a call): "
+              + ", ".join(f"({r[0]:.0f}, {r[1] * 1e6:.1f}, {r[2] * 1e6:.1f}, {r[3]:.4f})"
+                          for r in rows))
     print(json.dumps({"measure": out}))
     return out, params
 
@@ -1074,8 +1106,11 @@ def phase_dist(torch, dev, card):
     the same run through the local mesh at R = 1 on this card, with equal
     wire op and byte counts: the exchange under ``grouped``, ``uniform``
     and ``ragged``; the s = 2 program plain, ``monolithic`` and
-    ``region`` (the local mesh runs the NCCL program's plan); one
-    ``sendrecv`` of the x-face type.  Launch counts are zeroed before and
+    ``region`` (the local mesh runs the NCCL program's plan); the +x face
+    region of a point source sent to itself by ``rlewire``, planned with a
+    probe of the block and run on the ``varlen`` schedule (the stream prefix as the
+    split size of one ``all_to_all_single``); one ``sendrecv`` of the
+    x-face type.  Launch counts are zeroed before and
     read after each NCCL run (the local-mesh runs are not counted); every
     kernel must have run.  Times: host clock, synchronized, median of
     ``DIST_REPS`` calls a reading, NCCL and the local mesh in turns.  The
@@ -1083,7 +1118,7 @@ def phase_dist(torch, dev, card):
     import dataclasses
     import tempfile
 
-    from repro_torch.comm import Communicator, DistributedTransport, reschedule
+    from repro_torch.comm import Communicator, DistributedTransport, FixedPolicy, reschedule
     from repro_torch.halo import (HaloSpec, build_halo_program, halo_exchange,
                                   make_halo_plan, make_halo_types)
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1174,6 +1209,37 @@ def phase_dist(torch, dev, card):
                 out["program"][mode] = row
                 del xd, xl
 
+            # the +x face region of a point source to itself, probed, varlen
+            _, pstart, _ = global_layout(torch, spec, dev, point_field(torch, spec, dev, 0))
+            rle = FixedPolicy("rlewire")
+            cd = Communicator(transport=DistributedTransport(device=info.device), policy=rle)
+            cl = Communicator(device=dev, policy=rle)
+            xd, xl = pstart.clone(), pstart.clone()
+            del pstart
+            plans = {}
+            for c, x in ((cd, xd), (cl, xl)):
+                send_ct, recv_ct = make_halo_types(spec, c)[(0, 0, 1)]
+                strats, wire = c.plan_neighbor([send_ct], [[(0, 0)]], probe=x[0])
+                if not wire.stream_bytes:
+                    fail("[dist] varlen: the probe annotated no stream length")
+                plans[c] = (send_ct, recv_ct, strats, reschedule(wire, "varlen"), wire.schedule)
+
+            def varlen(c, x):
+                send_ct, recv_ct, strats, wire, _ = plans[c]
+                c.neighbor_alltoallv(x, [send_ct], [recv_ct], [[(0, 0)]], plan=wire,
+                                     strategies=strats)
+
+            counted(lambda: varlen(cd, xd))
+            varlen(cl, xl)
+            torch.cuda.synchronize()
+            row = same("varlen", xd, xl, cd, cl)
+            _, _, strats, wire, picked = plans[cd]
+            row.update(model_schedule=picked, strategy=strats[0].name,
+                       stream_bytes=wire.stream_bytes[0], capacity_bytes=wire.wire_bytes)
+            row.update(in_turns(lambda: varlen(cd, xd), lambda: varlen(cl, xl)))
+            out["varlen"] = row
+            del xd, xl
+
             cd, cl = nccl(), Communicator(device=dev)
             send_ct, recv_ct = make_halo_types(spec, cd)[(0, 0, 1)]
             xd, xl = start.clone(), start.clone()
@@ -1204,9 +1270,298 @@ def phase_dist(torch, dev, card):
                       for k, r in ex.items())
           + "; s=2 iteration " + ", ".join(f"{k} {span(r['ms_nccl'])} (local mesh "
                                            f"{span(r['ms_local'])})" for k, r in pr.items())
+          + f"; varlen +x face ({out['varlen']['strategy']}, model "
+          f"{out['varlen']['model_schedule']}, {out['varlen']['stream_bytes']} of "
+          f"{out['varlen']['capacity_bytes']} bytes) {span(out['varlen']['ms_nccl'])} (local mesh "
+          f"{span(out['varlen']['ms_local'])})"
           + f"; all torch.equal to the local mesh at R=1, counts equal; launches {counts}; "
           f"{card}")
     print(json.dumps({"dist": out}))
+    return counts
+
+
+def point_field(torch, spec, dev, rank, radius=BALL_RADIUS, inset=BALL_INSET):
+    """A global field that is zero but for a ball of seeded normal values
+    inside ``rank``'s block: radius ``radius`` cells, centred ``inset``
+    cells inside the block's +x face and cut off at the block, so that
+    ``rank``'s +x send region carries a disc and every other region of
+    every rank is zero."""
+    n = spec.interior
+    g = torch.zeros(tuple(p * k for p, k in zip(spec.grid, n)), device=dev)
+    lo = [c * k for c, k in zip(spec.coords(rank), n)]
+    z, y, x = (torch.arange(k, device=dev) for k in n)
+    d2 = ((z[:, None, None] - n[0] // 2) ** 2 + (y[None, :, None] - n[1] // 2) ** 2
+          + (x[None, None, :] - (n[2] - inset)) ** 2)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    vals = torch.randn(n, generator=gen, device=dev)
+    g[lo[0]:lo[0] + n[0], lo[1]:lo[1] + n[1], lo[2]:lo[2] + n[2]] = torch.where(
+        d2 <= radius * radius, vals, 0.0)
+    return g
+
+
+def region_members(torch, state, cts):
+    """Each type's member bytes out of every rank of ``state``, gathered
+    by the plain path (no kernel launch)."""
+    from repro_torch.kernels import ops
+
+    return [ops.pack(state, ct, 1, "ref", batched=True) for ct in cts]
+
+
+def codec_ms(torch, timer, codec, members):
+    """CUDA-event ms of one exchange's encodes (every region's member
+    bytes, all ranks) and of its decodes, L2 flushed first: median of 5."""
+    wires = [codec.encode_wire(m) for m in members]
+    if codec.name == "rlewire":  # lossless
+        for m, w in zip(members, wires):
+            if not torch.equal(codec.decode_wire(w, m.shape[1]), m):
+                fail("rlewire: a region does not decode to its member bytes")
+    enc = timer.ms(lambda: [codec.encode_wire(m) for m in members], reps=5)
+    dec = timer.ms(lambda: [codec.decode_wire(w, m.shape[1]) for m, w in zip(members, wires)],
+                   reps=5)
+    return {"encode_ms": enc, "decode_ms": dec}
+
+
+def int8_bound(torch, want, recv_cts):
+    """Per received float, ``max|block| / 254`` of its quantization block:
+    each receive region's true values (``want``) in packed order, in
+    blocks of 256, the bound laid back into the region (plain path).  The
+    float32 rounding of the scale, the quotient and the product adds at
+    most 509 units of 2^-24 of it (``INT8_ULPS``)."""
+    from repro_torch.kernels import ops
+
+    bound = torch.zeros_like(want)
+    for ct in recv_cts:
+        member = ops.pack(want, ct, 1, "ref", batched=True).view(torch.float32)
+        nf = member.shape[1]
+        blocks = torch.nn.functional.pad(member.abs(), (0, -nf % 256))
+        per = blocks.view(member.shape[0], -1, 256).amax(2) / 254
+        b = per[:, :, None].expand(-1, -1, 256).reshape(member.shape[0], -1)[:, :nf]
+        ops.unpack(bound, (b * (1 + INT8_ULPS)).contiguous().view(torch.uint8), ct, 1, "ref",
+                   batched=True)
+    return bound
+
+
+def phase_compress(torch, dev, spec, card):
+    """The compressed wire at full width.  Launch counts are zeroed before
+    and read after each run through a codec alone (``FixedPolicy``
+    ``rlewire`` or ``int8wire``: the 8-rank exchanges, the 27-rank probe,
+    ``varlen`` and capacity exchanges); the ``tempi`` exchanges, the
+    model's probed mix of codec and kernel regions, the timed repeats and
+    the plain-path oracles are not counted.  Every kernel must have run
+    in the counted runs.
+
+    * 8 ranks (``spec``, the paper's 2x2x2 grid): ``rlewire`` at capacity
+      (``FixedPolicy``, planned ``exact``) under ``uniform``, ``grouped``
+      and ``ragged``, on the seeded normal field (every region ships
+      stored) and on a point source in rank 0 (regions ship rle), each
+      ``torch.equal`` to the ``tempi`` exchange and to the periodic
+      field; ``int8wire`` on the normal field: the interior bit-exact,
+      every halo value within its block's ``max|block| / 254``, and one
+      lossy iteration (exchange + 2 applications) timed beside the plain
+      one.
+    * 27 ranks on a 3x3x3 grid of 256^3 blocks, a point source in the
+      centre rank (13), planned by ``plan_neighbor(probe=rank 13's
+      block)`` under ``tempi`` and under ``FixedPolicy("rlewire")``: the
+      model's schedule pick, then the ``varlen`` exchange ``torch.equal``
+      to the capacity (``grouped``) exchange, to ``tempi`` and to the
+      periodic field, with its stream bytes per rank against the
+      capacity and the packed extent.
+    ms per exchange on the host clock (median of 5, synchronized each);
+    the codecs' encode and decode per exchange in CUDA events."""
+    import dataclasses
+
+    from repro_torch.comm import INT8_WIRE, RLE_WIRE, Communicator, FixedPolicy, reschedule
+    from repro_torch.halo import (DIRECTIONS, HaloPlan, HaloSpec, halo_exchange, make_halo_plan,
+                                  make_halo_types, stencil_iterations)
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    timer = Timer(torch, dev)
+    out = {"card": card, "capacity": {}, "varlen": {}}
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        got = fn()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] += v
+        return got
+
+    # 8 ranks, capacity wires
+    for field in ("normal", "point"):
+        g = None if field == "normal" else point_field(torch, spec, dev, 0)
+        _, start, want = global_layout(torch, spec, dev, g)
+        del g
+        tempi = Communicator(device=dev)
+        tplan = make_halo_plan(spec, tempi)
+        ref = start.clone()
+        halo_exchange(ref, spec, tempi, plan=tplan)
+        if not torch.equal(ref, want):
+            fail(f"[compress] {field}: the tempi exchange differs from the periodic field")
+        row = {"tempi_ms": wall_ms(torch, lambda: halo_exchange(ref, spec, tempi, plan=tplan),
+                                   5)}
+        comm = Communicator(policy=FixedPolicy("rlewire"), device=dev)
+        plan = make_halo_plan(spec, comm, schedule_policy="exact")
+        members = region_members(torch, start, plan.send_cts)
+        modes = [RLE_WIRE.encode_wire(m)[:, 0].tolist() for m in members]
+        row["stored_regions"] = sum(v.count(0) for v in modes)
+        row["rle_regions"] = sum(v.count(1) for v in modes)
+        if field == "normal" and row["rle_regions"]:
+            fail(f"[compress] normal field: {row['rle_regions']} regions ship rle, want none")
+        if field == "point" and row["rle_regions"] <= row["stored_regions"]:
+            fail(f"[compress] point source: {row['rle_regions']} regions ship rle of "
+                 f"{row['rle_regions'] + row['stored_regions']}")
+        row["wire_bytes"] = plan.wire_bytes
+        for sched in ("uniform", "grouped", "ragged"):
+            p = dataclasses.replace(plan, wire=reschedule(plan.wire, sched))
+            local = start.clone()
+            counted(lambda: halo_exchange(local, spec, comm, plan=p))
+            if not (torch.equal(local, ref) and torch.equal(local, want)):
+                fail(f"[compress] rlewire {sched} on the {field} field differs from tempi or "
+                     f"the periodic field")
+            row[f"rlewire_{sched}_ms"] = wall_ms(
+                torch, lambda: halo_exchange(local, spec, comm, plan=p), 5)
+            del local
+        row.update(codec_ms(torch, timer, RLE_WIRE, members))
+        del members
+        if field == "normal":
+            i8 = Communicator(policy=FixedPolicy("int8wire"), device=dev)
+            iplan = make_halo_plan(spec, i8, schedule_policy="exact")
+            # one int8 a float and one float32 scale a block of 256 floats
+            i8_bytes = tplan.wire_bytes // 4 + 4 * sum(-(-ct.size // 1024)
+                                                       for ct in iplan.send_cts)
+            if iplan.wire_bytes != i8_bytes:
+                fail(f"[compress] int8wire plans {iplan.wire_bytes} wire bytes a rank, "
+                     f"want {i8_bytes}")
+            local = start.clone()
+            counted(lambda: halo_exchange(local, spec, i8, plan=iplan))
+            if i8.wire_payload_bytes != iplan.wire_bytes:
+                fail(f"[compress] int8wire moved {i8.wire_payload_bytes} bytes a rank")
+            if not torch.equal(interior_of(spec, local), interior_of(spec, start)):
+                fail("[compress] int8wire changed an interior cell")
+            err = (local - want).abs()
+            if not bool((err <= int8_bound(torch, want, iplan.recv_cts)).all()):
+                fail("[compress] int8wire: a halo value is outside its block's bound")
+            i8row = {"wire_bytes": iplan.wire_bytes, "packed_bytes": tplan.wire_bytes,
+                     "max_abs_err": err.max().item(),
+                     "exchange_ms": wall_ms(torch, lambda: halo_exchange(local, spec, i8,
+                                                                         plan=iplan), 5)}
+            i8row.update(codec_ms(torch, timer, INT8_WIRE,
+                                  region_members(torch, start, iplan.send_cts)))
+            lossy, plain = start.clone(), start.clone()
+
+            def lossy_it():
+                halo_exchange(lossy, spec, i8, plan=iplan)
+                stencil_iterations(lossy, spec, steps=2)
+
+            def plain_it():
+                halo_exchange(plain, spec, tempi, plan=tplan)
+                stencil_iterations(plain, spec, steps=2)
+
+            lossy_it()
+            plain_it()
+            torch.cuda.synchronize()
+            i8row["iteration_max_abs_diff"] = (interior_of(spec, lossy)
+                                               - interior_of(spec, plain)).abs().max().item()
+            i8row["iteration_ms"] = wall_ms(torch, lossy_it, 5)
+            i8row["plain_iteration_ms"] = wall_ms(torch, plain_it, 5)
+            out["int8wire"] = i8row
+            del local, lossy, plain, err
+        out["capacity"][field] = row
+        del start, want, ref
+        torch.cuda.empty_cache()
+
+    # 27 ranks, probed on the centre rank, on the varlen schedule
+    spec27 = HaloSpec(grid=(3, 3, 3), interior=spec.interior, radius=spec.radius)
+    g = point_field(torch, spec27, dev, VARLEN_RANK)
+    _, start, want = global_layout(torch, spec27, dev, g)
+    del g
+    tempi = Communicator(device=dev)
+    tplan = make_halo_plan(spec27, tempi)
+    packed = sum(ct.size for ct in tplan.send_cts)
+    ref = start.clone()
+    halo_exchange(ref, spec27, tempi, plan=tplan)
+    if not torch.equal(ref, want):
+        fail("[compress] 27 ranks: the tempi exchange differs from the periodic field")
+    out["varlen_tempi_ms"] = wall_ms(torch, lambda: halo_exchange(ref, spec27, tempi,
+                                                                   plan=tplan), 5)
+    out["packed_bytes"] = packed
+    for policy in ("tempi", "rlewire"):
+        comm = Communicator(device=dev, **({} if policy == "tempi"
+                                           else {"policy": FixedPolicy(policy)}))
+        count = counted if policy == "rlewire" else (lambda fn: fn())
+        types = make_halo_types(spec27, comm)
+        send = tuple(types[d][0] for d in DIRECTIONS)
+        recv = tuple(types[d][1] for d in DIRECTIONS)
+        perms = tuple(tuple(spec27.perm(d)) for d in DIRECTIONS)
+        t0 = time.perf_counter()
+        strats, wire = count(lambda: comm.plan_neighbor(send, perms, probe=start[VARLEN_RANK]))
+        row = {"plan_s": time.perf_counter() - t0, "model_schedule": wire.schedule,
+               "priced": comm.model.price_wire_schedules(wire),
+               "picks": {n: [s.name for s in strats].count(n)
+                         for n in sorted({s.name for s in strats})}}
+        if not wire.stream_bytes:
+            fail(f"[compress] {policy}: the probe annotated no stream lengths")
+        if wire.schedule != "varlen":
+            print(f"[compress] {policy}: the model picks {wire.schedule}, not varlen; "
+                  f"running reschedule(plan, 'varlen')")
+        plan = HaloPlan(spec27, send, recv, perms, strats, reschedule(wire, "varlen"))
+        cap = dataclasses.replace(plan, wire=reschedule(wire, "grouped"))
+        stream = sum(wire.stream_bytes)
+        row.update(stream_bytes=stream, capacity_bytes=wire.wire_bytes,
+                   ratio=wire.stream_ratio, stream_over_packed=stream / packed)
+        if stream >= packed:
+            fail(f"[compress] {policy}: {stream} stream bytes a rank, not below the packed "
+                 f"extent {packed}")
+        local = start.clone()
+        before = comm.wire_payload_bytes
+        count(lambda: halo_exchange(local, spec27, comm, plan=plan))
+        if comm.wire_payload_bytes - before != stream:
+            fail(f"[compress] {policy}: varlen moved {comm.wire_payload_bytes - before} bytes "
+                 f"a rank, its streams hold {stream}")
+        capx = start.clone()
+        count(lambda: halo_exchange(capx, spec27, comm, plan=cap))
+        if not (torch.equal(local, capx) and torch.equal(local, ref)
+                and torch.equal(local, want)):
+            fail(f"[compress] {policy}: the varlen exchange differs from the capacity run, "
+                 f"tempi or the periodic field")
+        del capx
+        row["varlen_ms"] = wall_ms(torch, lambda: halo_exchange(local, spec27, comm,
+                                                                plan=plan), 5)
+        row["capacity_ms"] = wall_ms(torch, lambda: halo_exchange(local, spec27, comm,
+                                                                  plan=cap), 5)
+        rle = [ct for s, ct in zip(strats, send) if s.name == "rlewire"]
+        row.update(codec_ms(torch, timer, RLE_WIRE, region_members(torch, start, rle)))
+        row["compress_counters"] = [comm.compress_exchanges, comm.compress_capacity_bytes,
+                                    comm.compress_stream_bytes]
+        out["varlen"][policy] = row
+        del local
+    del start, want, ref, timer
+    torch.cuda.empty_cache()
+    zero = [k for k, v in counts.items() if v == 0]
+    if zero:
+        fail(f"kernels never launched through a codec's exchange: {zero}")
+    out["launches"] = counts
+    out["phase_s"] = time.perf_counter() - t_phase
+    cap, v = out["capacity"], out["varlen"]
+    print(f"[compress] 8 ranks rlewire at capacity, ms/exchange: "
+          + "; ".join(f"{f} field ({r['stored_regions']} stored, {r['rle_regions']} rle "
+                      f"regions) uniform {r['rlewire_uniform_ms']:.3f}, grouped "
+                      f"{r['rlewire_grouped_ms']:.3f}, ragged {r['rlewire_ragged_ms']:.3f} "
+                      f"against tempi {r['tempi_ms']:.3f}, codec {r['encode_ms']:.3f} + "
+                      f"{r['decode_ms']:.3f}" for f, r in cap.items())
+          + f"; int8wire {out['int8wire']['wire_bytes']} wire bytes a rank, "
+          f"{out['int8wire']['exchange_ms']:.3f} ms, iteration "
+          f"{out['int8wire']['iteration_ms']:.3f} against {out['int8wire']['plain_iteration_ms']:.3f}"
+          f"; 27 ranks varlen: " + "; ".join(
+              f"{p} (model {r['model_schedule']}) {r['stream_bytes']} of {packed} packed bytes "
+              f"a rank, {r['varlen_ms']:.3f} ms against capacity {r['capacity_ms']:.3f} and "
+              f"tempi {out['varlen_tempi_ms']:.3f}" for p, r in v.items())
+          + f"; all torch.equal; launches through the codecs {counts}; phase "
+          f"{out['phase_s']:.1f} s; {card}")
+    print(json.dumps({"compress": out}))
     return counts
 
 
@@ -1457,6 +1812,7 @@ def main() -> int:
     measure, measured = phase_measure(torch, dev, spec, card)
     program = phase_program(torch, dev, spec, card, measured)
     dist = phase_dist(torch, dev, card)
+    compress = phase_compress(torch, dev, spec, card)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -1464,10 +1820,10 @@ def main() -> int:
         mine = [f for f in faces if f["kernel"] == kernel]
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kernel] + program[kernel] + dist[kernel],
+            "launches": counts[kernel] + program[kernel] + dist[kernel] + compress[kernel],
             "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
-            "launches_dist": dist[kernel],
+            "launches_dist": dist[kernel], "launches_compress": compress[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

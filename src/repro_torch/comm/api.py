@@ -54,8 +54,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as refk
 from repro_torch.kernels.geometry import PackGeometry, plan_geometry
-from repro_torch.kernels.pack import pack_dma, pack_ragged, pack_rows
-from repro_torch.kernels.unpack import unpack_dma, unpack_ragged, unpack_rows
+from repro_torch.kernels.pack import pack_compress_ragged, pack_dma, pack_rows
+from repro_torch.kernels.unpack import decode_unpack_ragged, unpack_dma, unpack_rows
 
 __all__ = [
     "Strategy",
@@ -114,6 +114,10 @@ class Strategy:
     wire_only: bool = False
     #: participates in automatic PerfModel selection
     selectable: bool = True
+    #: the wire format is length-aware: the live payload is a prefix of
+    #: the capacity wire, cut at :meth:`probe_stream_bytes`; the
+    #: ``varlen`` schedule forms only over such strategies
+    supports_varlen: bool = False
     #: calibration sweep cap on block count (None = unbounded); the
     #: measured tables never answer for more blocks than this
     calibration_cap: Optional[int] = None
@@ -144,6 +148,12 @@ class Strategy:
 
     def wire_bytes(self, ct: CommittedType, incount: int = 1) -> int:
         return ct.packed_extent(incount)
+
+    def probe_stream_bytes(self, ct: CommittedType, incount: int, buf) -> int:
+        """Wire bytes a concrete payload (one rank's buffer ``buf``)
+        needs.  The default format is not length-aware, so this is the
+        capacity; ``supports_varlen`` strategies measure the stream."""
+        return self.wire_bytes(ct, incount)
 
     def wire_segment(
         self, ct: CommittedType, incount: int = 1, offset: int = 0
@@ -771,6 +781,11 @@ class Communicator:
         self.wire_class_ops: Dict[str, int] = {}
         self.wire_class_bytes: Dict[str, int] = {}
         self.wire_class_drains: Dict[str, int] = {}
+        # varlen exchanges: their count, the capacity bytes each rank's
+        # plan holds and the stream bytes it moved
+        self.compress_exchanges = 0
+        self.compress_capacity_bytes = 0
+        self.compress_stream_bytes = 0
         self._side: Optional["torch.cuda.Stream"] = None
 
     def _side_stream(self) -> "torch.cuda.Stream":
@@ -857,6 +872,7 @@ class Communicator:
         strategies: Optional[Sequence[Strategy]] = None,
         uniform_waste_tolerance: float = 0.0,
         schedule_policy: Optional[str] = None,
+        probe: Optional[torch.Tensor] = None,
     ) -> Tuple[Tuple[Strategy, ...], WirePlan]:
         """Select a strategy per transfer and lay the exchange out as an
         exact-byte :class:`WirePlan`.  Call once at setup time and hand
@@ -867,7 +883,17 @@ class Communicator:
         byte-exact ladder.  Whether a native ragged collective exists is
         the transport's answer (``transport.native_ragged``).  The plan is
         priced and, with a decision cache, recorded with the prices of
-        the schedules the model rejected."""
+        the schedules the model rejected.
+
+        ``probe`` (one rank's buffer, concrete) turns on length-aware
+        planning: under model selection a ``supports_varlen`` compressor
+        is priced at the probe's stream length; the plan carries per-class
+        ``stream_bytes`` (single-transfer classes only: a cut
+        multi-transfer class would lose its later segments) when they sum
+        below the capacity, and the model-priced schedule may then be
+        ``varlen``.  Every rank's payload must fit the probe's streams:
+        the ``varlen`` schedule cuts each class at its stream length.
+        Probing reads a number back from the device per probed type."""
         if schedule_policy is None:
             schedule_policy = DEFAULT_SCHEDULE_POLICY
         if schedule_policy not in ("exact", "model"):
@@ -877,6 +903,15 @@ class Communicator:
             )
         if strategies is not None:
             strats = tuple(strategies)
+        elif probe is not None and isinstance(self.policy, ModelPolicy):
+            # probed selection: varlen-capable compressors are priced at
+            # the payload's stream length
+            strats = tuple(
+                self.strategies.get(self.model.select(
+                    ct, 1, allow_bounding=True, registry=self.strategies, probe=probe,
+                ).strategy)
+                for ct in send_cts
+            )
         else:
             strats = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
         segs = [s.wire_segment(ct) for s, ct in zip(strats, send_cts)]
@@ -888,6 +923,18 @@ class Communicator:
             uniform_waste_tolerance=uniform_waste_tolerance,
             native=native,
         )
+        if probe is not None and any(s.supports_varlen for s in strats):
+            # stream lengths attach after planning, so plan_wire stays
+            # payload-independent; only single-transfer classes may be cut
+            per_transfer = [s.probe_stream_bytes(ct, 1, probe)
+                            for s, ct in zip(strats, send_cts)]
+            per_group = tuple(
+                min(per_transfer[grp.transfers[0]], grp.nbytes)
+                if len(grp.transfers) == 1 else grp.nbytes
+                for grp in plan.groups
+            )
+            if sum(per_group) < plan.wire_bytes:
+                plan = plan.with_stream_bytes(per_group)
         note = ""
         if schedule_policy == "model":
             plan, costs = self.model.choose_wire_schedule(plan, native)
@@ -942,10 +989,16 @@ class Communicator:
             )
 
         def leaf_packer(strat: Strategy, ct: CommittedType):
-            return lambda b, out: strat.pack(b, ct, out=out, batched=True)
+            # a compressor's member bytes are gathered by the static
+            # choice's kernels and encoded into the slot; every other
+            # strategy packs its wire format straight into the slot
+            enc = getattr(strat, "encode_wire", None)
+            if enc is not None:
+                return (lambda b, out: ops.pack(b, ct, batched=True)), enc
+            return (lambda b, out: strat.pack(b, ct, out=out, batched=True)), None
 
         leaves = [(plan.segments[i].offset, plan.segments[i].nbytes,
-                   leaf_packer(strategies[i], send_cts[i])) for i in range(n)]
+                   *leaf_packer(strategies[i], send_cts[i])) for i in range(n)]
         events: List[Optional[torch.cuda.Event]] = [None] * plan.ngroups
         on_class = None
         if buf.is_cuda:
@@ -960,28 +1013,46 @@ class Communicator:
                 events[g].record(side)
 
         with torch.cuda.stream(side) if buf.is_cuda else contextlib.nullcontext():
-            wire = pack_ragged(buf, leaves, plan.wire_bytes)
+            wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
             group_rows = self.transport.exchange(wire, plan, on_class)
+        varlen = plan.schedule == "varlen"
+        if varlen:
+            self.compress_exchanges += 1
+            self.compress_capacity_bytes += plan.wire_bytes
+            self.compress_stream_bytes += plan.effective_wire_bytes
+        sizes = plan.stream_bytes if varlen else tuple(g.nbytes for g in plan.groups)
         fp = plan.fingerprint
-        for g, grp in enumerate(plan.groups):
+        for g, nbytes in enumerate(sizes):
             key = f"{fp}/c{g}"
             self.wire_class_ops[key] = self.wire_class_ops.get(key, 0) + 1
-            self.wire_class_bytes[key] = self.wire_class_bytes.get(key, 0) + grp.nbytes
+            self.wire_class_bytes[key] = self.wire_class_bytes.get(key, 0) + nbytes
+
+        def leaf_decoder(strat, recv_ct):
+            dec = getattr(strat, "decode_wire", None)
+            return None if dec is None else (lambda part: dec(part, recv_ct.size))
 
         def leaf_unpacker(strat, recv_ct, send_ct):
+            # a compressor's leaf receives decoded member bytes and only
+            # scatters them; otherwise unpack_wire takes the wire bytes
+            if getattr(strat, "decode_wire", None) is not None:
+                return lambda dst, member: self.select(recv_ct, 1, wire=False).unpack(
+                    dst, member, recv_ct, 1, batched=True)
             return lambda dst, part: strat.unpack_wire(self, dst, part, recv_ct, send_ct, 1)
 
-        def class_unpacker(grp: WireGroup):
+        def class_unpacker(grp: WireGroup, g: int):
+            # under varlen a single-transfer class's payload is the cut
+            # stream, decoded at its received length
             leaves = [
-                (off, plan.segments[i].nbytes,
+                (off, sizes[g] if len(grp.transfers) == 1 else plan.segments[i].nbytes,
+                 leaf_decoder(strategies[i], recv_cts[i]),
                  leaf_unpacker(strategies[i], recv_cts[i], send_cts[i]))
                 for i, off in zip(grp.transfers, grp.offsets)
             ]
-            return lambda dst, payload: unpack_ragged(dst, payload, leaves)
+            return lambda dst, payload: decode_unpack_ragged(dst, payload, leaves)
 
         classes = [
-            ClassRequest(g, group_rows[g], grp.transfers, grp.nbytes,
-                         class_unpacker(grp), events[g], hold=wire)
+            ClassRequest(g, group_rows[g], grp.transfers, sizes[g],
+                         class_unpacker(grp, g), events[g], hold=wire)
             for g, grp in enumerate(plan.groups)
         ]
         return NeighborRequest(buf, classes, plan, self.wire_class_drains)

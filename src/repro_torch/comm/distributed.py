@@ -16,6 +16,9 @@ reference's ``_issue_wire`` (``repro.comm.api``) one schedule at a time:
 ``ragged``   one ``all_to_all_single`` with input and output split sizes,
              the MPI_Alltoallv shape (``ragged_all_to_all``), so
              ``native_ragged`` is True;
+``varlen``   the same with each class's probed stream length as its
+             split size on a fused plan, else one pair per class as
+             ``grouped`` cut at the stream lengths;
 ``permute``  one ``batch_isend_irecv`` to this rank's destination and
              from its source; a rank that no edge reaches gets zeros.
 
@@ -32,7 +35,8 @@ the op it stands for.  Under NCCL a self edge is a real send and
 receive.
 
 ``ops`` and ``bytes`` count per process; for the same plan they equal
-the local mesh's figures, which are per rank.
+the local mesh's figures, which are per rank, except that a fused
+``varlen`` plan is one op here and one per class there.
 """
 
 from __future__ import annotations
@@ -43,7 +47,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.transport import unported_schedule
+from repro_torch.comm.transport import stream_sizes, unported_schedule
 from repro_torch.device import resolve_device
 
 __all__ = ["DistributedTransport", "BACKEND_DEVICE", "check_backend_device"]
@@ -167,18 +171,25 @@ class DistributedTransport:
                  on_class: Optional[Callable[[int], None]] = None) -> List[torch.Tensor]:
         """Put this rank's ``(1, plan.wire_bytes)`` wire on the link with
         the plan's schedule; returns one received ``(1, n)`` payload per
-        delta class (exact ``nbytes`` wide, or the padded uniform row).
-        ``on_class(g)`` is called once per class, after the op that
-        completes class ``g`` has been waited on."""
+        delta class (exact ``nbytes`` wide, the ``varlen`` stream prefix, or
+        the padded uniform row).  ``on_class(g)`` is called once per class,
+        after the op that completes class ``g`` has been waited on.
+        ``varlen`` is one all-to-all with the streams' split sizes on a
+        fused plan, else one send/receive pair per class."""
         self._check(wire, plan.nranks)
         sched = plan.schedule
-        if sched == "grouped":
+        sizes = [grp.nbytes for grp in plan.groups]
+        if sched == "varlen":
+            sizes = list(stream_sizes(plan))
+            if plan.fused:
+                sched = "ragged"
+        if sched in ("grouped", "varlen"):
             out = []
-            for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
-                recv = torch.empty((1, grp.nbytes), dtype=torch.uint8, device=wire.device)
-                works = self._p2p(wire[0, goff : goff + grp.nbytes], dict(grp.perm)[self.rank],
+            for g, (goff, grp, n) in enumerate(zip(plan.group_offsets, plan.groups, sizes)):
+                recv = torch.empty((1, n), dtype=torch.uint8, device=wire.device)
+                works = self._p2p(wire[0, goff : goff + n], dict(grp.perm)[self.rank],
                                   recv[0], plan.recv_rows[self.rank][g])
-                self._count(grp.nbytes)
+                self._count(n)
                 self._wait(works)
                 out.append(recv)
                 if on_class is not None:
@@ -187,7 +198,7 @@ class DistributedTransport:
         if sched == "uniform":
             out = self._uniform(wire, plan)
         elif sched == "ragged":
-            out = self._ragged(wire, plan)
+            out = self._ragged(wire, plan, sizes)
         else:
             raise unported_schedule(sched)
         if on_class is not None:
@@ -211,26 +222,27 @@ class DistributedTransport:
         self._wait([work])
         return [got[s : s + 1] for s in plan.recv_rows[self.rank]]
 
-    def _ragged(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:
-        # MPI_Alltoallv: each destination's class at its exact size, in
-        # destination order; what arrives is in source order
+    def _ragged(self, wire: torch.Tensor, plan, sizes) -> List[torch.Tensor]:
+        # MPI_Alltoallv: each destination's class at ``sizes[g]`` bytes
+        # (its exact size, or its varlen stream), in destination order;
+        # what arrives is in source order
         R, G = plan.nranks, plan.ngroups
         in_splits, parts = [0] * R, []
         for d, g in enumerate(plan.send_rows[self.rank]):
             if g < G:
-                goff, n = plan.group_offsets[g], plan.groups[g].nbytes
+                goff, n = plan.group_offsets[g], sizes[g]
                 in_splits[d] = n
                 parts.append(wire[0, goff : goff + n])
         send = torch.cat(parts) if parts else wire.new_empty((0,))
         recv_rows = plan.recv_rows[self.rank]
         out_splits = [0] * R
         for g, s in enumerate(recv_rows):
-            out_splits[s] = plan.groups[g].nbytes
+            out_splits[s] = sizes[g]
         got = torch.empty(sum(out_splits), dtype=torch.uint8, device=wire.device)
         work = dist.all_to_all_single(got, send, out_splits, in_splits, group=self.group,
                                       async_op=True)
-        self._count(plan.wire_bytes)
+        self._count(sum(sizes))
         self._wait([work])
         starts = [sum(out_splits[:s]) for s in range(R)]
-        return [got[starts[s] : starts[s] + plan.groups[g].nbytes].view(1, -1)
+        return [got[starts[s] : starts[s] + sizes[g]].view(1, -1)
                 for g, s in enumerate(recv_rows)]

@@ -57,7 +57,6 @@ _LATER_FIELDS = {
     "wire_fits": "Queue 1, measurement: the per-axis sweeps",
     "link_tables": "Queue 1, hierarchy and scale",
     "link_fits": "Queue 1, hierarchy and scale",
-    "compress_table": "Queue 1, compressed wire and the varlen schedule",
 }
 
 
@@ -108,6 +107,11 @@ class SystemParams:
     # prices the deep-halo programs' redundant compute and the overlap
     # modes' regions
     stencil_table: Optional[Table2D] = None
+    # per wire compressor, rows (log2 member bytes, encode sec, decode
+    # sec, ratio sample): the codec's cost on top of the member pack and
+    # unpack.  The ratio column records what the sweep's payload gave;
+    # the ratio a schedule is priced at comes from a payload probe
+    compress_table: Optional[Dict[str, Table2D]] = None
 
     def __post_init__(self):
         # normalize list-of-lists (JSON) into hashable tuple tables
@@ -116,6 +120,7 @@ class SystemParams:
         object.__setattr__(self, "wire_table", _freeze1d(self.wire_table))
         object.__setattr__(self, "copy_table", _freeze1d(self.copy_table))
         object.__setattr__(self, "stencil_table", _freeze1d(self.stencil_table))
+        object.__setattr__(self, "compress_table", _freeze2d(self.compress_table))
 
     def to_json(self) -> str:
         """JSON under the reference's field names (``ici_bw``,
@@ -361,6 +366,20 @@ class PerfModel:
             return None
         return self._interp_for(t, _Interp1D)(math.log2(max(nbytes, 1)))
 
+    def measured_compress(self, strategy: str, nbytes: int) -> Optional[Tuple[float, float]]:
+        """Interpolated measured ``(encode sec, decode sec)`` of ``nbytes``
+        member bytes under the named wire compressor, or None when no
+        compress sweep covers it (the compressors then price their codec
+        as one more read and write of the bytes)."""
+        tables = self.params.compress_table
+        if not tables or strategy not in tables or not tables[strategy]:
+            return None
+        rows = tables[strategy]
+        x = math.log2(max(nbytes, 1))
+        enc = self._interp_for(tuple((r[0], r[1]) for r in rows), _Interp1D)(x)
+        dec = self._interp_for(tuple((r[0], r[2]) for r in rows), _Interp1D)(x)
+        return enc, dec
+
     def measured_stencil(self, n_neighbors: int, nbytes: int) -> Optional[float]:
         """Interpolated measured time of one stencil application with
         ``n_neighbors`` neighbor reads over a window of ``nbytes``, or
@@ -408,10 +427,14 @@ class PerfModel:
         if schedule == "ragged":
             return self.t_link(plan.wire_bytes, 1)
         if schedule == "varlen":
-            raise NotImplementedError(
-                "schedule 'varlen' is not ported yet (ROADMAP Queue 1, compressed "
-                "wire and the varlen schedule)"
-            )
+            # the grouped transport with each class cut at its probed
+            # stream length: the link term on the stream bytes, the
+            # per-class latencies stay (the codec's cost rides the
+            # strategy estimates, as pack costs do for every schedule)
+            if len(plan.stream_bytes) != plan.ngroups:
+                raise ValueError("schedule 'varlen' needs a stream-annotated plan")
+            t = self.t_link(sum(plan.stream_bytes), 1)
+            return t + (plan.ngroups - 1) * self._hop_latency()
         if schedule == "tiered":
             raise NotImplementedError(
                 "schedule 'tiered' is not ported yet (ROADMAP Queue 1, hierarchy and scale)"
@@ -431,26 +454,34 @@ class PerfModel:
         if self.decisions is not None:
             key = (plan.fingerprint, plan.ngroups, plan.wire_ops, True)
             if self.decisions.lookup(*key) is None:
+                stream_tag = ""
+                if plan.schedule == "varlen":
+                    stream_tag = (f" stream_bytes={plan.effective_wire_bytes}"
+                                  f" ratio={plan.stream_ratio:.4f}")
                 self.decisions.record(
                     *key,
                     est,
                     signature=(
                         f"exchange schedule={plan.schedule}"
                         f" groups={plan.ngroups} ranks={plan.nranks}"
-                        f" ragged_bytes={plan.wire_bytes}{note}"
+                        f" ragged_bytes={plan.wire_bytes}{stream_tag}{note}"
                     ),
                 )
         return est
 
     def price_wire_schedules(self, plan, native: bool = False) -> Dict[str, float]:
         """Predicted seconds for every wire schedule that could carry the
-        plan's layout: ``grouped`` always; ``uniform`` (and ``ragged``
-        when the transport has it natively) for a fused plan below the
-        large-grid threshold.  ``grouped`` comes first so exact ties
-        resolve to it."""
+        plan's layout: ``grouped`` always; ``varlen`` when a probe
+        annotated the plan with streams shorter than its capacity;
+        ``uniform`` (and ``ragged`` when the transport has it natively)
+        for a fused plan below the large-grid threshold.  ``grouped``
+        comes first so exact ties resolve to it."""
         from repro_torch.comm.wireplan import GROUPED_FALLBACK_RANK_FACTOR
 
         costs = {"grouped": self._price_schedule(plan, "grouped")}
+        stream = plan.stream_bytes
+        if len(stream) == plan.ngroups and sum(stream) < plan.wire_bytes:
+            costs["varlen"] = self._price_schedule(plan, "varlen")
         oversize = (
             plan.ngroups
             and plan.nranks > GROUPED_FALLBACK_RANK_FACTOR * plan.ngroups
@@ -703,13 +734,20 @@ class PerfModel:
         hops: int = 1,
         allow_bounding: bool = True,
         registry=None,
+        probe=None,
     ) -> StrategyEstimate:
         """Pick the cheapest applicable registered strategy (cached per
         call signature).  ``allow_bounding`` admits wire-only strategies
         (data actually crosses a link, so shipping the bounding window
         is meaningful).  A selection pinned in the decision cache is
         replayed when its strategy is registered; a new one is
-        recorded."""
+        recorded.
+
+        ``probe`` (one rank's buffer, concrete) prices every
+        ``supports_varlen`` candidate's link term at its probed stream
+        length instead of its capacity; the streams key the cache, and a
+        probed pick records ``stream_bytes=`` and ``ratio=`` in its
+        decision signature."""
         if registry is None:
             from repro_torch.comm.api import default_registry
 
@@ -717,7 +755,15 @@ class PerfModel:
         # keyed on the type's CONTENT fingerprint and the registry's
         # mutation counter, so a newly registered plugin invalidates
         sig = ct.fingerprint
-        key = (sig, incount, hops, allow_bounding, id(registry), registry.version)
+        streams = {}
+        if probe is not None:
+            for s in registry.selectable():
+                if s.supports_varlen and s.applicable(ct):
+                    stream = int(s.probe_stream_bytes(ct, incount, probe))
+                    if stream < s.wire_bytes(ct, incount):
+                        streams[s.name] = stream
+        key = (sig, incount, hops, allow_bounding, id(registry), registry.version,
+               tuple(sorted(streams.items())))
         self.lookups += 1
         hit = self._cache.get(key)
         if hit is not None:
@@ -726,8 +772,19 @@ class PerfModel:
         pinned = None
         if self.decisions is not None:
             pinned = self.decisions.lookup(sig, incount, hops, allow_bounding)
+
+        def plan_est(s):
+            e = s.plan(self, ct, incount, hops)
+            stream = streams.get(s.name)
+            if stream is None:
+                return e
+            # the link term at the probed stream length; the codec's
+            # cost stays in t_pack and t_unpack
+            return StrategyEstimate(e.strategy, e.t_pack, self.t_link(stream, hops),
+                                    e.t_unpack, wire_bytes=stream)
+
         if pinned is not None and pinned.strategy in registry:
-            best = registry.get(pinned.strategy).plan(self, ct, incount, hops)
+            best = plan_est(registry.get(pinned.strategy))
         else:
             cands = [
                 s
@@ -736,10 +793,17 @@ class PerfModel:
             ]
             if not cands:
                 raise ValueError(f"no applicable strategy registered for {ct!r}")
-            best = min(
-                (s.plan(self, ct, incount, hops) for s in cands), key=lambda e: e.total
-            )
+            best = min((plan_est(s) for s in cands), key=lambda e: e.total)
             if self.decisions is not None:
-                self.decisions.record(sig, incount, hops, allow_bounding, best, ct=ct)
+                signature = None
+                if best.strategy in streams:
+                    from repro_torch.measure.decisions import describe_type
+
+                    ratio = streams[best.strategy] / max(
+                        registry.get(best.strategy).wire_bytes(ct, incount), 1)
+                    signature = (f"{describe_type(ct)} stream_bytes={streams[best.strategy]}"
+                                 f" ratio={ratio:.4f}")
+                self.decisions.record(sig, incount, hops, allow_bounding, best, ct=ct,
+                                      signature=signature)
         self._cache[key] = best
         return best

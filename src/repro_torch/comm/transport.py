@@ -51,13 +51,20 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["LocalMeshTransport", "unported_schedule"]
+__all__ = ["LocalMeshTransport", "stream_sizes", "unported_schedule"]
 
 #: the schedules a plan can carry that no transport issues yet
 _UNPORTED = {
-    "varlen": "ROADMAP Queue 1, compressed wire and the varlen schedule",
     "tiered": "ROADMAP Queue 1, hierarchy and scale",
 }
+
+
+def stream_sizes(plan) -> tuple:
+    """Bytes each delta class ships under the ``varlen`` schedule: its
+    probed stream length (a prefix of its capacity slot)."""
+    if len(plan.stream_bytes) != plan.ngroups:
+        raise ValueError("varlen schedule on a stream-unannotated plan")
+    return plan.stream_bytes
 
 
 def unported_schedule(sched: str) -> Exception:
@@ -101,12 +108,12 @@ class LocalMeshTransport:
 
     def _index(self, plan, device) -> Tuple[torch.Tensor, ...]:
         """The plan's index tensors on ``device``, made once per plan:
-        per delta class, the source rank of every row (grouped); or the
-        send and receive row tables (uniform)."""
+        per delta class, the source rank of every row (grouped, varlen);
+        or the send and receive row tables (uniform)."""
         key = (plan.fingerprint, plan.schedule, str(device))
         index = self._plan_index.get(key)
         if index is None:
-            if plan.schedule == "grouped":
+            if plan.schedule in ("grouped", "varlen"):
                 tables = [[row[g] for row in plan.recv_rows] for g in range(plan.ngroups)]
             else:
                 tables = [plan.send_rows, plan.recv_rows]
@@ -136,17 +143,20 @@ class LocalMeshTransport:
                  on_class: Optional[Callable[[int], None]] = None) -> List[torch.Tensor]:
         """Put ``wire`` (``(R, plan.wire_bytes)`` uint8) on the link with
         the plan's schedule; returns one received payload per delta
-        class (exact ``nbytes`` wide, or the padded uniform row).
-        ``on_class(g)`` is called once per class, right after the wire op
-        that completes class ``g`` is issued (the grouped schedule's own
-        op; the fused schedules' one op for every class)."""
+        class (exact ``nbytes`` wide, the ``varlen`` stream prefix, or the
+        padded uniform row).  ``on_class(g)`` is called once per class,
+        right after the wire op that completes class ``g`` is issued (the
+        per-class schedules' own op; the fused schedules' one op for every
+        class)."""
         sched = plan.schedule
-        if sched == "grouped":
+        if sched in ("grouped", "varlen"):
+            sizes = (stream_sizes(plan) if sched == "varlen"
+                     else [grp.nbytes for grp in plan.groups])
             out = []
             index = self._index(plan, wire.device)
-            for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
-                self._count(grp.nbytes)
-                out.append(wire[:, goff : goff + grp.nbytes].index_select(0, index[g]))
+            for g, (goff, n) in enumerate(zip(plan.group_offsets, sizes)):
+                self._count(n)
+                out.append(wire[:, goff : goff + n].index_select(0, index[g]))
                 if on_class is not None:
                     on_class(g)
             return out

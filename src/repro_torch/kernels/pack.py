@@ -38,7 +38,7 @@ __all__ = [
     "pack_rows",
     "pack_dma",
     "pack_plain",
-    "pack_ragged",
+    "pack_compress_ragged",
     "aligned",
     "row_args",
     "row_path",
@@ -302,18 +302,26 @@ pack_dma.launches = 0
 # ragged wire assembly
 # ---------------------------------------------------------------------------
 
-def pack_ragged(buf: torch.Tensor, leaves, total: int) -> torch.Tensor:
-    """Pack every leaf straight into its slot of a flat wire buffer.
+def pack_compress_ragged(buf: torch.Tensor, leaves, total: int) -> torch.Tensor:
+    """Pack (and encode) every leaf straight into its slot of a flat wire
+    buffer.
 
     ``buf`` has the ranks (or any batch) on its leading dimension;
-    ``leaves`` is a sequence of ``(offset, nbytes, pack_fn)``, and
-    ``pack_fn(buf, out)`` writes one leaf's packed payload into ``out``,
-    the ``(B, nbytes)`` view of the wire at its exact byte ``offset``.
-    Offsets come from a wire plan's segments: the buffer is exactly
-    ``total`` bytes per rank, with no padding and no per-destination
-    concatenation.  Returns the ``(B, total)`` uint8 wire.
+    ``leaves`` is a sequence of ``(offset, nbytes, pack_fn, encode_fn)``.
+    With ``encode_fn=None`` the wire format is the packed bytes:
+    ``pack_fn(buf, out)`` writes the leaf's payload into ``out``, the
+    ``(B, nbytes)`` view of the wire at its exact byte ``offset``.  With
+    an ``encode_fn`` (a wire compressor's encoder) ``pack_fn(buf, None)``
+    returns the leaf's ``(B, member bytes)``, and its encoded wire lands
+    in the slot.  Offsets come from a wire plan's segments: the buffer is
+    exactly ``total`` bytes per rank, with no padding and no
+    per-destination concatenation.  Returns the ``(B, total)`` uint8 wire.
     """
     wire = torch.empty((buf.shape[0], total), dtype=torch.uint8, device=buf.device)
-    for offset, nbytes, pack_fn in leaves:
-        pack_fn(buf, wire[:, offset : offset + nbytes])
+    for offset, nbytes, pack_fn, encode_fn in leaves:
+        slot = wire[:, offset : offset + nbytes]
+        if encode_fn is None:
+            pack_fn(buf, slot)
+        else:
+            slot.copy_(encode_fn(pack_fn(buf, None)))
     return wire

@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels.geometry import PackGeometry
 from repro_torch.kernels.pack import block_index, check_operands, dma_args, launch, row_args
 
-__all__ = ["unpack_rows", "unpack_dma", "unpack_plain", "unpack_ragged"]
+__all__ = ["unpack_rows", "unpack_dma", "unpack_plain", "decode_unpack_ragged"]
 
 
 def unpack_plain(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) -> torch.Tensor:
@@ -77,14 +77,16 @@ unpack_rows.launches = 0
 unpack_dma.launches = 0
 
 
-def unpack_ragged(dst: torch.Tensor, wire: torch.Tensor, leaves) -> torch.Tensor:
-    """Inverse of :func:`repro_torch.kernels.pack.pack_ragged`: hand each
-    leaf its exact wire segment and let it scatter into ``dst`` in place.
-
-    ``leaves`` is a sequence of ``(offset, nbytes, unpack_fn)``;
-    ``unpack_fn(dst, part)`` consumes the ``(B, nbytes)`` view of the
-    received wire at ``offset``.  Returns ``dst``.
-    """
-    for offset, nbytes, unpack_fn in leaves:
-        unpack_fn(dst, wire[:, offset : offset + nbytes])
+def decode_unpack_ragged(dst: torch.Tensor, wire: torch.Tensor, leaves) -> torch.Tensor:
+    """Inverse of :func:`repro_torch.kernels.pack.pack_compress_ragged`:
+    hand each leaf its wire segment and let it scatter into ``dst`` in
+    place.  ``leaves`` is a sequence of ``(offset, nbytes, decode_fn,
+    unpack_fn)``: the ``(B, nbytes)`` view of the received wire at
+    ``offset`` (under the ``varlen`` schedule the stream length, not the
+    capacity) goes through ``decode_fn`` to its member bytes when the
+    leaf has one, and ``unpack_fn(dst, part)`` consumes the result.
+    Returns ``dst``."""
+    for offset, nbytes, decode_fn, unpack_fn in leaves:
+        part = wire[:, offset : offset + nbytes]
+        unpack_fn(dst, part if decode_fn is None else decode_fn(part))
     return dst

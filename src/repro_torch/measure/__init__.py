@@ -7,7 +7,7 @@ system and used to pick the cheapest strategy transparently.  This
 package owns that data end to end:
 
 * :mod:`repro_torch.measure.bench`       — timed sweeps of the pack,
-  unpack, wire, contiguous-copy and stencil terms
+  unpack, wire, contiguous-copy, compress and stencil terms
   (``calibrate_params``);
 * :mod:`repro_torch.measure.fingerprint` — the keys everything below is
   stored under: the committed type's content hash, and the system's
@@ -31,6 +31,7 @@ from repro_torch.measure.bench import (
     fit_latency_bandwidth,
     measure_copy_table,
     measure_pack_table,
+    measure_compress_table,
     measure_stencil_table,
     measure_unpack_table,
     measure_wire_table,
@@ -69,6 +70,7 @@ __all__ = [
     "load_or_calibrate",
     "measure_copy_table",
     "measure_pack_table",
+    "measure_compress_table",
     "measure_stencil_table",
     "measure_unpack_table",
     "measure_wire_table",

@@ -15,6 +15,9 @@ on the running device:
   transport over message sizes, with a least-squares (latency,
   bandwidth) fit (:func:`fit_latency_bandwidth`);
 * :func:`measure_copy_table` — a contiguous read + write over sizes;
+* :func:`measure_compress_table` — per wire compressor, the encode and
+  decode of a zero-heavy payload timed apart, with the bytes the format
+  would move per member byte;
 * :func:`measure_stencil_table` — one stencil application
   (:func:`repro_torch.kernels.ops.stencil_window_update`) over (neighbor
   count x window bytes), what the deep-halo programs' redundant compute
@@ -61,6 +64,7 @@ __all__ = [
     "measure_unpack_table",
     "measure_wire_table",
     "measure_copy_table",
+    "measure_compress_table",
     "measure_stencil_table",
     "fit_latency_bandwidth",
     "calibrate_params",
@@ -201,6 +205,49 @@ def measure_copy_table(
     return rows
 
 
+def measure_compress_table(
+    total_bytes: Sequence[int] = TOTAL_BYTES,
+    iters: int = 5,
+    ranks: int = RANKS,
+    device="cuda",
+) -> Dict[str, List[Tuple[float, float, float, float]]]:
+    """Encode and decode time per wire compressor: rows ``(log2 member
+    bytes, encode sec, decode sec, ratio sample)``, ``ranks`` ranks a
+    call, the row keyed by one rank's bytes.
+
+    Times each compressor's ``encode_wire`` (member bytes -> wire) and
+    ``decode_wire`` (wire -> member bytes) alone: the cost a compressed
+    wire adds to the member pack and unpack, the term
+    :meth:`~repro_torch.comm.perfmodel.PerfModel.measured_compress`
+    interpolates.  The payload is zero-heavy (one byte of 1 per 256), the
+    run-length encoder's regime.  The fourth column is what that payload
+    gave: the bytes the format would move (its probed stream, else its
+    capacity) per member byte; a schedule's ratio comes from a probe of
+    its own payload, never from this column.  Swept: ``rlewire`` and
+    ``int8wire``, the registered compressors.
+    """
+    from repro_torch.comm.compress import INT8_WIRE, RLE_WIRE
+
+    dev = resolve_device(device)
+    reg = TypeRegistry()
+    table: Dict[str, List[Tuple[float, float, float, float]]] = {}
+    for s in (RLE_WIRE, INT8_WIRE):
+        rows = []
+        for total in total_bytes:
+            n = max(total - total % 4, 4)  # int8 views member bytes as float32
+            member = torch.zeros((ranks, n), dtype=torch.uint8, device=dev)
+            member[:, ::256] = 1
+            wire = s.encode_wire(member)
+            enc = time_fn(s.encode_wire, member, iters=iters)
+            dec = time_fn(lambda w, _n=n: s.decode_wire(w, _n), wire, iters=iters)
+            ct = reg.commit(Vector(1, n, n, BYTE))  # contiguous: the pack is a copy
+            moved = min(s.probe_stream_bytes(ct, 1, member[0]), wire.shape[1])
+            rows.append((math.log2(n), enc, dec, moved / float(n)))
+            del member, wire
+        table[s.name] = rows
+    return table
+
+
 def measure_wire_table(
     total_bytes: Sequence[int] = TOTAL_BYTES,
     iters: int = 5,
@@ -298,7 +345,7 @@ def calibrate_params(
     device="cuda",
 ) -> SystemParams:
     """Full-term calibration: pack + unpack + wire + contiguous copy +
-    stencil application, all batched over ``ranks`` local-mesh ranks on
+    compress + stencil application, all batched over ``ranks`` local-mesh ranks on
     ``device`` (the card unless ``device="cpu"``).
 
     The base is :data:`~repro_torch.comm.perfmodel.H100_ANALYTIC`, whose
@@ -318,6 +365,7 @@ def calibrate_params(
     pack = measure_pack_table(strategies, blocks, totals, **kw)
     unpack = measure_unpack_table(strategies, blocks, totals, **kw)
     copy = measure_copy_table(totals, **kw)
+    compress = measure_compress_table(total_bytes=totals, **kw)
     stencil = measure_stencil_table(radii_set, totals, **kw)
     wire = measure_wire_table(totals, **kw)
     wire_lat, wire_bw = fit_latency_bandwidth(wire)
@@ -331,6 +379,7 @@ def calibrate_params(
         hbm_bw=hbm_bw,
         pack_table={k: tuple(v) for k, v in pack.items() if v},
         unpack_table={k: tuple(v) for k, v in unpack.items() if v},
+        compress_table={k: tuple(v) for k, v in compress.items() if v},
         wire_table=tuple(wire),
         copy_table=tuple(copy),
         stencil_table=tuple(stencil),

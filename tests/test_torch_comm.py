@@ -141,13 +141,13 @@ PORTED_TABLES = {
     "wire_latency": 1e-5,
     "wire_bw": 1e11,
     "stencil_table": [[4.7, 10.0, 1e-6]],
+    "compress_table": {"rlewire": [[10.0, 1e-6, 2e-6, 0.5], [14.0, 3e-6, 4e-6, 0.25]]},
 }
 LATER_TABLES = {
     "wire_tables": ({"ici": [[10.0, 1e-5]]}, "per-axis"),
     "wire_fits": ({"ici": [1e-5, 1e11]}, "per-axis"),
     "link_tables": ({"inter": [[10.0, 1e-5]]}, "hierarchy"),
     "link_fits": ({"inter": [1e-5, 1e11]}, "hierarchy"),
-    "compress_table": ({"rle": [[10.0, 1e-6, 1e-6, 0.5]]}, "compressed wire"),
 }
 
 
@@ -312,13 +312,18 @@ def test_every_schedule_moves_the_same_bytes(schedule, strategy):
 
 @pytest.mark.parametrize("schedule", ["varlen", "tiered"])
 def test_unported_schedules_raise(schedule):
+    """``tiered`` is not ported and raises, naming its ROADMAP item;
+    ``varlen`` is, and raises the reference's ValueError on a plan that
+    carries no stream lengths, in the transport and in the model."""
     spec = HaloSpec(grid=(2, 2, 2), interior=(4, 4, 4), radius=2)
     comm = Communicator(device="cpu")
     plan = make_halo_plan(spec, comm, schedule_policy="exact")
     wire = dataclasses.replace(plan.wire, schedule=schedule)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    err, match = ((ValueError, "stream-unannotated") if schedule == "varlen"
+                  else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(err, match=match):
         comm.transport.exchange(torch.zeros((8, wire.wire_bytes), dtype=torch.uint8), wire)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(err, match="stream-annotated" if schedule == "varlen" else match):
         comm.model.price_exchange(wire)
 
 

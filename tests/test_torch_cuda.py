@@ -480,3 +480,125 @@ def test_nccl_unpack_right_after_wait_any_sees_the_payload(nccl_world):
         while req.pending:
             req.wait_any()
         assert torch.equal(req.buffer.clone(), want)
+
+
+# the compressed wire on the card
+# ---------------------------------------------------------------------------
+
+#: member bytes per rank of the full-width halo's regions (256^3, radius
+#: 2, float32): a corner, an edge, a face
+HALO_REGION_BYTES = (32, 4096, 524288)
+
+
+def _member_rows(kind, n, batch=8, seed=3):
+    """float32 member bytes (int8wire reads them as floats)."""
+    rng = np.random.default_rng(seed)
+    if kind == "random":  # normal floats: rle ships them stored
+        return rng.normal(size=(batch, n // 4)).astype(np.float32).view(np.uint8)
+    if kind == "bytes":  # as floats: NaNs of many payloads, infinities
+        b = rng.integers(0, 256, size=(batch, n), dtype=np.uint8)
+        b.view(np.uint32)[:, 1] = [0xFFFFFFFF, 0x7F800001, 0x7F800000, 0xFF800000,
+                                   0x7FC00000, 0x7FFFFFFF, 0xFFC00000, 0x00000001][:batch]
+        return b
+    f = np.zeros((batch, n // 4), np.float32)  # a few nonzero floats: ships rle
+    f[:, :: 97] = rng.normal(size=f[:, :: 97].shape)
+    return f.view(np.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", HALO_REGION_BYTES)
+@pytest.mark.parametrize("kind", ["random", "sparse", "bytes"])
+def test_codecs_on_the_card_equal_the_cpu(kind, n):
+    """Both codecs are plain torch: on the card they give the CPU's
+    bytes, encoded and decoded (the capacity wire and, for rle, the
+    stream prefix of the row with the most runs); on raw bytes too,
+    whose NaN and infinite floats the int8 wire writes and decodes to
+    fixed bits."""
+    from repro_torch.comm import INT8_WIRE, RLE_WIRE
+
+    dev = _card()
+    member = torch.from_numpy(_member_rows(kind, n))
+    for codec in (RLE_WIRE, INT8_WIRE):
+        want = codec.encode_wire(member)
+        got = codec.encode_wire(member.to(dev))
+        assert torch.equal(got.cpu(), want), codec.name
+        assert torch.equal(codec.decode_wire(got, n).cpu(), codec.decode_wire(want, n))
+    wire = RLE_WIRE.encode_wire(member)
+    nruns = int(wire[:, 4:8].contiguous().view(torch.int32).max())
+    stream = 8 + 5 * nruns
+    if stream < wire.shape[1]:
+        got = RLE_WIRE.decode_wire(wire[:, :stream].to(dev), n)
+        assert torch.equal(got.cpu(), RLE_WIRE.decode_wire(wire[:, :stream], n))
+        assert torch.equal(got.cpu(), member)
+
+
+def _point_state(spec, rank=13):
+    """Every rank's block of a field that is zero but for seeded values in
+    a sixteenth of ``rank``'s +x send region (few enough runs for rle)."""
+    start = np.zeros((spec.nranks,) + spec.alloc, np.float32)
+    r, n = spec.radius, spec.interior
+    vals = np.random.default_rng(9).normal(size=(n[0] // 4, n[1] // 4, r))
+    start[rank, r:r + n[0] // 4, r:r + n[1] // 4, n[2]:n[2] + r] = vals
+    return start
+
+
+@pytest.mark.cuda
+def test_varlen_exchange_needs_no_host_sync_after_planning():
+    """27 ranks, probed on the centre rank: once planned (and its index
+    tables made by one exchange), a varlen exchange enqueues everything
+    without the host waiting on the card, and equals the CPU's."""
+    from repro_torch.comm import reschedule
+    from repro_torch.halo import DIRECTIONS, HaloPlan, make_halo_types
+
+    dev = _card()
+    spec = HaloSpec(grid=(3, 3, 3), interior=(16, 16, 16), radius=2)
+    start = _point_state(spec)
+    outs = []
+    for device in ("cpu", dev):
+        comm = Communicator(device=device)
+        types = make_halo_types(spec, comm)
+        send = tuple(types[d][0] for d in DIRECTIONS)
+        recv = tuple(types[d][1] for d in DIRECTIONS)
+        perms = tuple(tuple(spec.perm(d)) for d in DIRECTIONS)
+        probe = torch.from_numpy(start[13]).to(device)
+        strats, wire = comm.plan_neighbor(send, perms, probe=probe)
+        plan = HaloPlan(spec, send, recv, perms, strats, reschedule(wire, "varlen"))
+        assert "rlewire" in {s.name for s in strats}
+        halo_exchange(from_reference(start, spec, device=device), spec, comm, plan=plan)
+        x = from_reference(start, spec, device=device)
+        if device != "cpu":
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            halo_exchange(x, spec, comm, plan=plan)
+        finally:
+            if device != "cpu":
+                torch.cuda.set_sync_debug_mode(0)
+        outs.append(x.cpu())
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_world_of_one_nccl_varlen_exchange_equals_the_local_mesh(nccl_world):
+    """One transfer to itself (the +x face region of a seeded point
+    source), probed, on the varlen schedule: NCCL sends the stream prefix
+    and the buffer equals the local mesh's."""
+    from repro_torch.comm import DistributedTransport
+    from repro_torch.halo import make_halo_types
+
+    dev = nccl_world.device
+    spec = HaloSpec(grid=(1, 1, 1), interior=(32, 32, 32), radius=2)
+    start = _point_state(spec, rank=0)
+    outs, counts = [], []
+    for comm in (Communicator(transport=DistributedTransport(device=dev)),
+                 Communicator(device=dev)):
+        send, recv = make_halo_types(spec, comm)[(0, 0, 1)]
+        x = from_reference(start, spec, device=dev)
+        strats, plan = comm.plan_neighbor([send], [[(0, 0)]], probe=x[0])
+        assert plan.schedule == "varlen" and strats[0].name == "rlewire"
+        comm.neighbor_alltoallv(x, [send], [recv], [[(0, 0)]], plan=plan, strategies=strats)
+        torch.cuda.synchronize()
+        outs.append(x)
+        counts.append((comm.wire_ops, comm.wire_payload_bytes, plan.stream_bytes))
+    assert torch.equal(outs[0], outs[1])
+    assert counts[0] == counts[1] and counts[0][1] < send.size

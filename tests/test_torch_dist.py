@@ -24,14 +24,17 @@ in 2 processes.  The tests then read what they wrote.
   reference's ``ragged`` does not run on XLA:CPU); ``steps="auto"`` with
   every rank on the reference's pick.
 * A 2-rank subgroup on a (2, 1, 1) grid with per-dimension radii: self
-  edges under gloo, against the oracle.
+  edges under gloo, against the oracle.  The same subgroup runs the
+  compressed-wire gate on a 2-ring under the probed ``varlen`` schedule,
+  bit-exact to the local mesh.
 * ``python -m repro_torch.launch.stencil3d --nprocs 2 --backend gloo``:
   the reference example's lines, and the gathered interior equals the
   local mesh's.
 * ``production_communicator(transport=...)``: every rank records the
   ``program/s=N`` decision, rank 0 alone writes the file.
 * Raising paths: NCCL on the CPU, gloo on the card, a mismatched plan
-  across ranks, a block of the wrong shape, the unported schedules.
+  across ranks, a block of the wrong shape, the unported ``tiered``
+  schedule and a ``varlen`` plan without stream lengths.
 """
 
 import dataclasses
@@ -57,7 +60,7 @@ from repro_torch.comm import (
     policy_for_mode,
     reschedule,
 )
-from repro_torch.core import FLOAT, Vector
+from repro_torch.core import FLOAT, Subarray, Vector
 from repro_torch.halo import (
     HaloSpec,
     build_halo_program,
@@ -83,6 +86,19 @@ STRATEGIES = ("rows", "dma", "xla", "ref", "bounding", "auto")
 PERM_R, PERM = 4, [(0, 1)]
 PERM_TYPE = (6, 5, 12)  # Vector(count, blocklength, stride) of FLOAT
 OVERLAPS = ("plain", "monolithic", "region")
+#: the compressed-wire gate's Subarray (sizes, subsizes, starts) of FLOAT
+GATE_TYPE = ((32, 32), (16, 16), (4, 4))
+
+
+def _gate_buffers():
+    """Two ranks' (32, 32) float32 buffers: zero but for a 2x2 patch
+    inside the gate's region, of another value on each rank with the same
+    runs of bytes (2.5 and 3.5 differ in one byte), so rank 1's stream
+    fits the budget probed on rank 0."""
+    out = np.zeros((2, 32, 32), np.float32)
+    for rank in range(2):
+        out[rank, 10:12, 6:8] = 2.5 + rank
+    return out
 
 WORKER = r'''
 import dataclasses, json, sys
@@ -91,7 +107,7 @@ import torch
 import torch.distributed as dist
 from repro_torch.comm import (Communicator, DistributedTransport, FixedPolicy,
                               policy_for_mode, reschedule)
-from repro_torch.core import FLOAT, Vector
+from repro_torch.core import FLOAT, Subarray, Vector
 from repro_torch.halo import (HaloSpec, build_halo_program, from_reference, halo_exchange,
                               make_halo_plan, make_program_step)
 from repro_torch.launch.procgroup import destroy_process_group, init_process_group
@@ -181,6 +197,21 @@ if rank < 2:
         halo_exchange(local, spec2, comm, plan=plan)
         arrays[f"self_{sched}"] = local[0].numpy()
         res[f"self_{sched}"] = [comm.wire_ops, comm.wire_payload_bytes]
+    # the probed varlen exchange of the compressed-wire gate on a 2-ring:
+    # every rank plans from the same probe, rank 0's buffer
+    gate = np.load(f"{IN}/gate.npy")
+    comm = comm_for("tempi", sub2)
+    ct = comm.commit(Subarray(*C["gate_type"], FLOAT))
+    ring = [(0, 1), (1, 0)]
+    strats, plan = comm.plan_neighbor([ct], [ring], probe=torch.from_numpy(gate[0]))
+    buf = torch.from_numpy(gate[rank:rank + 1].copy())
+    comm.neighbor_alltoallv(buf, [ct], [ct], [ring], plan=plan, strategies=strats)
+    arrays["varlen"] = buf[0].numpy()
+    res["varlen"] = {"schedule": plan.schedule, "strategies": [x.name for x in strats],
+                     "stream_bytes": list(plan.stream_bytes), "fingerprint": plan.fingerprint,
+                     "counts": [comm.wire_ops, comm.wire_payload_bytes],
+                     "compress": [comm.compress_exchanges, comm.compress_capacity_bytes,
+                                  comm.compress_stream_bytes]}
 
 # production wiring: every rank records, rank 0 alone writes the file
 pcomm, save = production_communicator(f"{IN}/store{rank}", calibrate=False,
@@ -202,12 +233,12 @@ except ValueError as e:
     res["shape"] = str(e)
 plan = make_halo_plan(spec, comm, schedule_policy="exact")
 res["unported"] = {}
-for sched in ("varlen", "tiered"):
+for sched, err in (("varlen", ValueError), ("tiered", NotImplementedError)):
     try:
         comm.transport.exchange(torch.zeros((1, plan.wire_bytes), dtype=torch.uint8),
                                 dataclasses.replace(plan.wire, schedule=sched))
         res["unported"][sched] = None
-    except NotImplementedError as e:
+    except err as e:
         res["unported"][sched] = str(e)
 dist.barrier()
 np.savez(f"{IN}/rank{rank}.npz", **arrays)
@@ -298,7 +329,9 @@ def runs(tmp_path_factory):
     (inp / "config.json").write_text(json.dumps({
         "grid": GRID, "interior": INTERIOR, "radius": RADIUS, "schedules": SCHEDULES,
         "overlaps": OVERLAPS, "strategies": STRATEGIES, "perm_r": PERM_R, "perm": PERM,
-        "perm_type": PERM_TYPE, "interior2": SPEC2.interior, "radius2": SPEC2.radius}))
+        "perm_type": PERM_TYPE, "interior2": SPEC2.interior, "radius2": SPEC2.radius,
+        "gate_type": GATE_TYPE}))
+    np.save(inp / "gate.npy", _gate_buffers())
     (inp / "worker.py").write_text(WORKER)
     env, deadline = _env(), time.monotonic() + TIMEOUT_S
     pipe = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, cwd=str(inp))
@@ -453,6 +486,32 @@ def test_self_edges_under_gloo_match_the_oracle(runs, schedule):
         assert res[f"self_{schedule}"] == counts
 
 
+def test_varlen_under_gloo_is_bit_exact_to_the_local_mesh(runs):
+    """The compressed-wire gate on a 2-ring, probed on rank 0's buffer:
+    both processes pick ``rlewire`` on the ``varlen`` schedule, ship the
+    stream prefix (one all-to-all with the streams' split sizes) and
+    receive what the local mesh does, with equal op and byte counts."""
+    gate = _gate_buffers()
+    comm = Communicator(device="cpu")
+    ct = comm.commit(Subarray(*GATE_TYPE, FLOAT))
+    ring = [(0, 1), (1, 0)]
+    strats, plan = comm.plan_neighbor([ct], [ring], probe=torch.from_numpy(gate[0]))
+    buf = torch.from_numpy(gate.copy())
+    comm.neighbor_alltoallv(buf, [ct], [ct], [ring], plan=plan, strategies=strats)
+    assert plan.schedule == "varlen" and [s.name for s in strats] == ["rlewire"]
+    assert plan.stream_bytes[0] < plan.wire_bytes
+    for rank in range(2):
+        arrays, res = runs["ranks"][rank]
+        np.testing.assert_array_equal(arrays["varlen"], buf[rank].numpy())
+        assert res["varlen"]["fingerprint"] == plan.fingerprint
+        assert res["varlen"]["stream_bytes"] == list(plan.stream_bytes)
+        assert res["varlen"]["counts"] == [comm.wire_ops, comm.wire_payload_bytes]
+        assert res["varlen"]["compress"] == [1, plan.wire_bytes, plan.stream_bytes[0]]
+    # the patch crossed the ring
+    np.testing.assert_array_equal(buf[0, 10:12, 6:8].numpy(), np.full((2, 2), 3.5))
+    np.testing.assert_array_equal(buf[1, 10:12, 6:8].numpy(), np.full((2, 2), 2.5))
+
+
 # ---------------------------------------------------------------------------
 # the launcher
 # ---------------------------------------------------------------------------
@@ -507,9 +566,12 @@ def test_a_block_of_the_wrong_shape_raises(runs):
 
 
 def test_unported_schedules_raise_under_the_process_group(runs):
+    """``tiered`` raises naming its ROADMAP item; ``varlen`` is ported
+    and raises the reference's ValueError on a plan without streams."""
     for _, res in runs["ranks"]:
         assert set(res["unported"]) == {"varlen", "tiered"}
-        assert all("ROADMAP" in msg for msg in res["unported"].values())
+        assert "ROADMAP" in res["unported"]["tiered"]
+        assert res["unported"]["varlen"] == "varlen schedule on a stream-unannotated plan"
 
 
 def test_nccl_on_the_cpu_and_gloo_on_the_card_raise(tmp_path, monkeypatch):

@@ -44,6 +44,7 @@ print("MODULES", len(names))
 print("HALO", sorted(m for m in names if m.startswith("repro_torch.halo.")))
 print("LAUNCH", sorted(m for m in names if m.startswith(("repro_torch.launch.",
                                                          "repro_torch.comm.d"))))
+print("COMPRESS", "repro_torch.comm.compress" in names)
 print("FORBIDDEN", bad)
 """
 
@@ -62,6 +63,7 @@ def test_no_module_imports_jax_or_the_reference():
     assert lines["LAUNCH"] == str(["repro_torch.comm.distributed",
                                    "repro_torch.launch.procgroup",
                                    "repro_torch.launch.stencil3d"])
+    assert lines["COMPRESS"] == "True"
     assert lines["FORBIDDEN"] == "[]"
 
 
