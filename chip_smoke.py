@@ -63,7 +63,8 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            world-size-1 NCCL group started in-process over a ``file://``
            store, on a (1, 1, 1) grid of one 256^3 block, radius 2, where
            all 26 neighbours are the process itself.  The exchange under
-           ``grouped``, ``uniform`` and ``ragged``, the s = 2 program plain,
+           ``grouped``, ``uniform``, ``ragged`` and ``tiered`` (one node, no
+           bundle), the s = 2 program plain,
            ``monolithic`` and ``region``, and one ``sendrecv``, each
            ``torch.equal`` to the same run through the local mesh at R = 1
            with equal wire op and byte counts (launch counts zeroed before
@@ -87,7 +88,22 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            dist phase runs a probed one-transfer ``varlen`` exchange
            through NCCL too, and the measure phase prints the compress
            sweep's rows;
-8. timing  CUDA-event times of each kernel (L2 flushed before every
+8. tiered  the two-level machine at full width: 8 ranks with 4 a node
+           (``Topology.blocked(8, 4)``) and 27 ranks with 9 a node, the
+           ``tiered`` exchange (one slow-tier message per peer node, then
+           intra-node correction hops) and ``grouped``, each
+           ``torch.equal`` to the other and the periodic field, with the
+           plan's ops and bytes (7 and 4,276,480 a rank at 8 ranks) and
+           slow-tier messages (launch counts zeroed before and read after
+           the tiered runs alone; every kernel must run); ms per exchange
+           of both (on one card both tiers are the same memory, so these
+           times say nothing of coalescing); the link-class sweep on the
+           card; the model's picks at 8 ranks under the card's tables
+           (never ``tiered``), with the measured link-class tables and
+           made two-tier; the simulated-scale ladder to 3072 ranks; a
+           ``replan_on_remesh`` to ``blocked(8, 2)`` and a tiered exchange
+           planned after it;
+9. timing  CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
            (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
            counts the block bytes read and written, ``bound_sectors_ms``
@@ -107,9 +123,9 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            application.
 
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
-``{"dist": ...}`` line, a ``{"compress": ...}`` line, one JSON line
-``{"kernels": [...]}`` (``launches``: the main path's loop plus the
-program, dist and compress phases),
+``{"dist": ...}`` line, a ``{"compress": ...}`` line, a ``{"tiered": ...}``
+line, one JSON line ``{"kernels": [...]}`` (``launches``: the main path's
+loop plus the program, dist, compress and tiered phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -144,6 +160,12 @@ BALL_RADIUS = 24           # the [compress] point source: a ball this many cells
 BALL_INSET = 8             # centred this many cells inside its block's +x face
 VARLEN_RANK = 13           # the centre rank of the 3x3x3 grid, which the probe reads
 INT8_ULPS = 2.0 ** -14     # float32 rounding of an int8 value against its bound
+TIERED_GRIDS = (((2, 2, 2), 4), ((3, 3, 3), 9))  # [tiered] grids and ranks a node
+# [tiered] at 256^3, radius 2, by ranks: ops, slow-tier messages tiered and grouped, bytes
+# a rank (3,195,136 + the correction: 1,081,344 at 2x2x2; 1,081,536 at 3x3x3, whose two
+# bundles' representatives are 32-byte corner classes)
+TIERED_EXPECT = {8: (7, 1, 4, 4_276_480), 27: (26, 2, 18, 4_276_672)}
+SCALE_RANKS = (8, 16, 64, 256, 1024, 3072)  # the simulated-scale ladder, 8 ranks a node
 
 
 def fail(msg: str) -> None:
@@ -1104,8 +1126,9 @@ def phase_dist(torch, dev, card):
     neighbours are the process itself (real NCCL collectives and
     send/receive pairs to itself).  Every run is held ``torch.equal`` to
     the same run through the local mesh at R = 1 on this card, with equal
-    wire op and byte counts: the exchange under ``grouped``, ``uniform``
-    and ``ragged``; the s = 2 program plain, ``monolithic`` and
+    wire op and byte counts: the exchange under ``grouped``, ``uniform``,
+    ``ragged`` and ``tiered`` (on one node: no bundle, so grouped's
+    sends); the s = 2 program plain, ``monolithic`` and
     ``region`` (the local mesh runs the NCCL program's plan); the +x face
     region of a point source sent to itself by ``rlewire``, planned with a
     probe of the block and run on the ``varlen`` schedule (the stream prefix as the
@@ -1118,7 +1141,8 @@ def phase_dist(torch, dev, card):
     import dataclasses
     import tempfile
 
-    from repro_torch.comm import Communicator, DistributedTransport, FixedPolicy, reschedule
+    from repro_torch.comm import (Communicator, DistributedTransport, FixedPolicy, Topology,
+                                  reschedule)
     from repro_torch.halo import (HaloSpec, build_halo_program, halo_exchange,
                                   make_halo_plan, make_halo_types)
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -1167,12 +1191,15 @@ def phase_dist(torch, dev, card):
         out["init_s"] = time.perf_counter() - t0
         out["nccl_socket_ifname"] = os.environ.get("NCCL_SOCKET_IFNAME")
         try:
-            def nccl():
-                return Communicator(transport=DistributedTransport(device=info.device))
+            def nccl(topology=None):
+                return Communicator(transport=DistributedTransport(device=info.device),
+                                    topology=topology)
 
             out["model_schedule"] = make_halo_plan(spec, nccl()).wire.schedule
-            for sched in ("grouped", "uniform", "ragged"):
-                cd, cl = nccl(), Communicator(device=dev)
+            for sched in ("grouped", "uniform", "ragged", "tiered"):
+                # tiered on one node: no class crosses a node, so no bundle
+                topo = Topology.flat(1) if sched == "tiered" else None
+                cd, cl = nccl(topo), Communicator(device=dev, topology=topo)
                 pd, pl = (make_halo_plan(spec, c, schedule_policy="exact") for c in (cd, cl))
                 pd = dataclasses.replace(pd, wire=reschedule(pd.wire, sched))
                 pl = dataclasses.replace(pl, wire=reschedule(pl.wire, sched))
@@ -1565,6 +1592,195 @@ def phase_compress(torch, dev, spec, card):
     return counts
 
 
+def phase_tiered(torch, dev, spec, card, measured):
+    """The two-level machine at full width (``spec``'s 256^3 blocks,
+    radius 2, float32).  On one card both tiers are the same memory, so
+    this shows that the ``tiered`` schedule is right and counts its
+    messages and bytes; whether coalescing pays is the model's to say.
+
+    * 8 ranks, ``Topology.blocked(8, 4)`` (one z slab a node), and 27
+      ranks, ``Topology.blocked(27, 9)``: ``tiered`` and ``grouped``
+      exchanges of the model-planned layout, each ``torch.equal`` to the
+      other and to the periodic field; the transport's ops and bytes equal
+      the plan's, and at full width the fixed figures of ``TIERED_EXPECT``
+      (7 ops, 4,276,480 bytes a rank, 1 against 4 slow-tier messages at 8
+      ranks; 26, 4,276,672, 2 against 18 at 27).  Launch counts are zeroed before and
+      read after the ``tiered`` runs alone; every kernel must run there.
+      ms per exchange on the host clock (median of 5 synchronized calls),
+      ``tiered``, ``grouped``, ``grouped``, ``tiered``.
+    * ``measure_link_class_tables`` for ``blocked(8, 4)`` on the card, its
+      two tables and fits.
+    * The model's picks at 8 ranks, planned only: under the card's
+      tables (``measured``, the [measure] phase's calibration, no link
+      tables) it must not pick ``tiered``; its pick and prices with the
+      measured link-class tables and under ``synthetic_two_tier``; the
+      simulated-scale ladder from 8 to 3072 ranks at 8 a node on the
+      card's tables made two-tier (pure host).
+    * ``replan_on_remesh`` from ``blocked(8, 4)`` to ``blocked(8, 2)``: the
+      decision rows it prunes, then a ``tiered`` exchange planned under
+      the new topology, ``torch.equal`` to the periodic field."""
+    import dataclasses
+
+    from repro_torch.comm import (Communicator, PerfModel, Topology, reschedule, scale_ladder,
+                                  synthetic_two_tier)
+    from repro_torch.halo import HaloSpec, halo_exchange, make_halo_plan
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.measure import (DecisionCache, fit_latency_bandwidth,
+                                     measure_link_class_tables)
+    from repro_torch.train import replan_on_remesh
+
+    t_phase = time.perf_counter()
+    out = {"card": card, "grids": {}}
+    counts = dict.fromkeys(KERNEL_INFO, 0)
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        fn()
+        torch.cuda.synchronize()
+        for k, v in launch_counts().items():
+            counts[k] += v
+
+    def exchange(comm, s, x, plan, sched, count=False):
+        """One exchange of ``plan`` rescheduled to ``sched``; returns the
+        plan and the transport's ops and bytes for it."""
+        plan = dataclasses.replace(plan, wire=reschedule(plan.wire, sched))
+        ops, nbytes = comm.wire_ops, comm.wire_payload_bytes
+        if count:
+            counted(lambda: halo_exchange(x, s, comm, plan=plan))
+        else:
+            halo_exchange(x, s, comm, plan=plan)
+        torch.cuda.synchronize()
+        return plan, comm.wire_ops - ops, comm.wire_payload_bytes - nbytes
+
+    for grid, rpn in TIERED_GRIDS:
+        s = HaloSpec(grid=grid, interior=spec.interior, radius=spec.radius)
+        topo = Topology.blocked(s.nranks, rpn)
+        _, start, want = global_layout(torch, s, dev)
+        comm = Communicator(device=dev, topology=topo)
+        plan = make_halo_plan(s, comm)
+        row = {"ranks": s.nranks, "ranks_per_node": rpn, "topology": topo.fingerprint,
+               "model_schedule": plan.wire.schedule, "link_classes": plan.wire.link_classes,
+               "tier_bundles": plan.wire.tier_bundles}
+        xs = {}
+        for sched in ("grouped", "tiered"):
+            x = start.clone()
+            p, ops, nbytes = exchange(comm, s, x, plan, sched, count=sched == "tiered")
+            if not torch.equal(x, want):
+                fail(f"[tiered] {s.nranks} ranks, {sched}: the exchange differs from the "
+                     f"periodic field")
+            if (ops, nbytes) != (p.wire.wire_ops, p.wire.issued_bytes):
+                fail(f"[tiered] {s.nranks} ranks, {sched}: {ops} ops and {nbytes} bytes a "
+                     f"rank, the plan holds {p.wire.wire_ops} and {p.wire.issued_bytes}")
+            row[sched] = {"wire_ops": ops, "bytes": nbytes,
+                          "inter_messages": p.wire.inter_messages,
+                          "correction_bytes": p.wire.correction_bytes}
+            xs[sched] = (x, p)
+        if not torch.equal(xs["tiered"][0], xs["grouped"][0]):
+            fail(f"[tiered] {s.nranks} ranks: tiered differs from grouped")
+        t, g = row["tiered"], row["grouped"]
+        if t["wire_ops"] != plan.wire.ngroups or t["inter_messages"] != len(
+                plan.wire.tier_bundles) or g["inter_messages"] != plan.wire.link_classes.count(
+                "inter"):
+            fail(f"[tiered] {s.nranks} ranks: ops or slow-tier messages off: {row}")
+        if s.interior == (256, 256, 256) and s.radius == 2:
+            ops, inter_t, inter_g, nbytes = TIERED_EXPECT[s.nranks]
+            if (t["wire_ops"], t["inter_messages"], g["inter_messages"], t["bytes"]) != (
+                    ops, inter_t, inter_g, nbytes):
+                fail(f"[tiered] {s.nranks} ranks: want {ops} ops, {nbytes} bytes a rank, "
+                     f"{inter_t} against {inter_g} slow-tier messages; got {row}")
+        ms = {"tiered": [], "grouped": []}
+        for sched in ("tiered", "grouped", "grouped", "tiered"):
+            x, p = xs[sched]
+            ms[sched].append(wall_ms(torch, lambda: halo_exchange(x, s, comm, plan=p), 5))
+        row["ms"] = ms
+        if s.nranks == 8:
+            # a reshape: the pins recorded under blocked(8, 4) are pruned,
+            # and the exchange is planned again under blocked(8, 2)
+            dc = DecisionCache()
+            rcomm = Communicator(device=dev, params=synthetic_two_tier(measured), decisions=dc,
+                                 topology=topo)
+            old = make_halo_plan(s, rcomm)
+            rows_before = len(dc.log)
+            new_topo = Topology.blocked(8, 2)
+            report = replan_on_remesh(rcomm, new_topo)
+            if report.npruned < 1 or rcomm.model.topology != new_topo:
+                fail(f"[tiered] replan pruned nothing: {report}")
+            new = make_halo_plan(s, rcomm)
+            if new.wire.fingerprint == old.wire.fingerprint:
+                fail("[tiered] the plan did not change with the topology")
+            x = start.clone()
+            p, ops, nbytes = exchange(rcomm, s, x, new, "tiered", count=True)
+            if not torch.equal(x, want) or (ops, nbytes) != (p.wire.wire_ops,
+                                                            p.wire.issued_bytes):
+                fail("[tiered] the exchange planned after the replan differs from the "
+                     "periodic field or from its plan's counts")
+            out["replan"] = {"old": topo.fingerprint, "new": new_topo.fingerprint,
+                             "rows_before": rows_before, "pruned": list(report.pruned),
+                             "rows_after": len(dc.log), "old_schedule": old.wire.schedule,
+                             "new_schedule": new.wire.schedule,
+                             "new_link_classes": new.wire.link_classes,
+                             "new_tier_bundles": new.wire.tier_bundles,
+                             "tiered_bytes": nbytes, "tiered_ops": ops}
+            del x
+        out["grids"][f"{s.nranks}"] = row
+        del start, want, xs
+        torch.cuda.empty_cache()
+    zero = [k for k, v in counts.items() if v == 0]
+    if zero:
+        fail(f"kernels never launched through a tiered exchange: {zero}")
+    out["launches"] = counts
+
+    # the link-class sweep on the card, and the model's picks at 8 ranks
+    topo = Topology.blocked(8, 4)
+    t0 = time.perf_counter()
+    tables = measure_link_class_tables(topo, iters=20, device=dev)
+    out["link_sweep_s"] = time.perf_counter() - t0
+    fits = {cls: fit_latency_bandwidth(rows) for cls, rows in tables.items()}
+    if set(tables) != {"intra", "inter"}:
+        fail(f"[tiered] link-class sweep measured {sorted(tables)}")
+    out["link_tables"], out["link_fits"] = tables, fits
+    picks = {}
+    for name, params in (("card", measured),
+                         ("card_link_tables", dataclasses.replace(
+                             measured, link_tables=tables, link_fits=fits)),
+                         ("card_two_tier", synthetic_two_tier(measured))):
+        comm = Communicator(device=dev, params=params, topology=topo)
+        plan = make_halo_plan(spec, comm)
+        picks[name] = {"schedule": plan.wire.schedule,
+                       "priced": comm.model.price_wire_schedules(plan.wire)}
+    if picks["card"]["schedule"] not in ("grouped", "uniform"):
+        fail(f"[tiered] under the card's tables the model picks {picks['card']['schedule']}")
+    out["picks"] = picks
+    ladder = scale_ladder(PerfModel(synthetic_two_tier(measured)), SCALE_RANKS, 8,
+                          interior=spec.interior, radius=spec.radius, pin=False)
+    out["ladder"] = [{"ranks": e.ranks, "nodes": e.nodes, "grid": e.grid,
+                      "schedule": e.schedule, "costs": e.costs,
+                      "inter_messages": e.inter_messages, "wire_bytes": e.wire_bytes,
+                      "correction_bytes": e.correction_bytes} for e in ladder]
+    out["phase_s"] = time.perf_counter() - t_phase
+
+    def span(v):
+        return f"{min(v):.3f}-{max(v):.3f}"
+
+    print("[tiered] " + "; ".join(
+        f"{n} ranks ({r['ranks_per_node']} a node): tiered {r['tiered']['wire_ops']} ops, "
+        f"{r['tiered']['bytes']} bytes a rank, {r['tiered']['inter_messages']} slow-tier "
+        f"messages against grouped's {r['grouped']['inter_messages']}, ms tiered "
+        f"{span(r['ms']['tiered'])} grouped {span(r['ms']['grouped'])} (one card: both tiers "
+        f"are HBM)" for n, r in out["grids"].items())
+        + f"; all torch.equal to grouped and the periodic field; link sweep fits "
+        + ", ".join(f"{c} {f[0] if f[0] is None else f'{f[0] * 1e6:.2f} us'} + n / "
+                    f"{f[1] if f[1] is None else f'{f[1] / 1e9:.1f} GB/s'}"
+                    for c, f in fits.items())
+        + "; picks " + ", ".join(f"{k} {v['schedule']}" for k, v in picks.items())
+        + "; ladder " + ", ".join(f"{e['ranks']}:{e['schedule']}" for e in out["ladder"])
+        + f"; replan pruned {len(out['replan']['pruned'])} rows; launches {counts}; phase "
+        f"{out['phase_s']:.1f} s; {card}")
+    print(json.dumps({"tiered": out}))
+    return counts
+
+
 def plan_launches(plan, comm):
     """Kernel launches one exchange of ``plan`` on ``comm`` makes: per
     region, a pack by its send strategy (for ``bounding``, the receiver's
@@ -1813,6 +2029,7 @@ def main() -> int:
     program = phase_program(torch, dev, spec, card, measured)
     dist = phase_dist(torch, dev, card)
     compress = phase_compress(torch, dev, spec, card)
+    tiered = phase_tiered(torch, dev, spec, card, measured)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -1820,10 +2037,12 @@ def main() -> int:
         mine = [f for f in faces if f["kernel"] == kernel]
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": counts[kernel] + program[kernel] + dist[kernel] + compress[kernel],
+            "launches": (counts[kernel] + program[kernel] + dist[kernel] + compress[kernel]
+                         + tiered[kernel]),
             "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
             "launches_dist": dist[kernel], "launches_compress": compress[kernel],
+            "launches_tiered": tiered[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

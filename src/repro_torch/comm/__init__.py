@@ -37,11 +37,19 @@ from repro_torch.comm.perfmodel import (
     ProgramEstimate,
     StrategyEstimate,
     SystemParams,
+    synthetic_two_tier,
 )
 from repro_torch.comm.distributed import DistributedTransport
-from repro_torch.comm.topology import Topology
+from repro_torch.comm.scale import ScaleEstimate, ScalePlan, build_scale_plan, scale_ladder
+from repro_torch.comm.topology import LINK_CLASSES, Topology, classify_and_coalesce
 from repro_torch.comm.transport import LocalMeshTransport
-from repro_torch.comm.wireplan import WireGroup, WirePlan, plan_wire, reschedule
+from repro_torch.comm.wireplan import (
+    WIRE_SCHEDULES,
+    WireGroup,
+    WirePlan,
+    plan_wire,
+    reschedule,
+)
 
 # the compressed-wire strategies ship registered, as in the reference:
 # int8wire is never auto-picked; rlewire is priced at its capacity
@@ -62,6 +70,7 @@ __all__ = [
     "H100_ANALYTIC",
     "INT8_WIRE",
     "Int8Wire",
+    "LINK_CLASSES",
     "LocalMeshTransport",
     "ModelPolicy",
     "NeighborRequest",
@@ -74,19 +83,26 @@ __all__ = [
     "RLE_WIRE",
     "RleWire",
     "Request",
+    "ScaleEstimate",
+    "ScalePlan",
     "SendRequest",
     "Strategy",
     "StrategyEstimate",
     "StrategyRegistry",
     "SystemParams",
     "Topology",
+    "WIRE_SCHEDULES",
     "WireGroup",
     "WirePlan",
+    "build_scale_plan",
+    "classify_and_coalesce",
     "default_registry",
     "plan_wire",
     "policy_for_mode",
     "register_strategy",
     "reschedule",
     "resolve_strategy",
+    "scale_ladder",
     "static_choice",
+    "synthetic_two_tier",
 ]

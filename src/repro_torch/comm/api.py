@@ -750,6 +750,15 @@ class Communicator:
     decisions: optional :class:`repro_torch.measure.DecisionCache` —
         pins strategy selections (fingerprint-keyed) and records them
         with every priced wire plan in its audit log.
+    topology: optional :class:`repro_torch.comm.topology.Topology`, the
+        rank -> node map of a two-level machine.  Wire plans of as many
+        ranks carry link classes and tier bundles, the model charges the
+        slow tier per crossing class, the ``tiered`` schedule joins the
+        candidates, and every wire and program decision gains the
+        topology fingerprint (``repro_torch.train.elastic.replan_on_remesh``
+        re-prices when it changes).
+    axis_name: the mesh axis whose measured wire table
+        (``SystemParams.wire_tables``) prices the links by default.
     """
 
     def __init__(
@@ -761,6 +770,8 @@ class Communicator:
         transport=None,
         device=None,
         decisions=None,
+        topology=None,
+        axis_name: Optional[str] = None,
     ):
         if transport is None:
             self.device = resolve_device("cuda" if device is None else device)
@@ -773,7 +784,7 @@ class Communicator:
         self.transport = transport
         self.registry = registry or TypeRegistry()
         self.strategies = strategies or default_registry()
-        self.model = PerfModel(params, decisions=decisions)
+        self.model = PerfModel(params, decisions=decisions, axis=axis_name, topology=topology)
         self.policy = policy or ModelPolicy()
         # per-delta-class wire accounting, keyed "<plan fp>/c<class>":
         # issue counts and exact bytes per class, and the 1-based drain
@@ -922,6 +933,7 @@ class Communicator:
             fingerprints=tuple(s.fingerprint for s in segs),
             uniform_waste_tolerance=uniform_waste_tolerance,
             native=native,
+            topology=self.model.topology,
         )
         if probe is not None and any(s.supports_varlen for s in strats):
             # stream lengths attach after planning, so plan_wire stays

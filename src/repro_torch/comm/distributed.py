@@ -19,6 +19,12 @@ reference's ``_issue_wire`` (``repro.comm.api``) one schedule at a time:
 ``varlen``   the same with each class's probed stream length as its
              split size on a fused plan, else one pair per class as
              ``grouped`` cut at the stream lengths;
+``tiered``   one pair per class that rides no tier bundle, as
+             ``grouped``; one pair per bundle carrying its members'
+             payloads concatenated, to the representative's destination
+             (the right peer node); then one pair per other member, the
+             intra-node correction hop that forwards its part to its true
+             rank;
 ``permute``  one ``batch_isend_irecv`` to this rank's destination and
              from its source; a rank that no edge reaches gets zeros.
 
@@ -47,7 +53,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.transport import stream_sizes, unported_schedule
+from repro_torch.comm.transport import correction_perm, stream_sizes, tier_members
 from repro_torch.device import resolve_device
 
 __all__ = ["DistributedTransport", "BACKEND_DEVICE", "check_backend_device"]
@@ -195,15 +201,61 @@ class DistributedTransport:
                 if on_class is not None:
                     on_class(g)
             return out
+        if sched == "tiered":
+            return self._tiered(wire, plan, on_class)
         if sched == "uniform":
             out = self._uniform(wire, plan)
         elif sched == "ragged":
             out = self._ragged(wire, plan, sizes)
         else:
-            raise unported_schedule(sched)
+            raise ValueError(f"unknown wire schedule {sched!r}")
         if on_class is not None:
             for g in range(len(out)):
                 on_class(g)
+        return out
+
+    def _tiered(self, wire: torch.Tensor, plan,
+                on_class: Optional[Callable[[int], None]]) -> List[torch.Tensor]:
+        # the reference's two-level transport, from this rank's side: the
+        # bundle's receive must land before its parts are forwarded, so
+        # each op is waited on before the next is issued
+        rep = tier_members(plan)
+        me = self.rank
+        out: List[Optional[torch.Tensor]] = [None] * plan.ngroups
+
+        def slot(g):
+            goff = plan.group_offsets[g]
+            return wire[0, goff : goff + plan.groups[g].nbytes]
+
+        def send(payload, perm):
+            dst = dict(perm)[me]
+            src = next(s for s, d in perm if d == me)
+            recv = torch.empty((1, payload.shape[0]), dtype=torch.uint8, device=wire.device)
+            works = self._p2p(payload, dst, recv[0], src)
+            self._count(payload.shape[0])
+            self._wait(works)
+            return recv
+
+        def done(g, rows):
+            out[g] = rows
+            if on_class is not None:
+                on_class(g)
+
+        for g, grp in enumerate(plan.groups):
+            if g not in rep:
+                done(g, send(slot(g), grp.perm))
+        for b in plan.tier_bundles:
+            g0 = b[0]
+            payload = torch.cat([slot(g) for g in b]) if len(b) > 1 else slot(g0)
+            got = send(payload.contiguous(), plan.groups[g0].perm)
+            off = 0
+            for g in b:
+                n = plan.groups[g].nbytes
+                part = got[:, off : off + n]
+                off += n
+                if g != g0:
+                    part = send(part[0].contiguous(), correction_perm(plan, g, g0))
+                done(g, part)
         return out
 
     def _uniform(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:

@@ -30,6 +30,7 @@ import math
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
+from repro_torch.comm.topology import Topology
 from repro_torch.core.commit import CommittedType
 
 __all__ = [
@@ -39,6 +40,7 @@ __all__ = [
     "OverlapEstimate",
     "PerfModel",
     "H100_ANALYTIC",
+    "synthetic_two_tier",
 ]
 
 #: 2D measured table rows: (log2_contig_block_bytes, log2_total_bytes, sec)
@@ -50,17 +52,10 @@ Table1D = Tuple[Tuple[float, float], ...]
 _REFERENCE_FIELDS = {"ici_bw": "link_bw", "ici_latency": "link_latency"}
 _TO_REFERENCE = {v: k for k, v in _REFERENCE_FIELDS.items()}
 
-#: reference tables of later roadmap items: a non-empty one is refused
-#: rather than silently priced as if it were absent
-_LATER_FIELDS = {
-    "wire_tables": "Queue 1, measurement: the per-axis sweeps",
-    "wire_fits": "Queue 1, measurement: the per-axis sweeps",
-    "link_tables": "Queue 1, hierarchy and scale",
-    "link_fits": "Queue 1, hierarchy and scale",
-}
 
-
-def _freeze2d(v) -> Optional[Dict[str, Table2D]]:
+def _freeze_tables(v) -> Optional[Dict[str, Tuple]]:
+    """A dict of tables (2D per strategy, or 1D per axis or link class)
+    frozen into tuples."""
     if not v:
         return None
     return {k: tuple(tuple(row) for row in rows) for k, rows in v.items()}
@@ -70,6 +65,12 @@ def _freeze1d(v) -> Optional[Table1D]:
     if not v:
         return None
     return tuple(tuple(row) for row in v)
+
+
+def _freeze_fits(v) -> Optional[Dict[str, Tuple]]:
+    if not v:
+        return None
+    return {k: tuple(fit) for k, fit in v.items()}
 
 
 @dataclass(frozen=True)
@@ -103,6 +104,18 @@ class SystemParams:
     # hop latency and the rate past the measured grid
     wire_latency: Optional[float] = None
     wire_bw: Optional[float] = None
+    # per-mesh-axis wire sweeps: a mesh whose axes ride different links
+    # prices t_link(axis=...) from the matching table; the flat
+    # wire_table stays the axis-agnostic fallback
+    wire_tables: Optional[Dict[str, Table1D]] = None
+    wire_fits: Optional[Dict[str, Tuple]] = None  # axis -> (latency, bw)
+    # per-link-class wire sweeps of a two-level machine (a fast intra-node
+    # and a slow inter-node tier): t_link(link_class=...) reads these
+    # before the per-axis and flat tables.  Keys are "<class>" or
+    # "<axis>/<class>" for class in repro_torch.comm.topology.LINK_CLASSES;
+    # without them the flat table prices every class as ``intra``
+    link_tables: Optional[Dict[str, Table1D]] = None
+    link_fits: Optional[Dict[str, Tuple]] = None  # key -> (latency, bw)
     # one stencil application over (log2 neighbours, log2 window bytes):
     # prices the deep-halo programs' redundant compute and the overlap
     # modes' regions
@@ -115,12 +128,16 @@ class SystemParams:
 
     def __post_init__(self):
         # normalize list-of-lists (JSON) into hashable tuple tables
-        object.__setattr__(self, "pack_table", _freeze2d(self.pack_table))
-        object.__setattr__(self, "unpack_table", _freeze2d(self.unpack_table))
+        object.__setattr__(self, "pack_table", _freeze_tables(self.pack_table))
+        object.__setattr__(self, "unpack_table", _freeze_tables(self.unpack_table))
         object.__setattr__(self, "wire_table", _freeze1d(self.wire_table))
         object.__setattr__(self, "copy_table", _freeze1d(self.copy_table))
+        object.__setattr__(self, "wire_tables", _freeze_tables(self.wire_tables))
+        object.__setattr__(self, "wire_fits", _freeze_fits(self.wire_fits))
+        object.__setattr__(self, "link_tables", _freeze_tables(self.link_tables))
+        object.__setattr__(self, "link_fits", _freeze_fits(self.link_fits))
         object.__setattr__(self, "stencil_table", _freeze1d(self.stencil_table))
-        object.__setattr__(self, "compress_table", _freeze2d(self.compress_table))
+        object.__setattr__(self, "compress_table", _freeze_tables(self.compress_table))
 
     def to_json(self) -> str:
         """JSON under the reference's field names (``ici_bw``,
@@ -137,7 +154,7 @@ class SystemParams:
     def from_reference(**fields) -> "SystemParams":
         """Parameters from the reference's ``SystemParams`` field values
         (``ici_bw``/``ici_latency`` become ``link_bw``/``link_latency``).
-        A non-empty table of a later roadmap item raises."""
+        A non-empty value of a field the port does not know raises."""
         known = {f.name for f in dataclasses.fields(SystemParams)}
         out = {}
         for k, v in fields.items():
@@ -145,13 +162,57 @@ class SystemParams:
             if k in known:
                 out[k] = v
             elif v:
-                later = _LATER_FIELDS.get(k, "no roadmap item")
-                raise ValueError(f"reference field {k!r} is not ported yet (ROADMAP {later})")
+                raise ValueError(f"unknown reference field {k!r}")
         return SystemParams(**out)
 
 
 #: the default table: one H100 SXM, analytic and unmeasured
 H100_ANALYTIC = SystemParams(name="h100_sxm_analytic_unmeasured")
+
+
+def synthetic_two_tier(
+    params: SystemParams,
+    latency_factor: float = 20.0,
+    bandwidth_factor: float = 4.0,
+) -> SystemParams:
+    """A two-tier parameter set from single-tier measurements.
+
+    One card has no second node, but simulated-scale pricing needs an
+    ``inter`` tier to price.  This takes the params' flat wire sweep as
+    the ``intra`` table and makes the ``inter`` table by degrading it:
+    each row's time becomes ``t * bandwidth_factor + (latency_factor - 1)
+    * lat0``, with ``lat0`` the fitted (or analytic) one-hop latency: a
+    link ``bandwidth_factor`` x thinner and ``latency_factor`` x laggier.
+    ``latency_factor = bandwidth_factor = 1`` gives ``inter == intra``
+    exactly, the oracle under which tier-aware pricing must reproduce
+    flat pricing bit for bit.
+    """
+    table = params.wire_table
+    lat0 = params.wire_latency
+    bw0 = params.wire_bw
+    if not table:
+        # no sweep calibrated: a two-point analytic table keeps the tiers
+        # priceable
+        lat0 = params.link_latency
+        bw0 = params.link_bw
+        table = tuple(
+            (float(x), lat0 + (2.0 ** x) / bw0) for x in (10.0, 22.0)
+        )
+    if lat0 is None:
+        lat0 = params.link_latency
+    extra_lat = (latency_factor - 1.0) * lat0
+    inter = tuple(
+        (x, t * bandwidth_factor + extra_lat) for x, t in table
+    )
+    link_fits = {}
+    if lat0 is not None and bw0 is not None:
+        link_fits["intra"] = (lat0, bw0)
+        link_fits["inter"] = (lat0 * latency_factor, bw0 / bandwidth_factor)
+    return dataclasses.replace(
+        params,
+        link_tables={"intra": table, "inter": inter},
+        link_fits=link_fits or None,
+    )
 
 
 @dataclass(frozen=True)
@@ -317,11 +378,22 @@ class PerfModel:
     §4/§6.3).  With a ``decisions`` cache
     (:class:`repro_torch.measure.DecisionCache`) a recorded selection is
     pinned instead of re-derived, and every new one is recorded.
+
+    ``axis`` names the mesh axis whose wire table prices ``t_link`` by
+    default (a per-call ``axis`` overrides it).  ``topology`` (a
+    :class:`~repro_torch.comm.topology.Topology`, rank -> node) annotates
+    the plans the communicator lays out: each delta class is priced by
+    the slowest tier it crosses, and the ``tiered`` schedule becomes a
+    candidate; ``repro_torch.train.elastic.replan_on_remesh`` rebinds it
+    when the machine reshapes.
     """
 
-    def __init__(self, params: SystemParams = H100_ANALYTIC, decisions=None):
+    def __init__(self, params: SystemParams = H100_ANALYTIC, decisions=None,
+                 axis: Optional[str] = None, topology: Optional[Topology] = None):
         self.params = params
         self.decisions = decisions
+        self.axis = axis
+        self.topology = topology
         self._cache: Dict[Tuple, StrategyEstimate] = {}
         # interpolators, built once per measured table and keyed by the
         # (frozen, hashable) table, so they live as long as this model
@@ -393,60 +465,151 @@ class PerfModel:
         )
 
     # -- link term ------------------------------------------------------
-    def _hop_latency(self) -> float:
-        lat = self.params.wire_latency
+    def _axis_wire(self, axis: Optional[str]):
+        """(table, fitted latency, fitted bw) pricing one link on
+        ``axis`` (default: the model's bound axis): the per-axis sweep
+        when one covers the axis, else the flat axis-agnostic table."""
+        p = self.params
+        axis = axis if axis is not None else self.axis
+        if axis is not None and p.wire_tables and axis in p.wire_tables:
+            fit = (p.wire_fits or {}).get(axis) or (None, None)
+            return p.wire_tables[axis], fit[0], fit[1]
+        return p.wire_table, p.wire_latency, p.wire_bw
+
+    def _class_wire(self, axis: Optional[str], link_class: Optional[str]):
+        """(table, fitted latency, fitted bw) for one link class of the
+        two-level hierarchy: the ``"<axis>/<class>"`` sweep when one
+        covers it, else the class-wide ``"<class>"`` sweep, else the
+        per-axis and flat fallback, so a flat calibration prices every
+        class as ``intra`` and ``link_class=None`` is the flat model."""
+        p = self.params
+        if link_class is not None and p.link_tables:
+            a = axis if axis is not None else self.axis
+            keys = ((f"{a}/{link_class}",) if a is not None else ())
+            for key in keys + (link_class,):
+                if p.link_tables.get(key):
+                    fit = (p.link_fits or {}).get(key) or (None, None)
+                    return p.link_tables[key], fit[0], fit[1]
+        return self._axis_wire(axis)
+
+    def _hop_latency(self, axis: Optional[str] = None) -> float:
+        _, lat, _ = self._axis_wire(axis)
         return lat if lat is not None else self.params.link_latency
 
-    def t_link(self, nbytes: int, hops: int = 1) -> float:
+    def t_link(self, nbytes: int, hops: int = 1, axis: Optional[str] = None,
+               link_class: Optional[str] = None) -> float:
         p = self.params
-        if p.wire_table:
+        table, wire_lat, wire_bw = self._class_wire(axis, link_class)
+        if table:
             # measured one-hop collective time; extra hops add the fitted
             # (or analytic) latency floor, not another bandwidth term
-            interp = self._interp_for(p.wire_table, _Interp1D)
+            interp = self._interp_for(table, _Interp1D)
             x = math.log2(max(nbytes, 1))
             t = interp(x)
             end = float(interp.xs[-1])
             if x > end:
                 # past the measured grid: the fitted (or analytic) rate
                 # for the excess bytes instead of a flat clamp
-                bw = p.wire_bw if p.wire_bw else p.link_bw
+                bw = wire_bw if wire_bw else p.link_bw
                 t += (nbytes - 2.0 ** end) / bw
-            return t + (hops - 1) * self._hop_latency()
+            lat = wire_lat if wire_lat is not None else p.link_latency
+            return t + (hops - 1) * lat
         return hops * p.link_latency + nbytes / p.link_bw
 
     # -- exchange pricing (exact-byte wire plans) -----------------------
-    def _price_schedule(self, plan, schedule: str) -> float:
-        """Predicted seconds of ``plan``'s layout under ``schedule``: the
-        link term on the bytes the schedule issues plus one hop latency
-        per extra collective."""
+    def _tier_surcharge(self, nbytes: int, axis: Optional[str]) -> float:
+        """Extra seconds ``nbytes`` cost for crossing the slow tier
+        instead of the fast one: exactly 0.0 when the tiers price equally
+        (the inter == intra oracle), clamped at 0 so a noisy calibration
+        never pays a plan to cross nodes."""
+        return max(
+            0.0,
+            self.t_link(nbytes, 1, axis, link_class="inter")
+            - self.t_link(nbytes, 1, axis, link_class="intra"),
+        )
+
+    def _price_schedule(self, plan, schedule: str, axis: Optional[str] = None) -> float:
+        """Predicted seconds of ``plan``'s layout under ``schedule``.
+
+        A flat plan (no ``link_classes``) pays the link term on the bytes
+        the schedule issues plus one hop latency per extra collective.
+        An annotated plan prices each delta class by the slowest tier it
+        crosses: the base stays on the fast (``intra``) tier, and every
+        inter class (grouped, varlen), coalesced bundle (tiered) or whole
+        fused collective with an inter edge (uniform, ragged) adds the
+        tier surcharge for its bytes.  With ``inter == intra`` tables
+        every surcharge is 0.0 and the annotated prices equal the flat
+        ones bit for bit.
+        """
+        lat = self._hop_latency(axis)
+        lc = getattr(plan, "link_classes", None)
+        base_class = "intra" if lc else None
         if schedule == "grouped":
-            t = self.t_link(plan.wire_bytes, 1)
-            return t + (plan.ngroups - 1) * self._hop_latency()
-        if schedule == "uniform":
-            return self.t_link(plan.nranks * plan.seg_bytes, 1)
-        if schedule == "ragged":
-            return self.t_link(plan.wire_bytes, 1)
+            t = self.t_link(plan.wire_bytes, 1, axis, link_class=base_class)
+            t += (plan.ngroups - 1) * lat
+            if lc:
+                for g, c in enumerate(lc):
+                    if c == "inter":
+                        t += self._tier_surcharge(plan.groups[g].nbytes, axis)
+            return t
+        if schedule == "tiered":
+            if not lc:
+                raise ValueError("schedule 'tiered' needs a topology-annotated plan")
+            # grouped's price with the per-class slow-tier surcharges
+            # swapped for per-bundle ones (one slow message per peer
+            # node), plus the fast tier for the correction bytes every
+            # non-representative member re-sends on its node
+            t = self._price_schedule(plan, "grouped", axis)
+            for g, c in enumerate(lc):
+                if c == "inter":
+                    t -= self._tier_surcharge(plan.groups[g].nbytes, axis)
+            for b in plan.tier_bundles:
+                t += self._tier_surcharge(
+                    sum(plan.groups[g].nbytes for g in b), axis
+                )
+            t += max(
+                0.0,
+                self.t_link(plan.wire_bytes + plan.correction_bytes, 1,
+                            axis, link_class="intra")
+                - self.t_link(plan.wire_bytes, 1, axis, link_class="intra"),
+            )
+            return t
         if schedule == "varlen":
             # the grouped transport with each class cut at its probed
             # stream length: the link term on the stream bytes, the
             # per-class latencies stay (the codec's cost rides the
             # strategy estimates, as pack costs do for every schedule)
-            if len(plan.stream_bytes) != plan.ngroups:
+            stream = getattr(plan, "stream_bytes", ())
+            if len(stream) != plan.ngroups:
                 raise ValueError("schedule 'varlen' needs a stream-annotated plan")
-            t = self.t_link(sum(plan.stream_bytes), 1)
-            return t + (plan.ngroups - 1) * self._hop_latency()
-        if schedule == "tiered":
-            raise NotImplementedError(
-                "schedule 'tiered' is not ported yet (ROADMAP Queue 1, hierarchy and scale)"
-            )
-        raise ValueError(f"unknown wire schedule {schedule!r}")
+            t = self.t_link(sum(stream), 1, axis, link_class=base_class)
+            t += (plan.ngroups - 1) * lat
+            if lc:
+                for g, c in enumerate(lc):
+                    if c == "inter":
+                        t += self._tier_surcharge(stream[g], axis)
+            return t
+        if schedule == "uniform":
+            issued = plan.nranks * plan.seg_bytes
+        elif schedule == "ragged":
+            issued = plan.wire_bytes
+        else:
+            raise ValueError(f"unknown wire schedule {schedule!r}")
+        t = self.t_link(issued, 1, axis, link_class=base_class)
+        if lc and any(c == "inter" for c in lc):
+            # one fused collective completes at its slowest edge: the
+            # whole issued payload pays the slow tier
+            t += self._tier_surcharge(issued, axis)
+        return t
 
     def price_exchange(self, plan, note: str = "") -> StrategyEstimate:
         """Price a :class:`~repro_torch.comm.wireplan.WirePlan`: the link
         term for the bytes its schedule actually issues, plus the
-        per-extra-collective latency of the grouped schedule.  The
-        estimate is recorded once per plan fingerprint in the attached
-        decision cache; ``note`` is appended to its signature."""
+        per-extra-collective latency of the grouped schedule (and the
+        slow-tier surcharges of a topology-annotated plan).  The estimate
+        is recorded once per plan fingerprint in the attached decision
+        cache, with ``topo=<fingerprint>`` when a topology annotated the
+        plan; ``note`` is appended to its signature."""
         t = self._price_schedule(plan, plan.schedule)
         est = StrategyEstimate(
             f"wire/{plan.schedule}", 0.0, t, 0.0, wire_bytes=plan.issued_bytes
@@ -454,6 +617,8 @@ class PerfModel:
         if self.decisions is not None:
             key = (plan.fingerprint, plan.ngroups, plan.wire_ops, True)
             if self.decisions.lookup(*key) is None:
+                topo = getattr(plan, "topology", None)
+                topo_tag = f" topo={topo.fingerprint}" if topo is not None else ""
                 stream_tag = ""
                 if plan.schedule == "varlen":
                     stream_tag = (f" stream_bytes={plan.effective_wire_bytes}"
@@ -464,32 +629,39 @@ class PerfModel:
                     signature=(
                         f"exchange schedule={plan.schedule}"
                         f" groups={plan.ngroups} ranks={plan.nranks}"
-                        f" ragged_bytes={plan.wire_bytes}{stream_tag}{note}"
+                        f" ragged_bytes={plan.wire_bytes}"
+                        f"{stream_tag}{topo_tag}{note}"
                     ),
                 )
         return est
 
-    def price_wire_schedules(self, plan, native: bool = False) -> Dict[str, float]:
+    def price_wire_schedules(self, plan, native: bool = False,
+                             axis: Optional[str] = None) -> Dict[str, float]:
         """Predicted seconds for every wire schedule that could carry the
         plan's layout: ``grouped`` always; ``varlen`` when a probe
         annotated the plan with streams shorter than its capacity;
+        ``tiered`` when a topology annotated it with tier bundles;
         ``uniform`` (and ``ragged`` when the transport has it natively)
         for a fused plan below the large-grid threshold.  ``grouped``
-        comes first so exact ties resolve to it."""
+        comes first so exact ties resolve to it: coalescing must win,
+        not draw, to buy its correction hops."""
         from repro_torch.comm.wireplan import GROUPED_FALLBACK_RANK_FACTOR
 
-        costs = {"grouped": self._price_schedule(plan, "grouped")}
-        stream = plan.stream_bytes
+        costs = {"grouped": self._price_schedule(plan, "grouped", axis)}
+        stream = getattr(plan, "stream_bytes", ())
         if len(stream) == plan.ngroups and sum(stream) < plan.wire_bytes:
-            costs["varlen"] = self._price_schedule(plan, "varlen")
+            costs["varlen"] = self._price_schedule(plan, "varlen", axis)
+        lc = getattr(plan, "link_classes", None)
+        if lc and plan.tier_bundles:
+            costs["tiered"] = self._price_schedule(plan, "tiered", axis)
         oversize = (
             plan.ngroups
             and plan.nranks > GROUPED_FALLBACK_RANK_FACTOR * plan.ngroups
         )
         if plan.fused and not oversize:
-            costs["uniform"] = self._price_schedule(plan, "uniform")
+            costs["uniform"] = self._price_schedule(plan, "uniform", axis)
             if native:
-                costs["ragged"] = self._price_schedule(plan, "ragged")
+                costs["ragged"] = self._price_schedule(plan, "ragged", axis)
         return costs
 
     def choose_wire_schedule(self, plan, native: bool = False):
@@ -500,6 +672,91 @@ class PerfModel:
         costs = self.price_wire_schedules(plan, native)
         best = min(costs, key=costs.get)
         return reschedule(plan, best), costs
+
+    # -- simulated-scale pricing -----------------------------------------
+    def at_scale(
+        self,
+        ranks: int,
+        nodes: Optional[int] = None,
+        *,
+        ranks_per_node: Optional[int] = None,
+        interior: Tuple[int, int, int] = (8, 8, 8),
+        radius: int = 1,
+        element_bytes: int = 4,
+        axis: Optional[str] = None,
+        native: Optional[bool] = None,
+        pin: bool = True,
+    ):
+        """Price the halo exchange of the paper's scaling study, a 3D
+        periodic stencil on a ``ranks``-process grid, from the tables
+        alone, with no devices.  ``nodes`` (or ``ranks_per_node``) shapes
+        the two-level topology; the process grid is the pencil
+        decomposition ``(nodes, fy, fx)`` with one leading-axis slab per
+        node (see :mod:`repro_torch.comm.scale`).  ``native``: whether the
+        transport has a native ragged all-to-all (None: no, as on the
+        local mesh).
+
+        The winning schedule is pinned as a ``wire/<schedule>`` decision
+        keyed by a fingerprint that includes the topology's: an existing
+        pin short-circuits the choice (``pinned=True``), so an elastic
+        replan (:func:`repro_torch.train.elastic.replan_on_remesh`)
+        provably re-prices.  Returns a
+        :class:`repro_torch.comm.scale.ScaleEstimate`.
+        """
+        from repro_torch.comm.scale import ScaleEstimate, build_scale_plan
+
+        ranks = int(ranks)
+        if ranks_per_node is None:
+            nodes = int(nodes) if nodes else 1
+            if ranks % nodes:
+                raise ValueError(f"ranks={ranks} does not split over nodes={nodes}")
+            ranks_per_node = ranks // nodes
+        plan = build_scale_plan(
+            ranks, ranks_per_node, interior=interior, radius=radius,
+            element_bytes=element_bytes,
+        )
+        costs = self.price_wire_schedules(plan, bool(native), axis)
+        best = min(costs, key=costs.get)
+        key_src = (
+            "atscale.v1", ranks, plan.topology.nnodes, plan.grid,
+            tuple(interior), int(radius), int(element_bytes),
+            plan.topology.fingerprint,
+        )
+        fp = hashlib.sha256(repr(key_src).encode()).hexdigest()[:16]
+        pinned = False
+        if pin and self.decisions is not None:
+            row = self.decisions.lookup(fp, 0, 1, True)
+            if row is not None and row.strategy.startswith("wire/"):
+                sched = row.strategy.split("/", 1)[1]
+                if sched in costs:
+                    best, pinned = sched, True
+            if not pinned:
+                self.decisions.record(
+                    fp, 0, 1, True,
+                    StrategyEstimate(
+                        f"wire/{best}", 0.0, costs[best], 0.0,
+                        wire_bytes=plan.wire_bytes,
+                    ),
+                    signature=(
+                        f"atscale ranks={ranks} nodes={plan.topology.nnodes}"
+                        f" grid={plan.grid} classes={plan.ngroups}"
+                        f" topo={plan.topology.fingerprint} "
+                        + " ".join(f"{s}:{c:.3e}" for s, c in sorted(costs.items()))
+                    ),
+                )
+        n_inter = sum(1 for c in plan.link_classes if c == "inter")
+        return ScaleEstimate(
+            ranks=ranks,
+            nodes=plan.topology.nnodes,
+            grid=plan.grid,
+            schedule=best,
+            costs=dict(costs),
+            wire_bytes=plan.wire_bytes,
+            correction_bytes=plan.correction_bytes,
+            inter_messages={"grouped": n_inter, "tiered": len(plan.tier_bundles)},
+            fingerprint=fp,
+            pinned=pinned,
+        )
 
     # -- region-split overlap pricing -----------------------------------
     def _stencil_seconds(self, n_neighbors: int, nbytes: int) -> float:

@@ -51,12 +51,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["LocalMeshTransport", "stream_sizes", "unported_schedule"]
-
-#: the schedules a plan can carry that no transport issues yet
-_UNPORTED = {
-    "tiered": "ROADMAP Queue 1, hierarchy and scale",
-}
+__all__ = ["LocalMeshTransport", "stream_sizes", "tier_members", "correction_perm"]
 
 
 def stream_sizes(plan) -> tuple:
@@ -67,13 +62,23 @@ def stream_sizes(plan) -> tuple:
     return plan.stream_bytes
 
 
-def unported_schedule(sched: str) -> Exception:
-    """The error for a schedule no transport issues: NotImplementedError
-    naming its ROADMAP item, or ValueError for an unknown name."""
-    if sched in _UNPORTED:
-        return NotImplementedError(
-            f"the {sched} schedule is not ported yet ({_UNPORTED[sched]})")
-    return ValueError(f"unknown wire schedule {sched!r}")
+def tier_members(plan) -> Dict[int, int]:
+    """Under the ``tiered`` schedule, each bundled delta class -> its
+    bundle's representative (the first member).  Raises on a plan that
+    no topology annotated."""
+    if plan.link_classes is None:
+        raise ValueError("tiered schedule on an unannotated plan")
+    return {g: b[0] for b in plan.tier_bundles for g in b}
+
+
+def correction_perm(plan, g: int, g0: int) -> List[Tuple[int, int]]:
+    """The intra-node correction hop of bundle member ``g`` whose bundle
+    rode representative ``g0``'s permutation: rank ``r``'s class-``g``
+    part landed on ``dst_g0(r)``, which forwards it to ``dst_g(r)``.  It
+    composes two full permutations, so it is one too, over every rank,
+    and its edges stay on one node (the bundle key)."""
+    d0, dg = dict(plan.groups[g0].perm), dict(plan.groups[g].perm)
+    return [(d0[r], dg[r]) for r in range(plan.nranks)]
 
 
 class LocalMeshTransport:
@@ -108,13 +113,24 @@ class LocalMeshTransport:
 
     def _index(self, plan, device) -> Tuple[torch.Tensor, ...]:
         """The plan's index tensors on ``device``, made once per plan:
-        per delta class, the source rank of every row (grouped, varlen);
-        or the send and receive row tables (uniform)."""
+        per delta class, the source rank of every row (grouped, varlen;
+        under tiered, a non-representative bundle member's correction
+        hop); or the send and receive row tables (uniform)."""
         key = (plan.fingerprint, plan.schedule, str(device))
         index = self._plan_index.get(key)
         if index is None:
             if plan.schedule in ("grouped", "varlen"):
                 tables = [[row[g] for row in plan.recv_rows] for g in range(plan.ngroups)]
+            elif plan.schedule == "tiered":
+                rep = tier_members(plan)
+                tables = []
+                for g in range(plan.ngroups):
+                    src = [row[g] for row in plan.recv_rows]
+                    if rep.get(g, g) != g:
+                        src = [0] * plan.nranks
+                        for s, d in correction_perm(plan, g, rep[g]):
+                            src[d] = s
+                    tables.append(src)
             else:
                 tables = [plan.send_rows, plan.recv_rows]
             index = tuple(self._rows(t, device) for t in tables)
@@ -160,15 +176,55 @@ class LocalMeshTransport:
                 if on_class is not None:
                     on_class(g)
             return out
+        if sched == "tiered":
+            return self._tiered(wire, plan, on_class)
         if sched == "uniform":
             out = self._uniform(wire, plan)
         elif sched == "ragged":
             out = self._ragged(wire, plan)
         else:
-            raise unported_schedule(sched)
+            raise ValueError(f"unknown wire schedule {sched!r}")
         if on_class is not None:
             for g in range(len(out)):
                 on_class(g)
+        return out
+
+    def _tiered(self, wire: torch.Tensor, plan,
+                on_class: Optional[Callable[[int], None]]) -> List[torch.Tensor]:
+        # each class that rides no bundle is one gather, as under grouped;
+        # each bundle is one gather of its members' slots, concatenated,
+        # along the representative's permutation; each other member then
+        # takes one intra-node correction gather to its true rank
+        rep = tier_members(plan)
+        index = self._index(plan, wire.device)
+
+        def slot(g):
+            goff = plan.group_offsets[g]
+            return wire[:, goff : goff + plan.groups[g].nbytes]
+
+        def done(g, rows):
+            out[g] = rows
+            if on_class is not None:
+                on_class(g)
+
+        out: List[Optional[torch.Tensor]] = [None] * plan.ngroups
+        for g in range(plan.ngroups):
+            if g not in rep:
+                self._count(plan.groups[g].nbytes)
+                done(g, slot(g).index_select(0, index[g]))
+        for b in plan.tier_bundles:
+            payload = torch.cat([slot(g) for g in b], 1) if len(b) > 1 else slot(b[0])
+            self._count(payload.shape[1])
+            got = payload.index_select(0, index[b[0]])
+            off = 0
+            for g in b:
+                n = plan.groups[g].nbytes
+                part = got[:, off : off + n]
+                off += n
+                if g != b[0]:
+                    self._count(n)
+                    part = part.index_select(0, index[g])
+                done(g, part)
         return out
 
     def _uniform(self, wire: torch.Tensor, plan) -> List[torch.Tensor]:

@@ -24,11 +24,20 @@ cheapest wire **schedule** that can carry that ragged layout:
     ``grouped_fallback_rank_factor`` x the class count, most fused rows
     would be zero, so the plan degrades to per-class sends regardless of
     primitive availability.
-``varlen`` / ``tiered``
-    the length-aware and the hierarchy-coalesced variants of
-    ``grouped``.  Plans carry their annotations (``stream_bytes``,
-    ``link_classes``/``tier_bundles``) exactly as in the reference, but
-    the port's transports do not issue them yet (see ROADMAP).
+``varlen``
+    the length-aware ``grouped``: each class is cut at its probed stream
+    length (``stream_bytes``), so the compressed bytes, not the
+    capacity, are the bytes on the wire.
+``tiered``
+    the hierarchy-aware ``grouped``.  With a
+    :class:`~repro_torch.comm.topology.Topology` annotation, a class
+    whose edges stay on one node rides its own send, but the classes
+    crossing the inter-node tier are coalesced per peer node: each tier
+    bundle travels as one slow-tier message along its representative's
+    permutation, then each other member is forwarded to its true rank by
+    an intra-node correction hop.  Fewer slow-tier messages, bought with
+    ``correction_bytes`` of fast-tier traffic; the model prices the
+    trade, and the exact ladder never picks it.
 
 The layout and the schedule choice are host-side and cached; the
 payload accounting (:attr:`WirePlan.wire_bytes` = the sum of per-peer

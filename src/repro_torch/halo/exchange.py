@@ -21,6 +21,15 @@ place.  Under one process per rank
 process holds its own rank's ``(1, az, ay, ax)`` block and builds the
 same global plan as every other rank.
 
+On a two-level machine (a communicator built with a
+:class:`~repro_torch.comm.topology.Topology`) the same planning pass
+annotates each delta class with the link tier it crosses, and the model
+may pick the ``tiered`` schedule: the classes bound for one peer node
+coalesced into one slow-tier message, forwarded to their true ranks by
+intra-node hops.  The topology rides ``Communicator.plan_neighbor`` into
+the wire plan; nothing here changes but that every rank must hold the
+same one.
+
 Switching the communicator policy between ``baseline`` and ``tempi``
 reproduces the paper's comparison with zero changes here.
 """
@@ -230,6 +239,8 @@ def make_halo_step(spec: HaloSpec, comm: Optional[Communicator] = None, *,
     elif comm.device != dev:
         raise ValueError(f"communicator on {comm.device}; step asked for {dev}")
     plan = make_halo_plan(spec, comm, schedule_policy=schedule_policy)
+    topo = comm.model.topology
+    comm.transport.agree("the topology", topo.fingerprint if topo is not None else "flat")
     comm.transport.agree("the halo plan", plan.wire.fingerprint)
 
     def step(local: torch.Tensor) -> torch.Tensor:

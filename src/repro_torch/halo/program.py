@@ -288,9 +288,9 @@ def build_halo_program(
     ops = as_ops(ops if ops is not None else op)
     if steps is None:
         steps = get_default_halo_steps()
-    # the port's model has no topology yet (ROADMAP Queue 1, hierarchy
-    # and scale): programs are planned flat, under the reference's flat key
-    fp = program_fingerprint(grid, interior, ops, element)
+    topo = comm.model.topology
+    topo_fp = topo.fingerprint if topo is not None else ""
+    fp = program_fingerprint(grid, interior, ops, element, topo_fp)
     decisions = comm.model.decisions
     candidates: Tuple[ProgramEstimate, ...] = ()
     pinned = False
@@ -351,10 +351,11 @@ def build_halo_program(
     if built is None:
         built = _price_candidate(comm, grid, interior, ops, steps, element, schedule_policy)
     spec, plan, estimate = built
+    comm.transport.agree("the topology", topo_fp or "flat")
     comm.transport.agree("the halo program", f"{fp} s={steps} {plan.wire.fingerprint}")
     return HaloProgram(
         spec=spec, ops=ops, steps=steps, plan=plan, estimate=estimate,
-        candidates=candidates, pinned=pinned,
+        candidates=candidates, pinned=pinned, topology_fingerprint=topo_fp,
     )
 
 

@@ -25,7 +25,7 @@ Queue 1); the cycle here is the paper's single 26-point op.
 Run on the CPU in N local processes, or under ``torchrun`` on the card::
 
     python -m repro_torch.launch.stencil3d --nprocs 8 --backend gloo --device cpu \\
-        --interior 8 --iters 1
+        --interior 8 --iters 1 --ranks-per-node 4
     torchrun --nproc-per-node 1 -m repro_torch.launch.stencil3d --interior 256
 """
 
@@ -85,6 +85,11 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--nprocs", type=int, default=None, metavar="N",
                     help="spawn N local processes over a file store; without it the "
                          "rendezvous comes from the environment (torchrun)")
+    ap.add_argument("--ranks-per-node", type=int, default=None, metavar="N",
+                    help="declare the two-level machine shape: ranks are blocked N per "
+                         "node (repro_torch.comm.topology), the model prices intra- and "
+                         "inter-node links apart, and wire and program pins are keyed by "
+                         "the topology fingerprint (default: flat)")
     ap.add_argument("--out", default=None, metavar="FILE.npy",
                     help="rank 0 saves the gathered (R, nz, ny, nx) interiors here")
     args = ap.parse_args(argv)
@@ -124,7 +129,7 @@ def run(args: argparse.Namespace, device) -> Optional[np.ndarray]:
     import torch
     import torch.distributed as dist
 
-    from repro_torch.comm import Communicator, DistributedTransport, policy_for_mode
+    from repro_torch.comm import Communicator, DistributedTransport, Topology, policy_for_mode
     from repro_torch.halo import build_halo_program, make_program_step, parse_halo_steps
     from repro_torch.measure import DecisionCache
 
@@ -136,8 +141,10 @@ def run(args: argparse.Namespace, device) -> Optional[np.ndarray]:
     n = args.interior
     steps = parse_halo_steps(args.halo_steps)
     decisions = DecisionCache.load(args.decisions) if args.decisions else None
+    topology = (Topology.blocked(world, args.ranks_per_node)
+                if args.ranks_per_node else None)
     comm = Communicator(policy=policy_for_mode(args.mode), decisions=decisions,
-                        transport=transport)
+                        transport=transport, topology=topology)
     program = build_halo_program(grid, (n, n, n), comm, steps=steps)
     spec = program.spec
     step = make_program_step(program, comm, device=transport.device, overlap=args.overlap)
@@ -164,7 +171,9 @@ def run(args: argparse.Namespace, device) -> Optional[np.ndarray]:
     est, wire = program.estimate, program.plan.wire
     print(f"mode={args.mode} overlap={args.overlap} ranks={world} "
           f"interior={spec.interior} halo-radius={spec.radii} grid={tuple(grid)} "
-          f"backend={transport.backend} device={transport.device}")
+          f"backend={transport.backend} device={transport.device}"
+          + (f" topo={topology.fingerprint}({topology.nnodes} nodes)"
+             if topology is not None else ""))
     print(f"program: cycle=single (1 op) steps={program.steps} "
           f"({'pinned' if program.pinned else args.halo_steps}), "
           f"exchanges/step={program.exchanges_per_step:.3f}, "

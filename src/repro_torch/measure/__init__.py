@@ -7,8 +7,8 @@ system and used to pick the cheapest strategy transparently.  This
 package owns that data end to end:
 
 * :mod:`repro_torch.measure.bench`       — timed sweeps of the pack,
-  unpack, wire, contiguous-copy, compress and stencil terms
-  (``calibrate_params``);
+  unpack, wire (flat, per mesh axis, per link class), contiguous-copy,
+  compress and stencil terms (``calibrate_params``);
 * :mod:`repro_torch.measure.fingerprint` — the keys everything below is
   stored under: the committed type's content hash, and the system's
   (platform, device name, ranks, torch version);
@@ -33,8 +33,10 @@ from repro_torch.measure.bench import (
     measure_pack_table,
     measure_compress_table,
     measure_stencil_table,
+    measure_link_class_tables,
     measure_unpack_table,
     measure_wire_table,
+    measure_wire_tables,
     time_fn,
 )
 from repro_torch.measure.decisions import DECISIONS_FORMAT, Decision, DecisionCache
@@ -71,9 +73,11 @@ __all__ = [
     "measure_copy_table",
     "measure_pack_table",
     "measure_compress_table",
+    "measure_link_class_tables",
     "measure_stencil_table",
     "measure_unpack_table",
     "measure_wire_table",
+    "measure_wire_tables",
     "production_communicator",
     "system_description",
     "system_fingerprint",

@@ -14,6 +14,9 @@ on the running device:
 * :func:`measure_wire_table` — one ring permutation of the local-mesh
   transport over message sizes, with a least-squares (latency,
   bandwidth) fit (:func:`fit_latency_bandwidth`);
+  :func:`measure_wire_tables` the same ring along each axis of a named
+  mesh, and :func:`measure_link_class_tables` along each link class of a
+  two-level topology;
 * :func:`measure_copy_table` — a contiguous read + write over sizes;
 * :func:`measure_compress_table` — per wire compressor, the encode and
   decode of a zero-heavy payload timed apart, with the bytes the format
@@ -63,6 +66,8 @@ __all__ = [
     "measure_pack_table",
     "measure_unpack_table",
     "measure_wire_table",
+    "measure_wire_tables",
+    "measure_link_class_tables",
     "measure_copy_table",
     "measure_compress_table",
     "measure_stencil_table",
@@ -258,15 +263,105 @@ def measure_wire_table(
     :meth:`~repro_torch.comm.transport.LocalMeshTransport.permute` over
     ``ranks`` ranks, the link the port has.  Rows are (log2 bytes one
     rank sends, sec)."""
-    dev = resolve_device(device)
-    transport = LocalMeshTransport(dev)
     perm = [(i, (i + 1) % ranks) for i in range(ranks)]
+    return _time_permutes(perm, total_bytes, iters, ranks, resolve_device(device))
+
+
+def _time_permutes(perm, total_bytes, iters, ranks, dev) -> List[Tuple[float, float]]:
+    """(log2 bytes one rank sends, sec) of one local-mesh ``permute``
+    along ``perm`` over ``ranks`` ranks, per message size."""
+    transport = LocalMeshTransport(dev)
     rows = []
     for total in total_bytes:
         x = torch.zeros((ranks, total), dtype=torch.uint8, device=dev)
         rows.append((math.log2(total),
                      time_fn(lambda p: transport.permute(p, perm), x, iters=iters)))
+        del x
     return rows
+
+
+def measure_wire_tables(
+    axes: Optional[Dict[str, int]] = None,
+    total_bytes: Sequence[int] = TOTAL_BYTES,
+    iters: int = 5,
+    ranks: int = RANKS,
+    device="cuda",
+) -> Dict[str, List[Tuple[float, float]]]:
+    """One-hop wire sweep per mesh axis.
+
+    ``axes`` maps axis name -> size, in order; their product must be
+    ``ranks``, which are folded row-major into that mesh.  Each axis is
+    timed with a ring along that axis alone (every rank's coordinate on
+    the axis shifts by one, the others stay), one local-mesh ``permute``
+    of all ``ranks`` rows.  Default: one flat ``wire`` axis over every
+    rank (the single-table sweep).  On one card every axis rides the same
+    memory, so the tables come out nearly equal.
+    """
+    dev = resolve_device(device)
+    if axes is None:
+        axes = {"wire": ranks}
+    names = tuple(axes)
+    shape = tuple(int(axes[n]) for n in names)
+    if math.prod(shape) != ranks:
+        raise ValueError(f"mesh {dict(axes)} holds {math.prod(shape)} ranks, not {ranks}")
+    coords = list(np.ndindex(*shape))
+    rank_of = {c: r for r, c in enumerate(coords)}
+    tables: Dict[str, List[Tuple[float, float]]] = {}
+    for ai, name in enumerate(names):
+        perm = []
+        for r, c in enumerate(coords):
+            d = list(c)
+            d[ai] = (d[ai] + 1) % shape[ai]
+            perm.append((r, rank_of[tuple(d)]))
+        tables[name] = _time_permutes(perm, total_bytes, iters, ranks, dev)
+    return tables
+
+
+def measure_link_class_tables(
+    topology,
+    total_bytes: Sequence[int] = TOTAL_BYTES,
+    iters: int = 5,
+    device="cuda",
+) -> Dict[str, List[Tuple[float, float]]]:
+    """Per-link-class one-hop wire sweep.
+
+    ``topology`` is a :class:`repro_torch.comm.topology.Topology`; its
+    ``nranks`` ranks are the rows of one local-mesh tensor.  Two
+    permutations isolate the two tiers of the hierarchy:
+
+    * ``intra``: a ring within each node's rank block (every edge stays
+      on one node; a one-rank node sends to itself);
+    * ``inter``: rank ``j`` of node ``i`` sends to rank ``j`` of node
+      ``i + 1`` (mod nodes; ``j`` wraps within a smaller node): every
+      edge crosses nodes.  Measured when it is a permutation.
+
+    Rows are (log2 bytes one rank sends, sec) per class; a single-node
+    topology yields ``intra`` only.  On one card both permutations are
+    copies within the same memory, so the two tables come out nearly
+    equal: this is a smoke path, and a real multi-node machine is what
+    would price its slow tier.
+    """
+    dev = resolve_device(device)
+    n = topology.nranks
+    by_node: Dict[int, List[int]] = {}
+    for r, nd in enumerate(topology.nodes):
+        by_node.setdefault(nd, []).append(r)
+    intra_perm: List[Tuple[int, int]] = []
+    for members in by_node.values():
+        k = len(members)
+        intra_perm.extend((members[i], members[(i + 1) % k]) for i in range(k))
+    perms = {"intra": intra_perm}
+    node_ids = sorted(by_node)
+    if len(node_ids) > 1:
+        inter_perm: List[Tuple[int, int]] = []
+        for i, nd in enumerate(node_ids):
+            nxt = by_node[node_ids[(i + 1) % len(node_ids)]]
+            for j, r in enumerate(by_node[nd]):
+                inter_perm.append((r, nxt[j % len(nxt)]))
+        if sorted(d for _, d in inter_perm) == list(range(n)):
+            perms["inter"] = inter_perm
+    return {cls: _time_permutes(perm, total_bytes, iters, n, dev)
+            for cls, perm in perms.items()}
 
 
 def measure_stencil_table(
@@ -343,10 +438,19 @@ def calibrate_params(
     iters: Optional[int] = None,
     ranks: int = RANKS,
     device="cuda",
+    mesh_axes: Optional[Dict[str, int]] = None,
+    topology=None,
 ) -> SystemParams:
     """Full-term calibration: pack + unpack + wire + contiguous copy +
     compress + stencil application, all batched over ``ranks`` local-mesh ranks on
     ``device`` (the card unless ``device="cpu"``).
+
+    ``mesh_axes`` (axis name -> size, product ``ranks``) sweeps the wire
+    once per mesh axis into ``wire_tables``/``wire_fits``
+    (:func:`measure_wire_tables`); ``topology`` sweeps each link class
+    into ``link_tables``/``link_fits``
+    (:func:`measure_link_class_tables`).  The flat ring stays the
+    axis-agnostic ``wire_table`` either way.
 
     The base is :data:`~repro_torch.comm.perfmodel.H100_ANALYTIC`, whose
     constants stay as fallbacks for what the tables do not cover.
@@ -369,6 +473,14 @@ def calibrate_params(
     stencil = measure_stencil_table(radii_set, totals, **kw)
     wire = measure_wire_table(totals, **kw)
     wire_lat, wire_bw = fit_latency_bandwidth(wire)
+    wire_tables = wire_fits = None
+    if mesh_axes is not None:
+        wire_tables = measure_wire_tables(mesh_axes, totals, **kw)
+        wire_fits = {ax: fit_latency_bandwidth(rows) for ax, rows in wire_tables.items()}
+    link_tables = link_fits = None
+    if topology is not None:
+        link_tables = measure_link_class_tables(topology, totals, iters=it, device=dev)
+        link_fits = {cls: fit_latency_bandwidth(rows) for cls, rows in link_tables.items()}
 
     hbm_bw = H100_ANALYTIC.hbm_bw
     if copy and copy[-1][1] > 0:
@@ -383,6 +495,10 @@ def calibrate_params(
         wire_table=tuple(wire),
         copy_table=tuple(copy),
         stencil_table=tuple(stencil),
+        wire_tables=wire_tables,
+        wire_fits=wire_fits,
+        link_tables=link_tables,
+        link_fits=link_fits,
         wire_latency=wire_lat,
         wire_bw=wire_bw,
         link_bw=wire_bw if wire_bw else H100_ANALYTIC.link_bw,

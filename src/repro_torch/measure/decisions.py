@@ -162,6 +162,23 @@ class DecisionCache:
             return DecisionCache()
         return DecisionCache.from_json(p.read_text())
 
+    # -- maintenance -----------------------------------------------------
+    def prune(self, predicate) -> List[Decision]:
+        """Remove every row for which ``predicate(decision)`` is true and
+        return the removed rows.  A pin whose premise no longer holds (a
+        topology that reshaped away) is deleted, so the next planning
+        pass re-prices and re-records instead of replaying it."""
+        dropped, kept = [], []
+        for d in self.log:
+            (dropped if predicate(d) else kept).append(d)
+        if dropped:
+            self._by_key.clear()
+            self._log_index.clear()
+            self.log = []
+            for d in kept:
+                self._insert(d)
+        return dropped
+
     def program_rows(self) -> List[Decision]:
         """The deep-halo fusion-depth decisions (``program/s=N`` rows,
         keyed by program fingerprint — one per distinct

@@ -32,7 +32,6 @@ DECISIONS_FILENAME = "decisions.json"
 _LATER = {
     "telemetry": "Queue 1, observability and fleet",
     "tracer": "Queue 1, observability and fleet",
-    "topology": "Queue 1, hierarchy and scale",
 }
 
 
@@ -72,8 +71,13 @@ def production_communicator(
         the decisions cache that pins ``"auto"``, so every
         :func:`~repro_torch.halo.program.build_halo_program` of the job
         resolves its depth through it and records it in the same file.
-    telemetry, tracer, topology: the reference's options of later
-        roadmap items; passing one raises NotImplementedError.
+    topology: a :class:`repro_torch.comm.topology.Topology` rank -> node
+        map: the communicator prices the two link tiers apart, may pick
+        the ``tiered`` schedule, and keys its wire and program decisions
+        by the topology fingerprint, so a pin never replays across a
+        reshape.
+    telemetry, tracer: the reference's options of a later roadmap item;
+        passing one raises NotImplementedError.
     transport: what moves the wire bytes (default: the local mesh on
         ``device``).  Under one process per rank
         (:class:`~repro_torch.comm.distributed.DistributedTransport`) the
@@ -84,8 +88,7 @@ def production_communicator(
     one process per rank only rank 0 writes it (the others return its
     path).
     """
-    for opt, value in (("telemetry", telemetry), ("tracer", tracer),
-                       ("topology", topology)):
+    for opt, value in (("telemetry", telemetry), ("tracer", tracer)):
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"production_communicator({opt}=...) is not ported yet "
@@ -111,7 +114,8 @@ def production_communicator(
             params = store.load() or H100_ANALYTIC
     decisions_path = store.root / DECISIONS_FILENAME
     decisions = DecisionCache.load(decisions_path)
-    comm = Communicator(params=params, decisions=decisions, device=dev, transport=transport)
+    comm = Communicator(params=params, decisions=decisions, device=dev, transport=transport,
+                        topology=topology)
 
     def save() -> Path:
         if comm.transport.rank != 0:

@@ -142,26 +142,24 @@ PORTED_TABLES = {
     "wire_bw": 1e11,
     "stencil_table": [[4.7, 10.0, 1e-6]],
     "compress_table": {"rlewire": [[10.0, 1e-6, 2e-6, 0.5], [14.0, 3e-6, 4e-6, 0.25]]},
+    "wire_tables": {"ici": [[10.0, 1e-5]]},
+    "wire_fits": {"ici": [1e-5, 1e11]},
+    "link_tables": {"inter": [[10.0, 1e-5]], "ici/intra": [[10.0, 2e-6]]},
+    "link_fits": {"inter": [1e-5, 1e11]},
 }
-LATER_TABLES = {
-    "wire_tables": ({"ici": [[10.0, 1e-5]]}, "per-axis"),
-    "wire_fits": ({"ici": [1e-5, 1e11]}, "per-axis"),
-    "link_tables": ({"inter": [[10.0, 1e-5]]}, "hierarchy"),
-    "link_fits": ({"inter": [1e-5, 1e11]}, "hierarchy"),
-}
+#: the per-axis and link-class tables, refused before the port priced them
+LATER_TABLES = ("link_fits", "link_tables", "wire_fits", "wire_tables")
 
 
-@pytest.mark.parametrize("field", sorted(PORTED_TABLES) + sorted(LATER_TABLES))
+@pytest.mark.parametrize("field", sorted(set(PORTED_TABLES) - set(LATER_TABLES))
+                         + sorted(LATER_TABLES))
 def test_from_reference_maps_the_ported_tables_and_refuses_later_ones(field):
-    """Each measured table this slice prices maps (frozen into tuples, so
-    it is hashable and equal after a JSON round trip); each table of a
-    later roadmap item raises, naming the item."""
-    if field in LATER_TABLES:
-        value, item = LATER_TABLES[field]
-        with pytest.raises(ValueError, match=f"not ported yet.*{item}"):
-            SystemParams.from_reference(name="x", **{field: value})
-        SystemParams.from_reference(name="x", **{field: None})  # empty is fine
-        return
+    """Each measured table of the reference maps (frozen into tuples, so
+    it is hashable and equal after a JSON round trip), the per-axis and
+    link-class tables too; a field the port does not know raises."""
+    with pytest.raises(ValueError, match="unknown reference field"):
+        SystemParams.from_reference(name="x", **{field + "_x": [[1.0, 2.0]]})
+    SystemParams.from_reference(name="x", **{field + "_x": None})  # empty is fine
     value = PORTED_TABLES[field]
     p = SystemParams.from_reference(name="x", **{field: value})
     ref = rpm.SystemParams(name="x", **{field: value})
@@ -312,18 +310,18 @@ def test_every_schedule_moves_the_same_bytes(schedule, strategy):
 
 @pytest.mark.parametrize("schedule", ["varlen", "tiered"])
 def test_unported_schedules_raise(schedule):
-    """``tiered`` is not ported and raises, naming its ROADMAP item;
-    ``varlen`` is, and raises the reference's ValueError on a plan that
-    carries no stream lengths, in the transport and in the model."""
+    """Both schedules are ported; each raises the reference's ValueError
+    on a plan without its annotation, in the transport and in the model:
+    ``varlen`` without stream lengths, ``tiered`` without a topology."""
     spec = HaloSpec(grid=(2, 2, 2), interior=(4, 4, 4), radius=2)
     comm = Communicator(device="cpu")
     plan = make_halo_plan(spec, comm, schedule_policy="exact")
     wire = dataclasses.replace(plan.wire, schedule=schedule)
-    err, match = ((ValueError, "stream-unannotated") if schedule == "varlen"
-                  else (NotImplementedError, "ROADMAP"))
-    with pytest.raises(err, match=match):
+    match = "stream-unannotated" if schedule == "varlen" else "unannotated plan"
+    with pytest.raises(ValueError, match=match):
         comm.transport.exchange(torch.zeros((8, wire.wire_bytes), dtype=torch.uint8), wire)
-    with pytest.raises(err, match="stream-annotated" if schedule == "varlen" else match):
+    with pytest.raises(ValueError, match="stream-annotated" if schedule == "varlen"
+                       else "topology-annotated"):
         comm.model.price_exchange(wire)
 
 

@@ -602,3 +602,64 @@ def test_world_of_one_nccl_varlen_exchange_equals_the_local_mesh(nccl_world):
         counts.append((comm.wire_ops, comm.wire_payload_bytes, plan.stream_bytes))
     assert torch.equal(outs[0], outs[1])
     assert counts[0] == counts[1] and counts[0][1] < send.size
+
+
+# ---------------------------------------------------------------------------
+# the two-level machine: the tiered schedule on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_tiered_exchange_at_the_main_path_shapes():
+    """The main path's 2x2x2 grid of 256^3 blocks, radius 2, 4 ranks a
+    node: ``tiered`` (one bundle of the 4 node-crossing classes, 3
+    correction hops) fills the halos ``grouped`` fills, through all four
+    kernels, issuing the plan's 7 ops and 4,276,480 bytes a rank."""
+    import dataclasses
+
+    from repro_torch.comm import Topology, reschedule
+
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(256, 256, 256), radius=2)
+    comm = Communicator(device=dev, topology=Topology.blocked(8, 4))
+    plan = make_halo_plan(spec, comm)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    start = torch.randn((8,) + spec.alloc, device=dev, generator=gen)
+    out = {}
+    for sched in ("grouped", "tiered"):
+        wire = reschedule(plan.wire, sched)
+        x = start.clone()
+        ops, nbytes = comm.wire_ops, comm.wire_payload_bytes
+        reset_launch_counts()
+        halo_exchange(x, spec, comm, plan=dataclasses.replace(plan, wire=wire))
+        torch.cuda.synchronize()
+        assert all(launch_counts()[k] > 0 for k in launch_counts()), launch_counts()
+        assert (comm.wire_ops - ops, comm.wire_payload_bytes - nbytes) == (
+            7, wire.issued_bytes)
+        out[sched] = x
+    assert torch.equal(out["tiered"], out["grouped"])
+    assert reschedule(plan.wire, "tiered").issued_bytes == 4_276_480
+
+
+@pytest.mark.cuda
+def test_world_of_one_nccl_tiered_exchange_equals_the_local_mesh(nccl_world):
+    """A world of one on one node: every class is a self edge on the fast
+    tier, so ``tiered`` has no bundle and issues what ``grouped`` does."""
+    import dataclasses
+
+    from repro_torch.comm import DistributedTransport, Topology, reschedule
+
+    dev = nccl_world.device
+    spec = HaloSpec(grid=(1, 1, 1), interior=(16, 12, 10), radius=2)
+    got, want = _one_rank_state(spec, dev), _one_rank_state(spec, dev)
+    comms = (Communicator(transport=DistributedTransport(device=dev),
+                          topology=Topology.flat(1)),
+             Communicator(device=dev, topology=Topology.flat(1)))
+    for comm, x in zip(comms, (got, want)):
+        plan = make_halo_plan(spec, comm, schedule_policy="exact")
+        assert plan.wire.tier_bundles == ()
+        plan = dataclasses.replace(plan, wire=reschedule(plan.wire, "tiered"))
+        halo_exchange(x, spec, comm, plan=plan)
+        torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (comms[0].wire_ops, comms[0].wire_payload_bytes) == (
+        comms[1].wire_ops, comms[1].wire_payload_bytes)

@@ -32,9 +32,16 @@ in 2 processes.  The tests then read what they wrote.
   local mesh's.
 * ``production_communicator(transport=...)``: every rank records the
   ``program/s=N`` decision, rank 0 alone writes the file.
+* The two-level machine: 8 processes, 4 a node
+  (``Topology.blocked(8, 4)``), the exchange under ``tiered`` (one
+  bundle of the 4 node-crossing classes, 3 correction hops) bit-exact
+  against the local mesh and the oracle with equal op and byte counts;
+  ``--ranks-per-node 1`` on the launcher prints the topology's
+  fingerprint and the flat run's checksum.
 * Raising paths: NCCL on the CPU, gloo on the card, a mismatched plan
-  across ranks, a block of the wrong shape, the unported ``tiered``
-  schedule and a ``varlen`` plan without stream lengths.
+  or topology across ranks, a block of the wrong shape, and a
+  ``tiered`` plan without a topology or a ``varlen`` plan without
+  stream lengths.
 """
 
 import dataclasses
@@ -57,6 +64,7 @@ from repro_torch.comm import (
     Communicator,
     DistributedTransport,
     FixedPolicy,
+    Topology,
     policy_for_mode,
     reschedule,
 )
@@ -88,6 +96,8 @@ PERM_TYPE = (6, 5, 12)  # Vector(count, blocklength, stride) of FLOAT
 OVERLAPS = ("plain", "monolithic", "region")
 #: the compressed-wire gate's Subarray (sizes, subsizes, starts) of FLOAT
 GATE_TYPE = ((32, 32), (16, 16), (4, 4))
+#: the two-level machine of the tiered exchange: one z slab a node
+RANKS_PER_NODE = 4
 
 
 def _gate_buffers():
@@ -105,11 +115,11 @@ import dataclasses, json, sys
 import numpy as np
 import torch
 import torch.distributed as dist
-from repro_torch.comm import (Communicator, DistributedTransport, FixedPolicy,
+from repro_torch.comm import (Communicator, DistributedTransport, FixedPolicy, Topology,
                               policy_for_mode, reschedule)
 from repro_torch.core import FLOAT, Subarray, Vector
 from repro_torch.halo import (HaloSpec, build_halo_program, from_reference, halo_exchange,
-                              make_halo_plan, make_program_step)
+                              make_halo_plan, make_halo_step, make_program_step)
 from repro_torch.launch.procgroup import destroy_process_group, init_process_group
 from repro_torch.measure import DecisionCache, production_communicator
 
@@ -146,6 +156,20 @@ for mode in ("tempi", "baseline"):
         halo_exchange(local, spec, comm, plan=plan)
         arrays[f"x_{mode}_{sched}"] = local[0].numpy()
         res[f"x_{mode}_{sched}"] = [comm.wire_ops, comm.wire_payload_bytes]
+
+# the two-level machine: 4 ranks a node, every class with a dz component
+# crosses nodes, and the tiered schedule coalesces them into one bundle
+topo = Topology.blocked(world, C["ranks_per_node"])
+for policy in ("exact", "model"):
+    comm = comm_for("tempi", topology=topo)
+    plan = make_halo_plan(spec, comm, schedule_policy=policy)
+    res[f"topo_plan_{policy}"] = [plan.wire.schedule, plan.wire.fingerprint]
+    if policy == "exact":
+        plan = dataclasses.replace(plan, wire=reschedule(plan.wire, "tiered"))
+        local = block(spec, g, rank)
+        halo_exchange(local, spec, comm, plan=plan)
+        arrays["x_tiered"] = local[0].numpy()
+        res["x_tiered"] = [comm.wire_ops, comm.wire_payload_bytes, plan.wire.fingerprint]
 
 comm = comm_for("tempi")
 for policy in ("exact", "model"):
@@ -231,14 +255,20 @@ try:
     res["shape"] = None
 except ValueError as e:
     res["shape"] = str(e)
+try:
+    make_halo_step(spec, comm_for("tempi", topology=Topology.blocked(world, 4 if rank else 2)),
+                   device="cpu")
+    res["topo_mismatch"] = None
+except RuntimeError as e:
+    res["topo_mismatch"] = str(e)
 plan = make_halo_plan(spec, comm, schedule_policy="exact")
 res["unported"] = {}
-for sched, err in (("varlen", ValueError), ("tiered", NotImplementedError)):
+for sched in ("varlen", "tiered"):
     try:
         comm.transport.exchange(torch.zeros((1, plan.wire_bytes), dtype=torch.uint8),
                                 dataclasses.replace(plan.wire, schedule=sched))
         res["unported"][sched] = None
-    except err as e:
+    except ValueError as e:
         res["unported"][sched] = str(e)
 dist.barrier()
 np.savez(f"{IN}/rank{rank}.npz", **arrays)
@@ -330,7 +360,7 @@ def runs(tmp_path_factory):
         "grid": GRID, "interior": INTERIOR, "radius": RADIUS, "schedules": SCHEDULES,
         "overlaps": OVERLAPS, "strategies": STRATEGIES, "perm_r": PERM_R, "perm": PERM,
         "perm_type": PERM_TYPE, "interior2": SPEC2.interior, "radius2": SPEC2.radius,
-        "gate_type": GATE_TYPE}))
+        "gate_type": GATE_TYPE, "ranks_per_node": RANKS_PER_NODE}))
     np.save(inp / "gate.npy", _gate_buffers())
     (inp / "worker.py").write_text(WORKER)
     env, deadline = _env(), time.monotonic() + TIMEOUT_S
@@ -348,6 +378,10 @@ def runs(tmp_path_factory):
         [sys.executable, "-m", "repro_torch.launch.stencil3d", "--nprocs", "2",
          "--backend", "gloo", "--device", "cpu", "--interior", "6", "--iters", "1",
          "--out", str(inp / "launcher.npy")], env=env, **pipe)))
+    procs.append(("launcher_topo", subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.stencil3d", "--nprocs", "2",
+         "--backend", "gloo", "--device", "cpu", "--interior", "6", "--iters", "1",
+         "--ranks-per-node", "1"], env=env, **pipe)))
     outs = _wait_all(procs, deadline)
     ranks = [(dict(np.load(inp / f"rank{r}.npz")), json.loads((inp / f"rank{r}.json").read_text()))
              for r in range(WORLD)]
@@ -566,12 +600,56 @@ def test_a_block_of_the_wrong_shape_raises(runs):
 
 
 def test_unported_schedules_raise_under_the_process_group(runs):
-    """``tiered`` raises naming its ROADMAP item; ``varlen`` is ported
-    and raises the reference's ValueError on a plan without streams."""
+    """Both are ported; each raises the reference's ValueError on a plan
+    without its annotation: ``tiered`` without a topology, ``varlen``
+    without streams."""
     for _, res in runs["ranks"]:
         assert set(res["unported"]) == {"varlen", "tiered"}
-        assert "ROADMAP" in res["unported"]["tiered"]
+        assert res["unported"]["tiered"] == "tiered schedule on an unannotated plan"
         assert res["unported"]["varlen"] == "varlen schedule on a stream-unannotated plan"
+
+
+def test_a_topology_that_differs_across_ranks_raises_on_every_rank(runs):
+    for _, res in runs["ranks"]:
+        assert "the topology differs across ranks" in res["topo_mismatch"]
+
+
+def test_tiered_exchange_under_gloo_is_bit_exact(runs):
+    """8 processes, 4 a node: the tiered exchange (one bundle of the 4
+    node-crossing classes along the representative's permutation, then 3
+    intra-node correction hops) equals the local mesh's and the oracle,
+    with the same op and byte counts.  Planned with a topology, the
+    exact ladder still takes the native ragged collective, and the model
+    (no link tables) does not take ``tiered``, on every rank alike."""
+    topo = Topology.blocked(WORLD, RANKS_PER_NODE)
+    comm = Communicator(device="cpu", topology=topo)
+    plan = make_halo_plan(SPEC, comm, schedule_policy="exact")
+    wire = reschedule(plan.wire, "tiered")
+    assert wire.tier_bundles == ((0, 1, 2, 3),) and wire.inter_messages == 1
+    local = from_reference(_blocks(SPEC, runs["g"]), SPEC, device="cpu")
+    halo_exchange(local, SPEC, comm, plan=dataclasses.replace(plan, wire=wire))
+    oracle = _oracle_blocks(SPEC, runs["g"])
+    np.testing.assert_array_equal(local.numpy(), oracle)
+    assert [comm.wire_ops, comm.wire_payload_bytes] == [7, wire.issued_bytes]
+    for rank, (arrays, res) in enumerate(runs["ranks"]):
+        np.testing.assert_array_equal(arrays["x_tiered"], oracle[rank])
+        assert res["x_tiered"] == [7, wire.issued_bytes, wire.fingerprint]
+        assert res["topo_plan_exact"][0] == "ragged"
+        assert res["topo_plan_model"][0] != "tiered"
+        for key in ("topo_plan_exact", "topo_plan_model"):
+            assert res[key] == runs["ranks"][0][1][key]
+
+
+def test_launcher_prints_the_topology(runs):
+    """``--ranks-per-node 1`` on 2 processes: two nodes, the fingerprint
+    in the header line, and the flat run's checksum (no link tables, so
+    no schedule moves)."""
+    out, flat = runs["out"]["launcher_topo"], runs["out"]["launcher"]
+    topo = Topology.blocked(2, 1)
+    head = [line for line in out.splitlines() if line.startswith("mode=")]
+    assert head and head[0].endswith(f" topo={topo.fingerprint}(2 nodes)")
+    checksum = [line for line in flat.splitlines() if line.startswith("interior checksum")]
+    assert checksum and checksum[0] in out.splitlines()
 
 
 def test_nccl_on_the_cpu_and_gloo_on_the_card_raise(tmp_path, monkeypatch):

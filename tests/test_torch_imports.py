@@ -45,6 +45,8 @@ print("HALO", sorted(m for m in names if m.startswith("repro_torch.halo.")))
 print("LAUNCH", sorted(m for m in names if m.startswith(("repro_torch.launch.",
                                                          "repro_torch.comm.d"))))
 print("COMPRESS", "repro_torch.comm.compress" in names)
+print("SCALE", sorted(m for m in names if m in ("repro_torch.comm.scale", "repro_torch.train",
+                                               "repro_torch.train.elastic")))
 print("FORBIDDEN", bad)
 """
 
@@ -64,6 +66,8 @@ def test_no_module_imports_jax_or_the_reference():
                                    "repro_torch.launch.procgroup",
                                    "repro_torch.launch.stencil3d"])
     assert lines["COMPRESS"] == "True"
+    assert lines["SCALE"] == str(["repro_torch.comm.scale", "repro_torch.train",
+                                  "repro_torch.train.elastic"])
     assert lines["FORBIDDEN"] == "[]"
 
 

@@ -319,8 +319,16 @@ def test_store_refuses_foreign_formats_and_systems(tmp_path):
     assert ParamsStore.read_envelope(path) == params  # readable, not served
     other = ParamsStore(tmp_path, ranks=4, device="cpu")
     assert other.system() != store.system() and other.load() is None
-    path.write_text(json.dumps(dict(env, params=dict(env["params"], link_fits={"inter": [1, 2]}))))
-    with pytest.raises(ValueError, match="not ported yet"):
+    # the link-class tables are read (they round-trip); a field the port
+    # does not know is refused
+    link = dict(env["params"], link_tables={"inter": [[10.0, 1e-5]]}, link_fits={"inter": [1, 2]})
+    path.write_text(json.dumps(dict(env, params=link)))
+    loaded = store.load()
+    assert loaded.link_tables == {"inter": ((10.0, 1e-5),)}
+    assert loaded.link_fits == {"inter": (1, 2)}
+    assert rmeasure.ParamsStore.read_envelope(path).link_fits == loaded.link_fits
+    path.write_text(json.dumps(dict(env, params=dict(env["params"], unknown_table=[[1, 2]]))))
+    with pytest.raises(ValueError, match="unknown reference field"):
         store.load()
     assert set(COMPATIBLE_FORMATS) == set(rmeasure.COMPATIBLE_FORMATS)
     assert STORE_FORMAT == rmeasure.STORE_FORMAT
@@ -394,6 +402,16 @@ def test_production_communicator_records_then_pins(tmp_path):
 
 @pytest.mark.parametrize("option", ["telemetry", "tracer", "topology"])
 def test_production_options_of_later_items_raise(option, tmp_path):
+    """``telemetry`` and ``tracer`` raise, naming their item; ``topology``
+    is ported: it binds the communicator's model."""
+    if option == "topology":
+        from repro_torch.comm import Topology
+
+        topo = Topology.blocked(8, 4)
+        comm, _ = production_communicator(tmp_path, device="cpu", calibrate=False,
+                                          topology=topo)
+        assert comm.model.topology is topo
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
         production_communicator(tmp_path, device="cpu", **{option: True})
 
