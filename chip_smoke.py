@@ -103,7 +103,19 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            made two-tier; the simulated-scale ladder to 3072 ranks; a
            ``replan_on_remesh`` to ``blocked(8, 2)`` and a tiered exchange
            planned after it;
-9. timing  CUDA-event times of each kernel (L2 flushed before every
+9. obs     the observed main path at full width: the ``auto`` program on
+           the 8-rank grid through ``production_communicator(telemetry=True,
+           tracer=True)``, 8 traced iterations each ``torch.equal`` to the
+           untraced one with equal launches (zeroed and read around every
+           iteration), the span tree validated (one exchange with
+           pack/wire/unpack and ``steps`` stencil spans an iteration, every
+           child inside its parent), the Chrome trace, ``telemetry.json``
+           and ``metrics.json`` saved to ``build/obs`` and loaded back, the
+           probe's host cost against the 2% budget, the drift audit, the
+           worst term re-measured (reduced sweep) and 8 more traced
+           iterations audited under the new tables; prints an
+           ``{"obs": ...}`` line;
+10. timing CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
            (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
            counts the block bytes read and written, ``bound_sectors_ms``
@@ -124,8 +136,9 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
 
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
 ``{"dist": ...}`` line, a ``{"compress": ...}`` line, a ``{"tiered": ...}``
-line, one JSON line ``{"kernels": [...]}`` (``launches``: the main path's
-loop plus the program, dist, compress and tiered phases),
+line, an ``{"obs": ...}`` line, one JSON line ``{"kernels": [...]}``
+(``launches``: the main path's loop plus the program, dist, compress,
+tiered and obs phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -166,6 +179,7 @@ TIERED_GRIDS = (((2, 2, 2), 4), ((3, 3, 3), 9))  # [tiered] grids and ranks a no
 # bundles' representatives are 32-byte corner classes)
 TIERED_EXPECT = {8: (7, 1, 4, 4_276_480), 27: (26, 2, 18, 4_276_672)}
 SCALE_RANKS = (8, 16, 64, 256, 1024, 3072)  # the simulated-scale ladder, 8 ranks a node
+OBS_ITERS = 8              # traced iterations an [obs] run: the drift audit's min_samples
 
 
 def fail(msg: str) -> None:
@@ -1116,7 +1130,7 @@ def phase_program(torch, dev, spec, card, measured):
           + f" ms/iteration, all torch.equal to the plain path, auto -> "
           f"{out['overlap_auto_resolved']}; {card}")
     print(json.dumps({"program": out}))
-    return counts
+    return counts, out["first_application"]["window_ms"]
 
 
 def phase_dist(torch, dev, card):
@@ -1781,6 +1795,278 @@ def phase_tiered(torch, dev, spec, card, measured):
     return counts
 
 
+def phase_obs(torch, dev, spec, card, program_window_ms):
+    """The observed main path at full width (8 ranks, 256^3 each, the
+    ``auto`` program): ``production_communicator(telemetry=True,
+    tracer=True)`` over a fresh store in the ignored ``build/obs``.
+
+    * one warm-up iteration with nothing attached (a plan's first use
+      pays its setup), then ``OBS_ITERS`` traced, telemetered iterations,
+      each ``torch.equal`` to the same iteration untraced, with the four
+      kernels' launches of each traced exchange equal to the untraced
+      one's (counts zeroed and read around every iteration);
+    * the span tree through ``repro_torch.obs.export.validate`` plus one
+      ``exchange`` (with ``pack``/``wire``/``unpack``) and ``steps``
+      ``stencil`` spans an iteration, every child inside its parent (a
+      ``wire_class`` span inside the exchange that issued it);
+    * the Chrome trace, ``telemetry.json`` and ``metrics.json`` saved and
+      loaded back: equal to what the process holds;
+    * ms per traced and untraced iteration and per span phase, the traced
+      ``stencil`` span against CUDA-event ms of the same windows and the
+      ``[program]`` phase's, the observed/predicted ratio per phase, the
+      probe's host cost (``observe()``, ``attribute_program_iteration()``)
+      against an iteration beside the reference's 2% budget;
+    * ``DriftDetector().audit`` over the decisions, the params in use, the
+      telemetry and the phase aggregates; ``remeasure_term`` of the worst
+      term (reduced sweep, on the card); then a communicator over the
+      re-measured params and the saved decisions (the depth pinned),
+      ``OBS_ITERS`` more traced iterations (``torch.equal`` again) and a
+      second audit.  The flagged terms of both audits are printed."""
+    import shutil
+
+    from repro_torch.comm import H100_ANALYTIC, Communicator
+    from repro_torch.fleet import (DEFAULT_MIN_SAMPLES, DriftDetector, ExchangeTelemetry,
+                                   predict_program_phases, remeasure_term)
+    from repro_torch.halo import build_halo_program
+    from repro_torch.halo.stencil import _window_of, op_sequence
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ops import stencil_window_update
+    from repro_torch.measure import production_communicator
+    from repro_torch.obs import (MetricsRegistry, Tracer, aggregate_events,
+                                 attribute_program_iteration, default_metrics,
+                                 load_chrome_trace, save_chrome_trace, to_chrome_trace,
+                                 validate)
+
+    if OBS_ITERS < DEFAULT_MIN_SAMPLES:
+        fail(f"{OBS_ITERS} traced iterations < the audit's {DEFAULT_MIN_SAMPLES} samples")
+    store = os.path.join(HERE, "build", "obs")
+    shutil.rmtree(store, ignore_errors=True)
+    grid, interior = spec.grid, spec.interior
+    comm, save = production_communicator(store, params=H100_ANALYTIC, telemetry=True,
+                                         tracer=True, device=dev)
+    tracer = comm.tracer
+    prog = build_halo_program(grid, interior, comm, steps="auto")
+    plain = Communicator(device=dev)
+    plain_prog = build_halo_program(grid, interior, plain, steps=prog.steps)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    g = torch.randn(tuple(p * k for p, k in zip(grid, interior)), generator=gen, device=dev)
+    x = rank_blocks(torch, prog.spec, g)
+    y = x.clone()
+    del g
+    out = {"card": card, "ranks": spec.nranks, "interior": list(interior),
+           "steps": prog.steps, "radius": list(prog.spec.radii),
+           "schedule": prog.plan.wire.schedule, "iterations": OBS_ITERS}
+    total = dict.fromkeys(KERNEL_INFO, 0)
+
+    def observed_run(c, p, tr, n, what):
+        """A warm-up iteration with nothing attached to ``c`` (a plan's
+        first use pays its setup, which at ``n`` samples would set the
+        trace's means), then ``n`` iterations of ``p`` on ``c`` (traced)
+        beside ``plain_prog`` (untraced) from the same state: equal after
+        each, and so are the launches; returns ms per iteration (host
+        clock, synchronized)."""
+        ms = {"traced": [], "untraced": []}
+        probes = (c.telemetry, c.tracer)
+        for i in range(-1, n):
+            c.telemetry, c.tracer = (None, None) if i < 0 else probes
+            launches = {}
+            for key, cc, pp, state in (("untraced", plain, plain_prog, y),
+                                       ("traced", c, p, x)):
+                torch.cuda.synchronize()
+                reset_launch_counts()
+                t0 = time.perf_counter()
+                pp.iteration(state, cc)
+                torch.cuda.synchronize()
+                t = (time.perf_counter() - t0) * 1e3
+                if i < 0:
+                    ms[f"warmup_{key}"] = t
+                else:
+                    ms[key].append(t)
+                launches[key] = launch_counts()
+            if launches["traced"] != launches["untraced"]:
+                fail(f"{what} iteration {i}: {launches['traced']} launches traced, "
+                     f"{launches['untraced']} untraced")
+            if not torch.equal(x, y):
+                fail(f"{what} iteration {i}: {(x != y).sum().item()} cells differ from the "
+                     f"untraced iteration")
+            for k in total:
+                total[k] += launches["traced"][k]
+        iters = [s for s in tr.spans if s.name == "program_iteration"]
+        if len(iters) != n:
+            fail(f"{what}: {len(iters)} program_iteration spans for {n} iterations")
+        out.setdefault("launches_per_exchange", launches["traced"])
+        # the first iteration's spans apart: a cold start shows there
+        first = {s.span_id for s in tr.spans if s.span_id >= iters[0].span_id
+                 and s.span_id < (iters[1].span_id if n > 1 else 1 << 62)}
+        ms["first_iteration_span_ms"] = {}
+        for s in tr.spans:
+            if s.span_id in first and s.name != "wire_class":
+                ms["first_iteration_span_ms"][s.name] = (
+                    ms["first_iteration_span_ms"].get(s.name, 0.0) + s.duration * 1e3)
+        return ms
+
+    def check_tree(tr, what):
+        errors = validate(to_chrome_trace(tr))
+        if errors:
+            fail(f"{what}: the trace is invalid: {errors[:3]}")
+        by_id = {s.span_id: s for s in tr.spans}
+        kids = {}
+        for s in tr.spans:
+            kids.setdefault(s.parent_id, []).append(s)
+            p = by_id.get(s.parent_id)
+            if p is not None and s.name == "wire_class":
+                p = by_id[p.parent_id]  # timed from the wire's issue
+            if p is not None and not (p.start <= s.start
+                                      and s.start + s.duration <= p.start + p.duration):
+                fail(f"{what}: a {s.name} span lies outside its {p.name} span")
+        for it in (s for s in tr.spans if s.name == "program_iteration"):
+            names = [c.name for c in kids.get(it.span_id, ())]
+            ex = [c for c in kids.get(it.span_id, ()) if c.name == "exchange"]
+            if len(ex) != 1 or names.count("stencil") != prog.applications:
+                fail(f"{what}: an iteration holds {names}")
+            phases = [c.name for c in kids.get(ex[0].span_id, ())]
+            if phases != ["pack", "wire", "unpack"]:
+                fail(f"{what}: an exchange holds {phases}")
+        return {n: sum(s.name == n for s in tr.spans)
+                for n in ("plan", "program_iteration", "exchange", "pack", "wire", "unpack",
+                          "wire_class", "stencil")}
+
+    def phase_stats(tr):
+        ms = {}
+        for name in ("program_iteration", "exchange", "pack", "wire", "unpack", "stencil"):
+            d = [s.duration * 1e3 for s in tr.spans if s.name == name]
+            ms[name] = {"mean": statistics.fmean(d), "min": min(d), "max": max(d)}
+        ratios = {}
+        for fp, rec in tr.phase_aggregates().items():
+            for ph, r in rec.items():
+                if r["predicted"] > 0:
+                    ratios[ph] = r["observed"] / r["predicted"]
+        return ms, ratios
+
+    def audit(c, params, tr):
+        rep = DriftDetector().audit(c.model.decisions, params, telemetry=c.telemetry,
+                                    trace=tr.phase_aggregates(), system=card)
+        flagged = [{"fingerprint": f.fingerprint, "strategy": f.strategy, "term": f.term,
+                    "ratio": f.ratio, "source": f.source, "samples": f.samples,
+                    "observed_ratio": f.observed_ratio, "phase_ratios": f.phase_ratios}
+                   for f in rep.drifted]
+        return rep, {"findings": len(rep.findings), "drifted": rep.drifted_count,
+                     "drifted_terms": list(rep.drifted_terms), "flagged": flagged}
+
+    # -- the traced iterations, the tree, the phases
+    ms = observed_run(comm, prog, tracer, OBS_ITERS, "obs")
+    out["ms_per_traced_iteration"] = ms["traced"]
+    out["ms_per_untraced_iteration"] = ms["untraced"]
+    out["first_iteration_span_ms"] = ms["first_iteration_span_ms"]
+    out["warmup_ms"] = {k: ms[f"warmup_{k}"] for k in ("untraced", "traced")}
+    out["spans"] = check_tree(tracer, "obs")
+    out["span_ms"], out["obs_over_pred"] = phase_stats(tracer)
+    phases = predict_program_phases(prog, comm.model)
+    out["pred_ms"] = {k: v * 1e3 for k, v in phases.items()}
+
+    # the traced stencil span against CUDA-event ms of the same windows
+    timer = Timer(torch, dev)
+    valid, event_ms = prog.spec.radii, []
+    for o in op_sequence(prog.ops, prog.steps):
+        origin, shape = _window_of(prog.spec, valid, o)
+        event_ms.append(timer.ms(
+            lambda: stencil_window_update(x, o.offsets, o.weight, origin, shape), reps=5))
+        valid = tuple(v - r for v, r in zip(valid, o.radii))
+    del timer
+    out["stencil_ms"] = {"span_mean": out["span_ms"]["stencil"]["mean"],
+                         "cuda_event_per_application": event_ms,
+                         "program_phase_first_application_window": program_window_ms}
+
+    # the probe's host cost against an iteration
+    probe_tel, probe_tr = ExchangeTelemetry(), Tracer()
+    classes = comm.model.price_class_completions(prog.plan.wire)
+    n = 2000
+    t0 = time.perf_counter()
+    for _ in range(n):
+        probe_tel.observe("probe", 1e-3)
+    observe_us = (time.perf_counter() - t0) * 1e6 / n
+    n = 500
+    t0 = time.perf_counter()
+    for i in range(n):
+        attribute_program_iteration(probe_tr, prog, t0, 1e-3, phases, i, classes)
+    attribute_us = (time.perf_counter() - t0) * 1e6 / n
+    iter_us = statistics.median(ms["untraced"]) * 1e3
+    out["probe"] = {"observe_us": observe_us, "attribute_us": attribute_us,
+                    "untraced_iteration_us": iter_us,
+                    "observe_share": observe_us / iter_us,
+                    "attribute_share": attribute_us / iter_us, "budget_share": 0.02}
+
+    # export and reload
+    trace_path = save_chrome_trace(tracer, os.path.join(store, "trace.json"))
+    save()
+    trace = load_chrome_trace(trace_path)
+    if validate(trace):
+        fail("the saved trace does not validate")
+    live, loaded = tracer.phase_aggregates(), aggregate_events(trace)
+    if live.keys() != loaded.keys() or any(
+            live[fp][ph]["count"] != loaded[fp][ph]["count"]
+            or not math.isclose(live[fp][ph]["observed"], loaded[fp][ph]["observed"],
+                                rel_tol=1e-9)
+            for fp in live for ph in live[fp]):
+        fail("the saved trace's phase aggregates differ from the tracer's")
+    tel_back = ExchangeTelemetry.load(os.path.join(store, "telemetry.json"))
+    if tel_back.to_json() != comm.telemetry.to_json():
+        fail("telemetry.json does not round-trip")
+    metrics_back = MetricsRegistry.load(os.path.join(store, "metrics.json"))
+    if metrics_back.snapshot() != default_metrics().snapshot():
+        fail("metrics.json does not round-trip")
+    if metrics_back.counter("comm.exchanges") != comm.wire_ops:
+        fail("metrics.json holds another exchange count than the communicator")
+    out["files"] = {name: os.path.getsize(os.path.join(store, name))
+                    for name in ("trace.json", "telemetry.json", "metrics.json",
+                                 "decisions.json")}
+    out["telemetry_keys"] = len(comm.telemetry)
+
+    # the drift audit, the worst term re-measured, the audit again
+    rep, out["drift_before"] = audit(comm, H100_ANALYTIC, tracer)
+    worst, worst_r = "", 1.0
+    for f in rep.findings:
+        for term, r in ([(f.term, f.ratio)] if f.term else list(f.phase_ratios.items())):
+            if abs(math.log(r)) > abs(math.log(worst_r)):
+                worst, worst_r = term, r
+    if not worst:
+        fail("the audit found no term to re-measure")
+    t0 = time.perf_counter()
+    fresh = remeasure_term(H100_ANALYTIC, worst, reduced=True, device=dev)
+    out["remeasured"] = {"term": worst, "ratio_before": worst_r,
+                         "seconds": time.perf_counter() - t0}
+    tracer2 = Tracer()
+    comm2, _ = production_communicator(store, params=fresh, telemetry=ExchangeTelemetry(),
+                                       tracer=tracer2, device=dev)
+    prog2 = build_halo_program(grid, interior, comm2, steps="auto")
+    if not prog2.pinned or prog2.steps != prog.steps:
+        fail(f"the re-measured communicator built s={prog2.steps} (pinned {prog2.pinned}); "
+             f"the saved decision is s={prog.steps}")
+    ms2 = observed_run(comm2, prog2, tracer2, OBS_ITERS, "obs after re-measurement")
+    check_tree(tracer2, "obs after re-measurement")
+    out["ms_per_traced_iteration_after"] = ms2["traced"]
+    out["ms_per_untraced_iteration_after"] = ms2["untraced"]
+    out["first_iteration_span_ms_after"] = ms2["first_iteration_span_ms"]
+    out["warmup_ms_after"] = {k: ms2[f"warmup_{k}"] for k in ("untraced", "traced")}
+    out["span_ms_after"], out["obs_over_pred_after"] = phase_stats(tracer2)
+    _, out["drift_after"] = audit(comm2, fresh, tracer2)
+    del x, y
+    torch.cuda.empty_cache()
+    zero = [k for k, v in total.items() if v == 0]
+    if zero:
+        fail(f"kernels never launched in the obs phase: {zero}")
+    out["launches"] = total
+    before, after = out["drift_before"], out["drift_after"]
+    print(f"[obs] {2 * OBS_ITERS} traced s={prog.steps} iterations torch.equal to the untraced "
+          f"ones with equal launches; {statistics.median(ms['traced']):.3f} ms traced against "
+          f"{statistics.median(ms['untraced']):.3f} untraced; stencil obs/pred "
+          f"{out['obs_over_pred'].get('stencil', float('nan')):.1f}; drift flagged "
+          f"{before['drifted_terms']} -> re-measured {worst} -> {after['drifted_terms']}; "
+          f"probe {100 * (observe_us + attribute_us) / iter_us:.4f}% of an iteration; {card}")
+    print(json.dumps({"obs": out}))
+    return total
+
+
 def plan_launches(plan, comm):
     """Kernel launches one exchange of ``plan`` on ``comm`` makes: per
     region, a pack by its send strategy (for ``bounding``, the receiver's
@@ -2026,10 +2312,11 @@ def main() -> int:
     phase_kernels(torch, dev, spec, check)
     counts = phase_main(torch, dev, spec, timings)
     measure, measured = phase_measure(torch, dev, spec, card)
-    program = phase_program(torch, dev, spec, card, measured)
+    program, program_window_ms = phase_program(torch, dev, spec, card, measured)
     dist = phase_dist(torch, dev, card)
     compress = phase_compress(torch, dev, spec, card)
     tiered = phase_tiered(torch, dev, spec, card, measured)
+    obs = phase_obs(torch, dev, spec, card, program_window_ms)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -2038,11 +2325,11 @@ def main() -> int:
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (counts[kernel] + program[kernel] + dist[kernel] + compress[kernel]
-                         + tiered[kernel]),
+                         + tiered[kernel] + obs[kernel]),
             "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
             "launches_dist": dist[kernel], "launches_compress": compress[kernel],
-            "launches_tiered": tiered[kernel],
+            "launches_tiered": tiered[kernel], "launches_obs": obs[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

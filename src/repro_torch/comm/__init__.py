@@ -15,6 +15,7 @@ from repro_torch.comm.api import (
     SendRequest,
     Strategy,
     StrategyRegistry,
+    as_communicator,
     default_registry,
     policy_for_mode,
     register_strategy,
@@ -94,6 +95,7 @@ __all__ = [
     "WIRE_SCHEDULES",
     "WireGroup",
     "WirePlan",
+    "as_communicator",
     "build_scale_plan",
     "classify_and_coalesce",
     "default_registry",

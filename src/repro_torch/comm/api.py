@@ -35,6 +35,7 @@ points with the same arguments.  Unpacks write in place.
 from __future__ import annotations
 
 import contextlib
+import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
@@ -56,6 +57,7 @@ from repro_torch.kernels import ref as refk
 from repro_torch.kernels.geometry import PackGeometry, plan_geometry
 from repro_torch.kernels.pack import pack_compress_ragged, pack_dma, pack_rows
 from repro_torch.kernels.unpack import decode_unpack_ragged, unpack_dma, unpack_rows
+from repro_torch.obs.trace import synchronize
 
 __all__ = [
     "Strategy",
@@ -75,6 +77,7 @@ __all__ = [
     "ClassRequest",
     "NeighborRequest",
     "Communicator",
+    "as_communicator",
     "WirePlan",
     "WireGroup",
     "DEFAULT_SCHEDULE_POLICY",
@@ -677,16 +680,18 @@ class NeighborRequest(Request):
     exchange with no classes is complete at once."""
 
     def __init__(self, buf: torch.Tensor, classes: Sequence[ClassRequest],
-                 plan: Optional[WirePlan] = None, drains: Optional[Dict[str, int]] = None):
+                 plan: Optional[WirePlan] = None,
+                 on_drain: Optional[Callable[["NeighborRequest", ClassRequest], None]] = None):
         super().__init__()
         self._buf = buf
         self.classes = tuple(classes)
         self.plan = plan
         #: class indices in the order they were drained
         self.drained: List[int] = []
-        #: the communicator's ``wire_class_drains``: each drain writes the
-        #: class's 1-based position under ``"<plan fp>/c<class>"``
-        self._drains = drains
+        #: called after each drain with the request and the drained class
+        #: (the communicator records the drain order there, and with
+        #: telemetry or a tracer attached the class's drain latency)
+        self._on_drain = on_drain
         if not self.classes:
             self._value = buf
 
@@ -710,8 +715,8 @@ class NeighborRequest(Request):
         pick = next((c for c in pend if c.ready()), pend[0])
         pick.unpack_into(self._buf)
         self.drained.append(pick.index)
-        if self._drains is not None:
-            self._drains[f"{self.plan.fingerprint}/c{pick.index}"] = len(self.drained)
+        if self._on_drain is not None:
+            self._on_drain(self, pick)
         if len(self.drained) == len(self.classes):
             self._value = self._buf
         return pick
@@ -759,6 +764,23 @@ class Communicator:
         re-prices when it changes).
     axis_name: the mesh axis whose measured wire table
         (``SystemParams.wire_tables``) prices the links by default.
+    telemetry: optional :class:`repro_torch.fleet.ExchangeTelemetry`, the
+        runtime half of the feedback loop.  Planning registers the
+        model's predicted seconds per decision key; the blocking entry
+        points (:meth:`sendrecv`, :meth:`neighbor_alltoallv`) also observe
+        wall time, synchronizing the buffer's device first, and every
+        drained delta class observes its drain latency.
+    tracer: optional :class:`repro_torch.obs.Tracer`: structured
+        per-phase spans on the same paths, recorded only while the tracer
+        is active (never while a CUDA graph is being captured).  The
+        blocking entry points record ``exchange`` → ``pack``/``wire``/
+        ``unpack`` spans, synchronizing the buffer's device at each phase
+        boundary (the decision signature and the model's per-phase
+        predictions ride as span attributes); planning records a ``plan``
+        span and each drained class a ``wire_class`` span.
+
+    With neither attached the entry points add no synchronization and no
+    timing; a program step stays free of host stream synchronizations.
     """
 
     def __init__(
@@ -772,6 +794,8 @@ class Communicator:
         decisions=None,
         topology=None,
         axis_name: Optional[str] = None,
+        telemetry=None,
+        tracer=None,
     ):
         if transport is None:
             self.device = resolve_device("cuda" if device is None else device)
@@ -786,6 +810,8 @@ class Communicator:
         self.strategies = strategies or default_registry()
         self.model = PerfModel(params, decisions=decisions, axis=axis_name, topology=topology)
         self.policy = policy or ModelPolicy()
+        self.telemetry = telemetry
+        self.tracer = tracer
         # per-delta-class wire accounting, keyed "<plan fp>/c<class>":
         # issue counts and exact bytes per class, and the 1-based drain
         # position wait_any() last saw the class at
@@ -805,6 +831,11 @@ class Communicator:
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
         return self._side
+
+    def _tracing_spans(self) -> bool:
+        """Whether this call records spans: a tracer is attached and
+        active (the current stream is not capturing a CUDA graph)."""
+        return self.tracer is not None and self.tracer.active
 
     @property
     def wire_ops(self) -> int:
@@ -850,10 +881,16 @@ class Communicator:
     def isend(self, buf: torch.Tensor, ct: CommittedType,
               perm: Sequence[Tuple[int, int]], incount: int = 1) -> SendRequest:
         """Pack ``ct`` out of every rank of ``buf`` and send along
-        ``perm`` now; the request carries the received payload."""
+        ``perm`` now; the request carries the received payload.  With
+        telemetry attached the send type's price (through the chosen
+        strategy, recording no decision) is registered under its
+        fingerprint."""
         self._check(buf)
         s = self.select(ct, incount, wire=True)
         seg = s.wire_segment(ct, incount)
+        if self.telemetry is not None:
+            est = s.plan(self.model, ct, incount)
+            self.telemetry.register(ct.fingerprint, est.total, s.name)
         payload = s.pack(buf, ct, incount, batched=True)
         wire = self.transport.permute(payload, perm)
         return SendRequest(wire, s, ct, incount, segment=seg)
@@ -871,9 +908,49 @@ class Communicator:
 
     def sendrecv(self, src_buf, dst_buf, send_ct, perm, recv_ct=None, incount=1):
         """Blocking pack -> send -> unpack; returns ``dst_buf``, updated
-        in place."""
+        in place.  With telemetry attached the whole call is timed against
+        the send type's fingerprint; with an active tracer it records an
+        ``exchange`` span with ``pack``/``wire``/``unpack`` children,
+        synchronizing at each phase boundary so the split is observed,
+        not attributed."""
+        if self._tracing_spans():
+            return self._sendrecv_traced(src_buf, dst_buf, send_ct, perm, recv_ct, incount)
+        if self.telemetry is None:
+            req = self.isend(src_buf, send_ct, perm, incount)
+            return self.irecv(dst_buf, recv_ct or send_ct, req).wait()
+        t0 = time.perf_counter()
         req = self.isend(src_buf, send_ct, perm, incount)
-        return self.irecv(dst_buf, recv_ct or send_ct, req).wait()
+        out = self.irecv(dst_buf, recv_ct or send_ct, req).wait()
+        synchronize(out)  # asynchronous launches would under-report
+        self.telemetry.observe(send_ct.fingerprint, time.perf_counter() - t0)
+        return out
+
+    def _sendrecv_traced(self, src_buf, dst_buf, send_ct, perm, recv_ct, incount):
+        """:meth:`sendrecv` with per-phase spans: the work of isend +
+        irecv laid out phase by phase so each span boundary can block."""
+        self._check(src_buf)
+        s = self.select(send_ct, incount, wire=True)
+        seg = s.wire_segment(send_ct, incount)
+        est = s.plan(self.model, send_ct, incount)
+        if self.telemetry is not None:
+            self.telemetry.register(send_ct.fingerprint, est.total, s.name)
+        t0 = time.perf_counter()
+        with self.tracer.span(
+            "exchange", fingerprint=send_ct.fingerprint, strategy=s.name,
+            wire_bytes=seg.nbytes, incount=incount, pred=est.total,
+        ):
+            with self.tracer.span("pack", pred=est.t_pack):
+                payload = s.pack(src_buf, send_ct, incount, batched=True)
+                synchronize(payload)
+            with self.tracer.span("wire", pred=est.t_link, wire_bytes=seg.nbytes):
+                wire = self.transport.permute(payload, perm)
+                synchronize(wire)
+            with self.tracer.span("unpack", pred=est.t_unpack):
+                out = s.unpack_wire(self, dst_buf, wire, recv_ct or send_ct, send_ct, incount)
+                synchronize(out)
+        if self.telemetry is not None:
+            self.telemetry.observe(send_ct.fingerprint, time.perf_counter() - t0)
+        return out
 
     # -- fused neighborhood alltoallv (the paper's MPI_Alltoallv) ----------
     def plan_neighbor(
@@ -894,7 +971,12 @@ class Communicator:
         byte-exact ladder.  Whether a native ragged collective exists is
         the transport's answer (``transport.native_ragged``).  The plan is
         priced and, with a decision cache, recorded with the prices of
-        the schedules the model rejected.
+        the schedules the model rejected.  With telemetry attached the
+        plan's price is registered under its fingerprint (and, for a plan
+        of more than one class, each class's predicted completion under
+        ``<fp>/c<g>``; for a probed plan the probed ratio under
+        ``<fp>/ratio``); with an active tracer the planning is recorded
+        as a ``plan`` span.
 
         ``probe`` (one rank's buffer, concrete) turns on length-aware
         planning: under model selection a ``supports_varlen`` compressor
@@ -912,6 +994,7 @@ class Communicator:
                 f"unknown schedule_policy {schedule_policy!r}; "
                 "expected 'exact' or 'model'"
             )
+        t_plan0 = time.perf_counter() if self._tracing_spans() else None
         if strategies is not None:
             strats = tuple(strategies)
         elif probe is not None and isinstance(self.policy, ModelPolicy):
@@ -953,8 +1036,67 @@ class Communicator:
             note = " priced[" + " ".join(
                 f"{k}={v:.3e}" for k, v in sorted(costs.items())
             ) + "]"
-        self.model.price_exchange(plan, note=note)
+        est = self.model.price_exchange(plan, note=note)
+        if self.telemetry is not None:
+            # the prediction is on file before the first observation
+            self.telemetry.register(plan.fingerprint, est.total, est.strategy)
+            # per-class completions beside the whole-exchange key, so
+            # drift can name the slow direction, not just the exchange
+            if plan.ngroups > 1:
+                for g, t_c in enumerate(self.model.price_class_completions(plan)):
+                    self.telemetry.register(f"{plan.fingerprint}/c{g}", t_c,
+                                            f"class/{plan.schedule}")
+            if plan.stream_bytes:
+                # achieved-ratio ring: predicted = the probed ratio
+                self.telemetry.register(f"{plan.fingerprint}/ratio", plan.stream_ratio,
+                                        "compress/ratio")
+        if t_plan0 is not None:
+            self.tracer.add_manual(
+                "plan", t_plan0, time.perf_counter() - t_plan0,
+                fingerprint=plan.fingerprint, strategy=est.strategy,
+                schedule=plan.schedule, wire_bytes=plan.issued_bytes,
+                nsegments=len(plan.segments), pred=est.total,
+            )
         return strats, plan
+
+    def _phase_predictions(self, send_cts, strategies, plan) -> Tuple[float, float, float]:
+        """Model-predicted (pack, wire, unpack) seconds of one fused
+        exchange: the member estimates through the plan's strategies and
+        the model's price of the plan's own schedule — the ``pred``
+        attributes of the phase spans.  Computed only on traced calls."""
+        t_pack = t_unpack = 0.0
+        for ct, strat in zip(send_cts, strategies):
+            est = strat.plan(self.model, ct, 1)
+            t_pack += est.t_pack
+            t_unpack += est.t_unpack
+        return t_pack, self.model._price_schedule(plan, plan.schedule), t_unpack
+
+    def _drain_order(self, req: "NeighborRequest", cls: ClassRequest) -> None:
+        """Record a drained class's 1-based drain position."""
+        self.wire_class_drains[f"{req.plan.fingerprint}/c{cls.index}"] = len(req.drained)
+
+    def _observed_drain(self, tracing: bool):
+        """The drain hook of an observed exchange: the drain order, then
+        (after synchronizing the buffer's device) the class's latency
+        from issue, observed under ``<fp>/c<g>`` with telemetry and
+        recorded as a ``wire_class`` span under an active tracer."""
+        issued_at = time.perf_counter()
+
+        def on_drain(req: NeighborRequest, cls: ClassRequest) -> None:
+            self._drain_order(req, cls)
+            synchronize(req.buffer)
+            dt = time.perf_counter() - issued_at
+            key = f"{req.plan.fingerprint}/c{cls.index}"
+            if self.telemetry is not None:
+                self.telemetry.observe(key, dt)
+            if tracing:
+                self.tracer.add_manual(
+                    "wire_class", issued_at, dt, fingerprint=req.plan.fingerprint,
+                    nbytes=cls.nbytes, transfers=len(cls.transfers),
+                    drain_order=len(req.drained), **{"class": cls.index},
+                )
+
+        return on_drain
 
     def ineighbor_alltoallv(
         self,
@@ -984,7 +1126,12 @@ class Communicator:
         exchange is on the wire.  The packs read only interior cells and
         the unpacks write only halo cells; no unpack runs before the
         caller's stream has waited on its class's event, and whatever
-        writes the packed cells must first drain every class."""
+        writes the packed cells must first drain every class.
+
+        Under an active tracer the pack and the wire are ``pack`` and
+        ``wire`` spans, each synchronized at its end; with telemetry or a
+        tracer attached each drained class is observed
+        (:meth:`_observed_drain`)."""
         if not (len(send_cts) == len(recv_cts) == len(perms)):
             raise ValueError("send_cts, recv_cts, perms must align")
         self._check(buf)
@@ -1024,14 +1171,28 @@ class Communicator:
                 events[g] = torch.cuda.Event()
                 events[g].record(side)
 
+        observed = self.telemetry is not None or self.tracer is not None
+        tracing = observed and self._tracing_spans()
         with torch.cuda.stream(side) if buf.is_cuda else contextlib.nullcontext():
-            wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
-            group_rows = self.transport.exchange(wire, plan, on_class)
+            if tracing:
+                t_pack, t_wire, _ = self._phase_predictions(send_cts, strategies, plan)
+                with self.tracer.span("pack", pred=t_pack, nbytes=plan.wire_bytes):
+                    wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
+                    synchronize(wire)
+                with self.tracer.span("wire", pred=t_wire, wire_bytes=plan.issued_bytes,
+                                      schedule=plan.schedule):
+                    group_rows = self.transport.exchange(wire, plan, on_class)
+                    synchronize(wire)
+            else:
+                wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
+                group_rows = self.transport.exchange(wire, plan, on_class)
         varlen = plan.schedule == "varlen"
         if varlen:
             self.compress_exchanges += 1
             self.compress_capacity_bytes += plan.wire_bytes
             self.compress_stream_bytes += plan.effective_wire_bytes
+            if self.telemetry is not None:
+                self.telemetry.observe(f"{plan.fingerprint}/ratio", plan.stream_ratio)
         sizes = plan.stream_bytes if varlen else tuple(g.nbytes for g in plan.groups)
         fp = plan.fingerprint
         for g, nbytes in enumerate(sizes):
@@ -1067,12 +1228,125 @@ class Communicator:
                          class_unpacker(grp, g), events[g], hold=wire)
             for g, grp in enumerate(plan.groups)
         ]
-        return NeighborRequest(buf, classes, plan, self.wire_class_drains)
+        on_drain = self._observed_drain(tracing) if observed else self._drain_order
+        return NeighborRequest(buf, classes, plan, on_drain)
 
     def neighbor_alltoallv(self, buf, send_cts, recv_cts, perms, plan=None,
                            strategies=None) -> torch.Tensor:
         """Blocking :meth:`ineighbor_alltoallv`; returns ``buf``, updated
-        in place."""
-        return self.ineighbor_alltoallv(
-            buf, send_cts, recv_cts, perms, plan, strategies
-        ).wait()
+        in place.  With telemetry attached the call is timed against the
+        wire plan's fingerprint (the key the decision cache records the
+        schedule under).  Under an active tracer it records one
+        ``exchange`` span carrying the decision signature
+        (``fingerprint``, ``strategy=wire/<schedule>``, ``schedule``,
+        ``wire_bytes``, ``ngroups``, ``pred``) around ``plan`` (when
+        planned here), ``pack``, ``wire`` and ``unpack``."""
+        if len(send_cts) > 0 and self._tracing_spans():
+            return self._neighbor_alltoallv_traced(
+                buf, send_cts, recv_cts, perms, plan, strategies)
+        if self.telemetry is None or len(send_cts) == 0:
+            return self.ineighbor_alltoallv(
+                buf, send_cts, recv_cts, perms, plan, strategies
+            ).wait()
+        if plan is None:
+            strategies, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
+        t0 = time.perf_counter()
+        out = self.ineighbor_alltoallv(buf, send_cts, recv_cts, perms, plan, strategies).wait()
+        synchronize(out)
+        self.telemetry.observe(plan.fingerprint, time.perf_counter() - t0)
+        return out
+
+    def _neighbor_alltoallv_traced(self, buf, send_cts, recv_cts, perms, plan, strategies):
+        """The blocking fused exchange under the tracer: one ``exchange``
+        span whose children decompose the call."""
+        t0 = time.perf_counter()
+        with self.tracer.span("exchange") as sp:
+            if strategies is None:
+                strategies = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
+            if plan is None:
+                strategies, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
+            t_pack, t_wire, t_unpack = self._phase_predictions(send_cts, strategies, plan)
+            if sp is not None:
+                sp.attrs.update(
+                    fingerprint=plan.fingerprint,
+                    strategy=f"wire/{plan.schedule}",
+                    schedule=plan.schedule,
+                    wire_bytes=plan.issued_bytes,
+                    ngroups=len(plan.groups),
+                    pred=t_pack + t_wire + t_unpack,
+                )
+            req = self.ineighbor_alltoallv(buf, send_cts, recv_cts, perms, plan, strategies)
+            with self.tracer.span("unpack", pred=t_unpack):
+                out = req.wait()
+                synchronize(out)
+        if self.telemetry is not None:
+            self.telemetry.observe(plan.fingerprint, time.perf_counter() - t0)
+        return out
+
+    # -- collectives on datatypes ----------------------------------------
+    def all_gather_packed(self, buf: torch.Tensor, ct: CommittedType,
+                          incount: int = 1) -> torch.Tensor:
+        """Pack the datatype out of every rank of ``buf``, then all-gather
+        the packed payloads: returns ``(local ranks, R, size * incount)``
+        bytes, every rank holding every rank's payload in rank order (the
+        local mesh's ``(R, R, n)``; under one process per rank this rank's
+        ``(1, R, n)``).  One wire op."""
+        return self.transport.all_gather(self.pack(buf, ct, incount))
+
+    def all_to_all_packed(self, buf: torch.Tensor,
+                          cts: Sequence[CommittedType]) -> torch.Tensor:
+        """MPI_Alltoall over equal-size segments: pack one datatype per
+        peer out of every rank of ``buf`` into ``(local ranks, npeers,
+        seg)``, then all-to-all along the peers: the ``npeers`` rows split
+        into R equal chunks, chunk ``c`` goes to rank ``c``, and each rank
+        receives the chunks in source-rank order.  Every ``cts`` must have
+        the same packed size (pad types to match).  One wire op."""
+        if len({ct.size for ct in cts}) != 1:
+            raise ValueError("all_to_all_packed needs equal-size segments")
+        sendbuf = torch.stack([self.pack(buf, ct) for ct in cts], dim=1)
+        return self.transport.all_to_all(sendbuf)
+
+    # --------------------------------------------------------------------
+    def stats(self) -> Dict[str, int]:
+        """Cumulative counters for this communicator, under the
+        reference's keys.  Every call also publishes them into the process
+        metrics registry (:func:`repro_torch.obs.metrics.publish_comm_stats`),
+        so ``default_metrics().snapshot()`` — and the ``metrics.json``
+        the production ``save()`` persists — reflects the latest totals."""
+        out = {
+            "committed_types": len(self.registry),
+            "commit_hits": self.registry.hits,
+            "model_lookups": self.model.lookups,
+            "model_hits": self.model.hits,
+            "strategies": len(self.strategies),
+            "wire_ops": self.wire_ops,
+            "wire_payload_bytes": self.wire_payload_bytes,
+            "wire_classes": len(self.wire_class_bytes),
+            "wire_class_ops": dict(self.wire_class_ops),
+            "wire_class_bytes": dict(self.wire_class_bytes),
+            "wire_class_drains": dict(self.wire_class_drains),
+            "compress_exchanges": self.compress_exchanges,
+            "compress_capacity_bytes": self.compress_capacity_bytes,
+            "compress_stream_bytes": self.compress_stream_bytes,
+            "compress_ratio": (
+                self.compress_stream_bytes / self.compress_capacity_bytes
+                if self.compress_capacity_bytes else 1.0
+            ),
+            "telemetry_keys": len(self.telemetry) if self.telemetry is not None else 0,
+        }
+        from repro_torch.obs.metrics import publish_comm_stats
+
+        publish_comm_stats(out, self.telemetry)
+        return out
+
+
+def as_communicator(obj) -> Communicator:
+    """Accept a Communicator or anything wrapping one (the
+    :class:`~repro_torch.comm.interposer.Interposer` shim exposes
+    ``.comm``)."""
+    if isinstance(obj, Communicator):
+        return obj
+    comm = getattr(obj, "comm", None)
+    if isinstance(comm, Communicator):
+        return comm
+    raise TypeError(f"expected a Communicator (or shim), got {type(obj)!r}")

@@ -26,7 +26,11 @@ reference's ``_issue_wire`` (``repro.comm.api``) one schedule at a time:
              intra-node correction hop that forwards its part to its true
              rank;
 ``permute``  one ``batch_isend_irecv`` to this rank's destination and
-             from its source; a rank that no edge reaches gets zeros.
+             from its source; a rank that no edge reaches gets zeros;
+             a permutation whose sources or destinations repeat raises
+             on every rank before any op is issued;
+packed collectives  ``all_gather_into_tensor`` and ``all_to_all_single``
+             (``lax.all_gather`` / ``lax.all_to_all``).
 
 Every op is issued with ``async_op`` and waited on at once.  Under NCCL
 ``Work.wait()`` makes the current stream wait for the op without
@@ -53,7 +57,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.transport import correction_perm, stream_sizes, tier_members
+from repro_torch.comm.transport import (check_chunks, check_perm, correction_perm,
+                                        stream_sizes, tier_members)
 from repro_torch.device import resolve_device
 
 __all__ = ["DistributedTransport", "BACKEND_DEVICE", "check_backend_device"]
@@ -160,6 +165,7 @@ class DistributedTransport:
         row received, zeros where no edge of ``perm`` reaches this rank.
         Every rank of the group calls it with the same ``perm``."""
         self._check(payload)
+        check_perm(perm)
         payload = payload.contiguous()
         dst = src = None
         for s, d in perm:
@@ -171,6 +177,35 @@ class DistributedTransport:
         works = self._p2p(payload[0], dst, out[0], src)
         self._count(payload.shape[1])
         self._wait(works)
+        return out
+
+    def all_gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's ``(1, n)`` row to every rank: returns ``(1, R, n)``,
+        every rank's row in rank order."""
+        self._check(rows)
+        out = torch.empty((1, self.nranks, rows.shape[1]), dtype=rows.dtype,
+                          device=rows.device)
+        work = dist.all_gather_into_tensor(out.view(-1), rows.contiguous().view(-1),
+                                           group=self.group, async_op=True)
+        self.ops += 1
+        self._wait([work])
+        return out
+
+    def all_to_all(self, rows: torch.Tensor) -> torch.Tensor:
+        """This rank's ``(1, npeers, seg)`` rows: chunk ``c`` (``npeers /
+        R`` rows) to rank ``c``; returns the chunks received, in source
+        order, as ``(1, npeers, seg)``."""
+        if rows.dim() < 2 or rows.shape[0] != 1:
+            raise ValueError(
+                f"one process per rank: the rows must be (1, npeers, ...), got "
+                f"{tuple(rows.shape)}")
+        check_chunks(rows.shape[1], self.nranks)
+        send = rows.contiguous()
+        out = torch.empty_like(send)
+        work = dist.all_to_all_single(out.view(-1), send.view(-1), group=self.group,
+                                      async_op=True)
+        self.ops += 1
+        self._wait([work])
         return out
 
     def exchange(self, wire: torch.Tensor, plan,

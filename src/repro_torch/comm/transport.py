@@ -10,6 +10,13 @@ through this interface:
     rank ``src`` sends its row to ``dst`` for every ``(src, dst)`` edge
     of ``perm``.  Returns the received ``(local_ranks, n)`` rows; a rank
     that no edge reaches receives zeros, as under ``lax.ppermute``.
+``all_gather(rows)`` / ``all_to_all(rows)``
+    the packed collectives: every rank receives every rank's
+    ``(local_ranks, n)`` row (``(local_ranks, R, n)``, as under
+    ``lax.all_gather``); and the ``(local_ranks, npeers, seg)`` rows
+    split into R equal chunks along the peers, chunk ``c`` to rank ``c``,
+    received in source-rank order (``lax.all_to_all``).  Each is one wire
+    op and, as in the reference, adds no payload bytes to ``bytes``;
 ``exchange(wire, plan, on_class)``
     put the flat ``(local_ranks, plan.wire_bytes)`` wire buffer of a
     :class:`~repro_torch.comm.wireplan.WirePlan` on the link under the
@@ -51,7 +58,29 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["LocalMeshTransport", "stream_sizes", "tier_members", "correction_perm"]
+__all__ = ["LocalMeshTransport", "check_perm", "stream_sizes", "tier_members",
+           "correction_perm"]
+
+
+def check_perm(perm: Sequence[Tuple[int, int]]) -> None:
+    """Raise the reference's error (``lax.ppermute``'s, word for word)
+    when a source or a destination repeats in ``perm``: such a send has
+    no single meaning, and under one process per rank it would leave a
+    send unmatched."""
+    srcs = [s for s, _ in perm]
+    dsts = [d for _, d in perm]
+    if len(set(srcs)) != len(srcs) or len(set(dsts)) != len(dsts):
+        edges = tuple((int(s), int(d)) for s, d in perm)
+        raise ValueError(f"ppermute sources and destinations must be unique, got {edges}.")
+
+
+def check_chunks(npeers: int, nranks: int) -> int:
+    """Rows per chunk of an all-to-all over ``npeers`` rows and
+    ``nranks`` ranks; raises unless they split evenly."""
+    if npeers % nranks:
+        raise ValueError(
+            f"all_to_all splits {npeers} rows among {nranks} ranks: not a multiple")
+    return npeers // nranks
 
 
 def stream_sizes(plan) -> tuple:
@@ -144,6 +173,7 @@ class LocalMeshTransport:
         """One permutation send: rank ``src`` sends its row to ``dst``
         for every edge of ``perm``.  Returns the received ``(R, n)``; a
         rank that no edge reaches gets a zero row."""
+        check_perm(perm)
         src: List[Optional[int]] = [None] * payload.shape[0]
         for s, d in perm:
             src[d] = s
@@ -154,6 +184,22 @@ class LocalMeshTransport:
         if missing:
             out[missing] = 0
         return out
+
+    def all_gather(self, rows: torch.Tensor) -> torch.Tensor:
+        """Every rank receives every rank's row: ``(R, n)`` ->
+        ``(R, R, n)``."""
+        self.ops += 1
+        return rows.unsqueeze(0).expand(rows.shape[0], *rows.shape).contiguous()
+
+    def all_to_all(self, rows: torch.Tensor) -> torch.Tensor:
+        """``(R, npeers, seg)``: rank ``r``'s chunk ``c`` (``npeers / R``
+        rows) goes to rank ``c``, which holds what it received in source
+        order — a transpose of the ``(R, R)`` chunk grid."""
+        R, npeers = rows.shape[0], rows.shape[1]
+        k = check_chunks(npeers, R)
+        self.ops += 1
+        chunks = rows.reshape(R, R, k, *rows.shape[2:])
+        return chunks.transpose(0, 1).reshape(rows.shape).contiguous()
 
     def exchange(self, wire: torch.Tensor, plan,
                  on_class: Optional[Callable[[int], None]] = None) -> List[torch.Tensor]:

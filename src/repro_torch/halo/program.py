@@ -42,10 +42,12 @@ from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.comm.api import as_communicator
 from repro_torch.comm.perfmodel import ProgramEstimate, StrategyEstimate
 from repro_torch.core.datatypes import FLOAT, Named
 from repro_torch.device import resolve_device
-from repro_torch.halo.exchange import HaloPlan, HaloSpec, halo_exchange, make_halo_plan
+from repro_torch.halo.exchange import (HaloPlan, HaloSpec, _check_local, halo_exchange,
+                                      make_halo_plan)
 from repro_torch.halo.stencil import (
     STENCIL26,
     Ops,
@@ -53,7 +55,9 @@ from repro_torch.halo.stencil import (
     as_ops,
     cycle_halo_radii,
     cycle_radii,
+    op_sequence,
     overlapped_stencil_iteration,
+    stencil_apply,
     stencil_cycle,
 )
 
@@ -204,16 +208,57 @@ class HaloProgram:
         ``"monolithic"``) waits for every class, ``"region"`` computes
         each rim region as its classes land, ``"auto"`` lets the model
         pick (:func:`repro_torch.halo.stencil.overlapped_stencil_iteration`).
-        The reference's traced iteration comes with the tracer (ROADMAP
-        Queue 1, observability); the port's communicator carries none."""
+
+        When the communicator carries an active
+        :class:`repro_torch.obs.Tracer`, the plain iteration records the
+        span hierarchy: ``program_iteration`` hosting the fused
+        ``exchange`` (with its pack/wire/unpack phases, through
+        :meth:`Communicator.neighbor_alltoallv`) and one ``stencil`` span
+        per application, each synchronized at its end."""
         if overlap:
             mode = "monolithic" if overlap is True else str(overlap)
             return overlapped_stencil_iteration(
                 local, self.spec, comm, steps=self.steps, probe=probe,
                 plan=self.plan, op=self.ops, mode=mode,
             )
+        comm = as_communicator(comm)
+        tracer = comm.tracer
+        if tracer is not None and tracer.active:
+            return self._traced_iteration(local, comm, tracer)
         local = halo_exchange(local, self.spec, comm, plan=self.plan)
         return stencil_cycle(local, self.spec, self.ops, self.steps)
+
+    def _traced_iteration(self, local: torch.Tensor, comm, tracer) -> torch.Tensor:
+        """The plain iteration with spans per phase, synchronized at each
+        boundary (an observation path: the spans cost a host
+        synchronization each)."""
+        from repro_torch.fleet.telemetry import predict_program_phases
+        from repro_torch.obs.trace import synchronize
+
+        phases = predict_program_phases(self, comm.model)
+        napp = max(self.applications, 1)
+        with tracer.span(
+            "program_iteration", fingerprint=self.fingerprint,
+            strategy=f"program/s={self.steps}", steps=self.steps,
+            cycle_len=self.cycle_len, pinned=bool(self.pinned),
+            pred=sum(phases.values()),
+        ):
+            # the exchange span and its phases come from the blocking
+            # Communicator path
+            _check_local(local, self.spec, comm)
+            local = comm.neighbor_alltoallv(
+                local, self.plan.send_cts, self.plan.recv_cts, self.plan.perms,
+                plan=self.plan.wire, strategies=self.plan.strategies,
+            )
+            valid = self.spec.radii
+            pred_app = phases.get("stencil", 0.0) / napp
+            for i, o in enumerate(op_sequence(self.ops, self.steps)):
+                with tracer.span("stencil", application=i, op=i % self.cycle_len,
+                                 pred=pred_app):
+                    local = stencil_apply(local, self.spec, valid, o)
+                    synchronize(local)
+                valid = tuple(v - r for v, r in zip(valid, o.radii))
+        return local
 
 
 def _feasible_steps(

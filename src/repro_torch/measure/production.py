@@ -9,6 +9,16 @@ selections and never consults the model for them again.
     comm, save = production_communicator()
     ... every datatype exchange of the job goes through comm ...
     save()          # persist the (possibly grown) decisions file
+
+With ``telemetry=True`` the communicator also carries an
+:class:`~repro_torch.fleet.telemetry.ExchangeTelemetry` probe whose
+aggregates persist to ``telemetry.json`` next to the decisions file on
+``save()``, and with ``tracer=True`` a :class:`~repro_torch.obs.Tracer`
+records the exchange spans (export them with
+:func:`repro_torch.obs.export.save_chrome_trace`).  ``save()`` also
+writes a ``metrics.json`` snapshot of the communicator's counters.
+``python -m repro_torch.fleet report`` / ``stats`` render them, and
+:mod:`repro_torch.fleet.drift` audits them.
 """
 
 from __future__ import annotations
@@ -27,12 +37,6 @@ __all__ = ["DECISIONS_FILENAME", "production_communicator"]
 
 #: the decisions file lives at the root of the params store
 DECISIONS_FILENAME = "decisions.json"
-
-#: reference options whose machinery is a later roadmap item
-_LATER = {
-    "telemetry": "Queue 1, observability and fleet",
-    "tracer": "Queue 1, observability and fleet",
-}
 
 
 def production_communicator(
@@ -76,24 +80,26 @@ def production_communicator(
         the ``tiered`` schedule, and keys its wire and program decisions
         by the topology fingerprint, so a pin never replays across a
         reshape.
-    telemetry, tracer: the reference's options of a later roadmap item;
-        passing one raises NotImplementedError.
+    telemetry: ``True`` loads (or starts) the store's runtime telemetry
+        (``telemetry.json``, persisted by ``save()`` beside the
+        decisions); an :class:`~repro_torch.fleet.telemetry.ExchangeTelemetry`
+        instance is attached as-is (the caller owns its persistence);
+        ``None``/``False`` attaches no probe.
+    tracer: ``True`` attaches a fresh :class:`repro_torch.obs.Tracer`; a
+        Tracer instance is attached as-is; ``None``/``False`` attaches
+        none.
     transport: what moves the wire bytes (default: the local mesh on
         ``device``).  Under one process per rank
         (:class:`~repro_torch.comm.distributed.DistributedTransport`) the
         device is the transport's, and every rank must load the same
         tables: calibrate once beforehand, or pass ``params``.
 
-    Returns ``(comm, save)``: ``save()`` writes the decisions file; under
-    one process per rank only rank 0 writes it (the others return its
-    path).
+    Returns ``(comm, save)``: ``save()`` writes the decisions file, the
+    store-owned telemetry and the ``metrics.json`` snapshot
+    (:func:`repro_torch.obs.metrics.publish_comm_stats`); under one
+    process per rank only rank 0 writes them (the others return the
+    decisions file's path).
     """
-    for opt, value in (("telemetry", telemetry), ("tracer", tracer)):
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"production_communicator({opt}=...) is not ported yet "
-                f"(ROADMAP {_LATER[opt]})"
-            )
     if halo_steps is not None:
         from repro_torch.halo.program import set_default_halo_steps
 
@@ -114,12 +120,36 @@ def production_communicator(
             params = store.load() or H100_ANALYTIC
     decisions_path = store.root / DECISIONS_FILENAME
     decisions = DecisionCache.load(decisions_path)
+    tel = tel_path = None
+    if telemetry is True:
+        from repro_torch.fleet.telemetry import TELEMETRY_FILENAME, ExchangeTelemetry
+
+        tel_path = store.root / TELEMETRY_FILENAME
+        tel = ExchangeTelemetry.load(tel_path)
+    elif telemetry is not None and telemetry is not False:
+        # an instance, attached even while empty: an empty registry is
+        # falsy (it has a length), which the reference's ``elif
+        # telemetry:`` takes for "no probe"
+        tel = telemetry
+    tr = None
+    if tracer is True:
+        from repro_torch.obs.trace import Tracer
+
+        tr = Tracer()
+    elif tracer is not None and tracer is not False:  # an instance, even an empty one
+        tr = tracer
     comm = Communicator(params=params, decisions=decisions, device=dev, transport=transport,
-                        topology=topology)
+                        topology=topology, telemetry=tel, tracer=tr)
 
     def save() -> Path:
         if comm.transport.rank != 0:
             return decisions_path
+        if tel_path is not None:
+            tel.save(tel_path)
+        from repro_torch.obs.metrics import METRICS_FILENAME, default_metrics
+
+        comm.stats()  # publish the latest counters into the registry
+        default_metrics().save(store.root / METRICS_FILENAME)
         return decisions.save(decisions_path)
 
     return comm, save

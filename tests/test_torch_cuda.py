@@ -663,3 +663,93 @@ def test_world_of_one_nccl_tiered_exchange_equals_the_local_mesh(nccl_world):
     assert torch.equal(got, want)
     assert (comms[0].wire_ops, comms[0].wire_payload_bytes) == (
         comms[1].wire_ops, comms[1].wire_payload_bytes)
+
+
+# ---------------------------------------------------------------------------
+# observability on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+def test_no_spans_while_a_cuda_graph_is_captured():
+    from repro_torch.obs import Tracer
+    from repro_torch.obs import trace as trace_mod
+
+    dev = _card()
+    tr = Tracer()
+    x = torch.zeros(1024, device=dev)
+    seen = []
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        x.add_(1.0)  # warm up outside the capture
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        seen.append((trace_mod._capturing(), tr.active))
+        with tr.span("should-not-record") as sp:
+            seen.append(sp)
+            x.add_(1.0)
+    assert seen == [(True, False), None]
+    assert len(tr) == 0 and not trace_mod._capturing() and tr.active
+    g.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(x, torch.full_like(x, 2.0))
+
+
+def _traced_program(dev, tracer=None, telemetry=None):
+    from repro_torch.comm import Communicator as Comm
+
+    comm = Comm(device=dev, tracer=tracer, telemetry=telemetry)
+    return comm, build_halo_program((2, 2, 2), (16, 12, 10), comm, steps=2)
+
+
+@pytest.mark.cuda
+def test_traced_iteration_equals_the_untraced_one_with_the_same_launches():
+    from repro_torch.fleet import ExchangeTelemetry
+    from repro_torch.obs import Tracer, to_chrome_trace, validate
+
+    dev = _card()
+    plain, prog = _traced_program(dev)
+    tr = Tracer()
+    traced, tprog = _traced_program(dev, tr, ExchangeTelemetry())
+    assert tprog.plan.wire.fingerprint == prog.plan.wire.fingerprint
+    want = _small_state(prog.spec, dev)
+    got = want.clone()
+    counts = []
+    for p, c, x in ((prog, plain, want), (tprog, traced, got)):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        for _ in range(3):
+            p.iteration(x, c)
+        torch.cuda.synchronize()
+        counts.append(launch_counts())
+    assert torch.equal(got, want)
+    assert counts[0] == counts[1] and sum(counts[0].values()) > 0
+    assert plain.wire_ops == traced.wire_ops
+    assert validate(to_chrome_trace(tr)) == []
+    names = [s.name for s in tr.spans]
+    assert names.count("program_iteration") == names.count("exchange") == 3
+    assert names.count("stencil") == 6
+    assert traced.telemetry.get(tprog.plan.wire.fingerprint).count == 3
+
+
+@pytest.mark.cuda
+def test_packed_collectives_in_a_world_of_one_equal_the_local_mesh(nccl_world):
+    from repro_torch.comm import DistributedTransport
+    from repro_torch.comm.interposer import Interposer
+    from repro_torch.core import FLOAT, Vector
+
+    dev = nccl_world.device
+    src = torch.randn((1, 12), device=dev)
+    out = []
+    for ip in (Interposer(transport=DistributedTransport(device=dev)), Interposer(device=dev)):
+        ct = ip.commit(Vector(3, 2, 4, FLOAT))
+        out.append((ip.all_gather_packed(src, ct), ip.all_to_all_packed(src, [ct]),
+                    ip.sendrecv(src, torch.zeros_like(src), ct, [(0, 0)]),
+                    ip.stats()["wire_ops"]))
+        with pytest.raises(ValueError, match="must be unique"):
+            ip.sendrecv(src, torch.zeros_like(src), ct, [(0, 0), (0, 0)])
+    (g, a, s, ops), (g2, a2, s2, ops2) = out
+    assert g.shape == (1, 1, 24) and a.shape == (1, 1, 24)
+    assert torch.equal(g, g2) and torch.equal(a, a2) and torch.equal(s, s2)
+    assert ops == ops2 == 3

@@ -6,7 +6,9 @@
   (``repro_torch.launch`` included).
 * Every entry point runs on the card unless the caller passes
   ``device="cpu"``: without a card it raises instead of quietly running
-  on the host.
+  on the host.  That holds for the observed entry points too
+  (``production_communicator(tracer=True, telemetry=True)``, the
+  ``Interposer`` shim).
 """
 
 import os
@@ -19,9 +21,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.comm import Communicator
+from repro_torch.comm import Communicator, as_communicator
+from repro_torch.comm.interposer import Interposer
 from repro_torch.device import resolve_device
 from repro_torch.halo import HaloSpec, from_reference, make_halo_step
+from repro_torch.measure import production_communicator
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -47,6 +51,9 @@ print("LAUNCH", sorted(m for m in names if m.startswith(("repro_torch.launch.",
 print("COMPRESS", "repro_torch.comm.compress" in names)
 print("SCALE", sorted(m for m in names if m in ("repro_torch.comm.scale", "repro_torch.train",
                                                "repro_torch.train.elastic")))
+print("OBS", sorted(m for m in names if m.startswith(("repro_torch.obs", "repro_torch.fleet"))))
+print("SHIMS", sorted(m for m in names if m in ("repro_torch.comm.interposer",
+                                               "repro_torch.comm.calibrate")))
 print("FORBIDDEN", bad)
 """
 
@@ -68,6 +75,12 @@ def test_no_module_imports_jax_or_the_reference():
     assert lines["COMPRESS"] == "True"
     assert lines["SCALE"] == str(["repro_torch.comm.scale", "repro_torch.train",
                                   "repro_torch.train.elastic"])
+    assert lines["OBS"] == str([
+        "repro_torch.fleet", "repro_torch.fleet.__main__", "repro_torch.fleet.bundle",
+        "repro_torch.fleet.drift", "repro_torch.fleet.telemetry", "repro_torch.obs",
+        "repro_torch.obs.__main__", "repro_torch.obs.export", "repro_torch.obs.metrics",
+        "repro_torch.obs.trace"])
+    assert lines["SHIMS"] == str(["repro_torch.comm.calibrate", "repro_torch.comm.interposer"])
     assert lines["FORBIDDEN"] == "[]"
 
 
@@ -85,6 +98,10 @@ def test_entry_points_default_to_the_card():
         from_reference(np.zeros((8,) + spec.alloc, np.float32), spec)
     with pytest.raises(ValueError, match="cuda or cpu"):
         resolve_device("meta")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Interposer()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        production_communicator(calibrate=False, tracer=True, telemetry=True)
 
 
 def test_entry_points_run_on_the_cpu_when_asked():
@@ -94,3 +111,16 @@ def test_entry_points_run_on_the_cpu_when_asked():
     local = from_reference(np.zeros((8,) + spec.alloc, np.float32), spec, device="cpu")
     assert step(local).device.type == "cpu"
     assert comm.device == torch.device("cpu")
+
+
+def test_observed_entry_points_run_on_the_cpu_when_asked(tmp_path):
+    ip = Interposer(device="cpu")
+    assert ip.comm.device == torch.device("cpu")
+    comm, save = production_communicator(tmp_path, device="cpu", calibrate=False,
+                                          tracer=True, telemetry=True)
+    spec = HaloSpec(grid=(2, 2, 2), interior=(4, 4, 4), radius=1)
+    local = from_reference(np.zeros((8,) + spec.alloc, np.float32), spec, device="cpu")
+    assert make_halo_step(spec, comm, device="cpu")(local).device.type == "cpu"
+    assert as_communicator(ip) is ip.comm
+    save()
+    assert (tmp_path / "metrics.json").exists() and (tmp_path / "telemetry.json").exists()

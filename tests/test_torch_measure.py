@@ -402,8 +402,11 @@ def test_production_communicator_records_then_pins(tmp_path):
 
 @pytest.mark.parametrize("option", ["telemetry", "tracer", "topology"])
 def test_production_options_of_later_items_raise(option, tmp_path):
-    """``telemetry`` and ``tracer`` raise, naming their item; ``topology``
-    is ported: it binds the communicator's model."""
+    """The options that once raised for a later roadmap item are all
+    ported now: ``topology`` binds the communicator's model,
+    ``telemetry=True`` attaches the store's telemetry (saved as
+    ``telemetry.json``), ``tracer=True`` a fresh tracer; none raises,
+    and ``save()`` writes ``metrics.json`` beside the decisions."""
     if option == "topology":
         from repro_torch.comm import Topology
 
@@ -412,8 +415,16 @@ def test_production_options_of_later_items_raise(option, tmp_path):
                                           topology=topo)
         assert comm.model.topology is topo
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        production_communicator(tmp_path, device="cpu", **{option: True})
+    from repro_torch.fleet import ExchangeTelemetry
+    from repro_torch.obs import Tracer
+
+    comm, save = production_communicator(tmp_path, device="cpu", calibrate=False,
+                                          **{option: True})
+    want = {"telemetry": ExchangeTelemetry, "tracer": Tracer}[option]
+    assert isinstance(getattr(comm, option), want)
+    save()
+    assert (tmp_path / "metrics.json").exists()
+    assert (tmp_path / "telemetry.json").exists() == (option == "telemetry")
 
 
 def test_cli_calibrates_on_the_cpu(tmp_path, capsys):
