@@ -115,7 +115,30 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            worst term re-measured (reduced sweep) and 8 more traced
            iterations audited under the new tables; prints an
            ``{"obs": ...}`` line;
-10. timing CUDA-event times of each kernel (L2 flushed before every
+10. smoother the smoother workload (``repro_torch.launch.smoother``) at the
+           paper's width: 8 ranks of 256^3 on the grid (8, 1, 1), the
+           ``predictor-corrector`` cycle, ``halo_steps="auto"``, through
+           ``production_communicator`` over a temporary store with the
+           measure phase's tables: the first run records a
+           ``program/s=N`` row and its field after one iteration agrees
+           with a ``torch.roll`` oracle of the cycle (rtol = atol = 1e-5);
+           a second communicator over the store pins it, ``torch.equal``
+           with a bit-equal checksum; ms per iteration (synchronized); a
+           telemetered and traced iteration; the serve deployment's
+           default (``smooth``, 8^3 a rank, 1 iteration).  Launch counts
+           are zeroed before and read after every run; some kernel must
+           have run.  Prints a ``{"smoother": ...}`` line;
+11. serve  qwen2-0.5b at full width (24 layers, d_model 896, 494M
+           parameters, bf16, weights drawn on the card from a seed) under
+           the serve CLI's defaults (batch 4, 8 requests, 16 new tokens,
+           max_len 128) with the smoother at startup: 8 of 8 served, a
+           second loop from the same seed gives the same tokens, every
+           logit finite, and teacher-forced decode logits agree with
+           ``forward`` to 5% of the largest logit; tokens/s, ms per decode
+           step (synchronized, median), the device's idle share, peak
+           memory and the weight-read bound.  The decode path launches no
+           pack/unpack kernel (checked); prints a ``{"serve": ...}`` line;
+12. timing CUDA-event times of each kernel (L2 flushed before every
            call), beside its plain version, one PyTorch strided copy
            (``library_ms``) and two bounds at 3.35 TB/s: ``bound_ms``
            counts the block bytes read and written, ``bound_sectors_ms``
@@ -136,9 +159,10 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
 
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
 ``{"dist": ...}`` line, a ``{"compress": ...}`` line, a ``{"tiered": ...}``
-line, an ``{"obs": ...}`` line, one JSON line ``{"kernels": [...]}``
+line, an ``{"obs": ...}`` line, a ``{"smoother": ...}`` line, a
+``{"serve": ...}`` line, one JSON line ``{"kernels": [...]}``
 (``launches``: the main path's loop plus the program, dist, compress,
-tiered and obs phases),
+tiered, obs, smoother and serve phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -180,6 +204,13 @@ TIERED_GRIDS = (((2, 2, 2), 4), ((3, 3, 3), 9))  # [tiered] grids and ranks a no
 TIERED_EXPECT = {8: (7, 1, 4, 4_276_480), 27: (26, 2, 18, 4_276_672)}
 SCALE_RANKS = (8, 16, 64, 256, 1024, 3072)  # the simulated-scale ladder, 8 ranks a node
 OBS_ITERS = 8              # traced iterations an [obs] run: the drift audit's min_samples
+SMOOTHER_RANKS = 8         # [smoother]: the local mesh's ranks, on the grid (8, 1, 1)
+SMOOTHER_INTERIOR = (256, 256, 256)
+SMOOTHER_TIMED = 3         # synchronized [smoother] iterations timed after the checked one
+SERVE_ARCH = "qwen2-0.5b"  # [serve]: the model, at full width
+SERVE_DEFAULTS = {"batch": 4, "requests": 8, "max_new": 16, "max_len": 128}  # serve CLI defaults
+SERVE_REL = 0.05           # teacher-forced decode vs forward: max |diff| <= 5% of max |logit|
+SERVE_TIMED_STEPS = 20     # synchronized decode steps timed a reading
 
 
 def fail(msg: str) -> None:
@@ -2067,6 +2098,333 @@ def phase_obs(torch, dev, spec, card, program_window_ms):
     return total
 
 
+def smoother_oracle(torch, dev, R, interior, ops, applications, seed=0):
+    """The smoother's global field (R*nz, ny, nx) after ``applications``
+    applications of the cycle ``ops``, from the smoother's own seed, by
+    ``torch.roll`` on the periodic field."""
+    import numpy as np
+
+    nz, ny, nx = interior
+    g = torch.from_numpy(np.random.default_rng(seed).normal(size=(R, nz, ny, nx)).astype(
+        np.float32)).to(dev).reshape(R * nz, ny, nx)
+    for i in range(applications):
+        g = stencil_roll(torch, g, ops[i % len(ops)])
+    return g
+
+
+def phase_smoother(torch, dev, card, measured):
+    """The smoother workload (``repro_torch.launch.smoother``) at the
+    paper's width: 8 ranks of 256^3 on the grid (8, 1, 1), the
+    ``predictor-corrector`` cycle, ``halo_steps="auto"``, through
+    ``production_communicator`` over a temporary store with the
+    ``[measure]`` phase's tables.
+
+    * the first run records a ``program/s=N`` row; its field after one
+      iteration agrees with the ``torch.roll`` oracle of the cycle to
+      rtol = atol = 1e-5;
+    * a second communicator over the same store pins the row, and its run
+      is ``torch.equal`` to the first with a bit-equal checksum;
+    * ``SMOOTHER_TIMED`` synchronized iterations on the host clock;
+    * the telemetered and traced variant, one iteration: one attributed
+      ``program_iteration`` tree and one telemetry sample;
+    * the serve deployment's default: ``smooth``, 8^3 a rank, 1 iteration.
+
+    Launch counts are zeroed before and read after every run; the phase
+    fails if no kernel launched.  Returns the phase's launches."""
+    import tempfile
+
+    from repro_torch.halo import make_program_step
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.smoother import run_smoother, smoother_cycle
+    from repro_torch.measure import production_communicator
+
+    R, interior, cycle = SMOOTHER_RANKS, SMOOTHER_INTERIOR, "predictor-corrector"
+    out = {"card": card, "ranks": R, "interior": list(interior), "cycle": cycle}
+    total = dict.fromkeys(KERNEL_INFO, 0)
+    by_run = {}
+
+    def counted(name, fn):
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launch_counts()
+        for k in total:
+            total[k] += got[k]
+        by_run[name] = got
+        out[f"{name}_s"] = secs
+        return result
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_smoother_") as store:
+        comm, save = production_communicator(store, params=measured, device=dev,
+                                             halo_steps="auto")
+        rep = counted("record", lambda: run_smoother(comm, iters=1, interior=interior,
+                                                     cycle=cycle, keep_state=True))
+        prog = rep.program
+        if not rep.decision_recorded or prog.pinned:
+            fail(f"smoother: the first run recorded {rep.decision_recorded}, pinned "
+                 f"{prog.pinned}")
+        if not math.isfinite(rep.checksum):
+            fail(f"smoother: checksum {rep.checksum}")
+        checksum, out["summary"] = rep.checksum, rep.summary
+        print(rep.summary)
+        save()
+        comm2, _ = production_communicator(store, params=measured, device=dev,
+                                           halo_steps="auto")
+        rep2 = counted("pinned", lambda: run_smoother(comm2, iters=1, interior=interior,
+                                                      cycle=cycle, keep_state=True))
+        if not rep2.program.pinned or rep2.program.steps != prog.steps:
+            fail(f"smoother: the rerun built s={rep2.program.steps} (pinned "
+                 f"{rep2.program.pinned}); recorded s={prog.steps}")
+        if rep2.checksum != rep.checksum or not torch.equal(rep2.state, rep.state):
+            fail(f"smoother: the pinned rerun's checksum {rep2.checksum!r} (or field) differs "
+                 f"from {rep.checksum!r}")
+        del rep2
+        x = rep.state
+        nz, ny, nx = interior
+        rz, ry, rx = prog.spec.radii
+        got = x[:, rz:rz + nz, ry:ry + ny, rx:rx + nx].reshape(R * nz, ny, nx)
+        want = smoother_oracle(torch, dev, R, interior, smoother_cycle(cycle), prog.applications)
+        if not torch.isfinite(got).all():
+            fail("smoother: non-finite values after one iteration")
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        out["max_abs_err"] = (got - want).abs().max().item()
+        del got, want
+        step = make_program_step(prog, comm, device=dev)
+        out["ms_per_iteration"] = counted(
+            "timed", lambda: wall_ms(torch, lambda: step(x), SMOOTHER_TIMED))
+        del x, rep
+        torch.cuda.empty_cache()
+
+        comm3, _ = production_communicator(store, params=measured, device=dev, telemetry=True,
+                                           tracer=True, halo_steps="auto")
+        rep3 = counted("traced", lambda: run_smoother(comm3, iters=1, interior=interior,
+                                                      cycle=cycle))
+        iters = [s for s in comm3.tracer.spans if s.name == "program_iteration"]
+        agg = comm3.telemetry.get(rep3.program.fingerprint)
+        if len(iters) != 1 or not iters[0].attrs.get("attributed") or agg is None \
+                or agg.count != 1:
+            fail(f"smoother: traced run left {len(iters)} attributed iterations, telemetry "
+                 f"{agg and agg.count}")
+        if not rep3.program.pinned or rep3.checksum != checksum:
+            fail(f"smoother: the traced run (pinned {rep3.program.pinned}) ended at checksum "
+                 f"{rep3.checksum!r}, the first run at {checksum!r}")
+        out["traced_ms_per_iteration"] = agg.mean * 1e3
+        out["traced_obs_over_pred"] = agg.ratio
+        torch.cuda.empty_cache()
+
+        deploy = counted("serve_default", lambda: run_smoother(comm, iters=1, cycle="smooth"))
+        if not math.isfinite(deploy.checksum) or not deploy.decision_recorded:
+            fail(f"smoother: the serve default ran to {deploy.summary}")
+    out.update(steps=prog.steps, radius=list(prog.spec.radii),
+               schedule=prog.plan.wire.schedule, issued_bytes=prog.plan.wire.issued_bytes,
+               applications=prog.applications, candidates={
+                   e.steps: e.per_step for e in prog.candidates},
+               serve_default_summary=deploy.summary,
+               launches=total, launches_by_run=by_run, phase_s=time.perf_counter() - t_phase)
+    if not any(total.values()):
+        fail(f"smoother: no kernel launched: {total}")
+    unused = [k for k, v in total.items() if v == 0]
+    out["kernels_not_launched"] = unused
+    print(f"[smoother] 8 ranks x 256^3 {cycle}: auto picked s={prog.steps} (radius "
+          f"{tuple(prog.spec.radii)}, {prog.plan.wire.schedule}, "
+          f"{prog.plan.wire.issued_bytes} bytes/rank), recorded then pinned bit-equal, roll "
+          f"oracle max |err| {out['max_abs_err']:.3e}; {out['ms_per_iteration']:.3f} ms/iteration "
+          f"synchronized, traced {out['traced_ms_per_iteration']:.3f}; serve default "
+          f"s={deploy.program.steps}; launches {total}"
+          + (f" (not launched: {unused})" if unused else "") + f"; {card}")
+    print(json.dumps({"smoother": out}))
+    return total
+
+
+def decode_kernel_share(torch, fn, top=6):
+    """The device kernels of one call of ``fn`` under ``torch.profiler``,
+    grouped by name: the ``top`` by device µs, with their count, and the
+    total device µs and kernel count."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, n = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.time_range.end - e.time_range.start, n + 1)
+    rows = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"device_us": sum(us for us, _ in by_name.values()),
+            "kernels": sum(n for _, n in by_name.values()),
+            "top": [{"name": k[:80], "us": us, "count": n} for k, (us, n) in rows[:top]]}
+
+
+def phase_serve(torch, dev, card, measured):
+    """The serve path at the full width of qwen2-0.5b (24 layers, d_model
+    896, 14 heads, 2 KV heads, d_ff 4864, vocab 151,936, bf16, tied
+    embeddings; weights drawn on the card from seed 0) with the serve
+    serve CLI's defaults: batch 4, 8 requests of 16 new tokens, max_len 128,
+    the smoother (``smooth``, 8^3 a rank) at startup through a
+    production communicator.
+
+    Checks: 8 of 8 requests served with 16 tokens each; a second loop
+    from the same seed gives the same tokens, with every logit finite;
+    teacher-forced, the decode logits at each position agree with the
+    model's ``forward`` over the same tokens to ``SERVE_REL`` of the
+    largest logit.  Measures tokens/s of the loop, ms per decode step
+    (median of ``SERVE_TIMED_STEPS``, synchronized each), the device's
+    idle share over decode steps, ``max_memory_allocated``, and the
+    step's bound (weight and cache bytes over 3.35 TB/s).  The decode
+    path launches no pack/unpack kernel; the startup smoother's launches
+    are returned."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch.serve import ServeLoop, make_requests
+    from repro_torch.launch.smoother import run_smoother
+    from repro_torch.measure import production_communicator
+
+    cfg = get_config(SERVE_ARCH)
+    B, nreq, max_new, max_len = (SERVE_DEFAULTS[k] for k in ("batch", "requests", "max_new",
+                                                            "max_len"))
+    out = {"card": card, "arch": cfg.name, "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype, "batch": B, "requests": nreq,
+           "max_new": max_new, "max_len": max_len}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_serve_") as store:
+        comm, _ = production_communicator(store, params=measured, device=dev,
+                                          halo_steps="auto")
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        report = run_smoother(comm, iters=1, cycle="smooth")
+        torch.cuda.synchronize()
+        out["smoother_s"] = time.perf_counter() - t0
+        smoother_launches = launch_counts()
+        out["smoother_summary"] = report.summary
+        print(report.summary)
+
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        loop = ServeLoop(cfg, B, max_len, comm=comm, device=dev, seed=SEED)
+        torch.cuda.synchronize()
+        out["init_s"] = time.perf_counter() - t0
+        params = sum(p.numel() for p in loop.model.parameters())
+        weight_bytes = sum(p.numel() * p.element_size() for p in loop.model.parameters())
+        cache_bytes = sum(v.numel() * v.element_size() for v in loop.cache.values())
+        steps = [0]
+        decode = loop._decode
+
+        def counting(*a):
+            steps[0] += 1
+            return decode(*a)
+
+        loop._decode = counting
+        t0 = time.perf_counter()
+        done = loop.run(make_requests(cfg, nreq, max_new))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        decode_launches = launch_counts()
+        if any(decode_launches.values()):
+            fail(f"serve: the decode loop launched pack/unpack kernels: {decode_launches}")
+        tokens = sum(len(v) for v in done.values())
+        if len(done) != nreq or any(len(v) != max_new for v in done.values()):
+            fail(f"serve: {len(done)}/{nreq} requests served, lengths "
+                 f"{sorted(len(v) for v in done.values())}")
+        print(f"served {len(done)}/{nreq} requests, {tokens} tokens in {run_s:.1f}s "
+              f"({tokens / run_s:.1f} tok/s, batch={B}, {cfg.name})")
+        del loop, decode, counting
+        torch.cuda.empty_cache()
+
+        loop2 = ServeLoop(cfg, B, max_len, comm=comm, device=dev, seed=SEED)
+        model = loop2.model
+        finite = torch.ones((), dtype=torch.bool, device=dev)
+
+        def checked(*a):
+            nonlocal finite
+            logits, cache = model.decode_step(*a)
+            finite = finite & torch.isfinite(logits).all()
+            return logits, cache
+
+        loop2._decode = checked
+        reqs2 = make_requests(cfg, nreq, max_new)
+        done2 = loop2.run(reqs2)
+        if done2 != done:
+            fail("serve: a second loop from the same seed gave other tokens")
+        if not bool(finite):
+            fail("serve: a decode step returned a non-finite logit")
+
+        # teacher-forced: decode over the served tokens against forward
+        seqs = [r.prompt + r.out for r in reqs2[:B]]
+        S = min(len(s) for s in seqs)
+        toks = torch.tensor([s[:S] for s in seqs], device=dev)
+        with torch.inference_mode():
+            fwd, _ = model.forward(toks)
+            cache = model.init_cache(B, max_len)
+            dec = []
+            for t in range(S):
+                lg, cache = model.decode_step(cache, toks[:, t], t)
+                dec.append(lg)
+            dec = torch.stack(dec, 1)
+            if not (torch.isfinite(fwd).all() and torch.isfinite(dec).all()):
+                fail("serve: non-finite logits in the teacher-forced pass")
+            diff = (dec - fwd).abs().max().item()
+            scale = fwd.abs().max().item()
+            if diff > SERVE_REL * scale:
+                fail(f"serve: decode differs from forward by {diff:.4f}, > {SERVE_REL} x "
+                     f"max |logit| {scale:.4f}")
+            same = (dec.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+
+            # ms per decode step, synchronized each
+            cache = model.init_cache(B, max_len)
+            times = []
+            for t in range(SERVE_TIMED_STEPS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                model.decode_step(cache, toks[:, t % S], t)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            profile = device_busy(torch, lambda: model.decode_step(cache, toks[:, 0],
+                                                                   SERVE_TIMED_STEPS), iters=3)
+            top = decode_kernel_share(torch, lambda: model.decode_step(cache, toks[:, 0],
+                                                                       SERVE_TIMED_STEPS))
+        del loop2, model, cache, fwd, dec
+    torch.cuda.synchronize()
+    out.update(
+        params=params, weight_bytes=weight_bytes, kv_cache_bytes=cache_bytes,
+        served=len(done), tokens=tokens, decode_steps=steps[0], run_s=run_s,
+        tokens_per_s=tokens / run_s, ms_per_loop_step=run_s * 1e3 / steps[0],
+        ms_per_decode_step=statistics.median(times), ms_per_decode_step_all=times,
+        bound_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+        weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        teacher_forced_positions=S, decode_vs_forward_max_abs=diff,
+        forward_max_abs_logit=scale, decode_vs_forward_rel=diff / scale,
+        decode_vs_forward_argmax_agree=same, tolerance_rel=SERVE_REL,
+        decode_profile=profile, decode_top_kernels=top, max_memory_allocated=peak,
+        smoother_launches=smoother_launches, decode_launches=decode_launches,
+        first_tokens={rid: done[rid][:8] for rid in sorted(done)[:3]},
+        phase_s=time.perf_counter() - t_phase)
+    if not any(smoother_launches.values()):
+        fail(f"serve: the startup smoother launched no kernel: {smoother_launches}")
+    torch.cuda.empty_cache()
+    print(f"[serve] {cfg.name} full width ({params:,} parameters, {weight_bytes / 1e9:.3f} GB "
+          f"bf16): {len(done)}/{nreq} served, deterministic, decode vs forward max |diff| "
+          f"{diff:.4f} ({diff / scale:.4f} of max |logit|, bound {SERVE_REL}); "
+          f"{out['ms_per_decode_step']:.3f} ms/decode step (bound {out['bound_ms']:.3f}), "
+          f"{out['tokens_per_s']:.1f} tok/s, device idle {profile['idle_share']:.3f}, peak "
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB; startup smoother launches "
+          f"{smoother_launches}; {card}")
+    print(json.dumps({"serve": out}))
+    return smoother_launches
+
+
 def plan_launches(plan, comm):
     """Kernel launches one exchange of ``plan`` on ``comm`` makes: per
     region, a pack by its send strategy (for ``bounding``, the receiver's
@@ -2317,6 +2675,8 @@ def main() -> int:
     compress = phase_compress(torch, dev, spec, card)
     tiered = phase_tiered(torch, dev, spec, card, measured)
     obs = phase_obs(torch, dev, spec, card, program_window_ms)
+    smoother = phase_smoother(torch, dev, card, measured)
+    serve = phase_serve(torch, dev, card, measured)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -2325,11 +2685,12 @@ def main() -> int:
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (counts[kernel] + program[kernel] + dist[kernel] + compress[kernel]
-                         + tiered[kernel] + obs[kernel]),
+                         + tiered[kernel] + obs[kernel] + smoother[kernel] + serve[kernel]),
             "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
             "launches_dist": dist[kernel], "launches_compress": compress[kernel],
             "launches_tiered": tiered[kernel], "launches_obs": obs[kernel],
+            "launches_smoother": smoother[kernel], "launches_serve": serve[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

@@ -18,9 +18,10 @@ applications match.  The checksum is reduced in a fixed order: the
 interiors are gathered to rank 0 and summed there in numpy.  Rank 0
 prints, and alone writes the decisions file.
 
-The reference's ``--cycle predictor-corrector`` needs its smoother
-workload (``launch/smoother.py``), which is not ported yet (ROADMAP
-Queue 1); the cycle here is the paper's single 26-point op.
+``--cycle`` picks the op cycle fused per repeat, as in the reference
+example: the paper's single 26-point op, or the smoother's
+predictor-corrector pair (a ``(2, 1, 1)`` predictor then a 26-point
+corrector on one exchange, :func:`repro_torch.launch.smoother.smoother_cycle`).
 
 Run on the CPU in N local processes, or under ``torchrun`` on the card::
 
@@ -38,7 +39,19 @@ from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
-__all__ = ["dims_create", "main", "run", "parse_args"]
+__all__ = ["CYCLES", "dims_create", "main", "run", "parse_args"]
+
+#: the op cycles ``--cycle`` names: the paper's single op, or the pair the
+#: in-launch smoother fuses
+CYCLES = ("single", "predictor-corrector")
+
+
+def cycle_ops(name: str):
+    """The op cycle a ``--cycle`` name denotes."""
+    from repro_torch.halo import STENCIL26
+    from repro_torch.launch.smoother import smoother_cycle
+
+    return (STENCIL26,) if name == "single" else smoother_cycle(name)
 
 
 def dims_create(nprocs: int) -> Tuple[int, int, int]:
@@ -69,6 +82,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     ap.add_argument("--halo-steps", default="2", metavar="auto|N",
                     help="cycle repeats fused per exchange; 'auto' prices the depth "
                          "with PerfModel.price_program")
+    ap.add_argument("--cycle", default="single", choices=CYCLES,
+                    help="op cycle fused per repeat (predictor-corrector = a (2,1,1) "
+                         "predictor then a 26-point corrector on one exchange)")
     ap.add_argument("--decisions", default=None, metavar="FILE",
                     help="decision-cache file: records the auto depth choice (and every "
                          "strategy selection); reruns pin it; rank 0 writes it")
@@ -145,7 +161,7 @@ def run(args: argparse.Namespace, device) -> Optional[np.ndarray]:
                 if args.ranks_per_node else None)
     comm = Communicator(policy=policy_for_mode(args.mode), decisions=decisions,
                         transport=transport, topology=topology)
-    program = build_halo_program(grid, (n, n, n), comm, steps=steps)
+    program = build_halo_program(grid, (n, n, n), comm, steps=steps, ops=cycle_ops(args.cycle))
     spec = program.spec
     step = make_program_step(program, comm, device=transport.device, overlap=args.overlap)
     state = torch.from_numpy(_seed_block(spec, rank)).to(transport.device)
@@ -174,7 +190,8 @@ def run(args: argparse.Namespace, device) -> Optional[np.ndarray]:
           f"backend={transport.backend} device={transport.device}"
           + (f" topo={topology.fingerprint}({topology.nnodes} nodes)"
              if topology is not None else ""))
-    print(f"program: cycle=single (1 op) steps={program.steps} "
+    print(f"program: cycle={args.cycle} ({program.cycle_len} op"
+          f"{'s' if program.cycle_len > 1 else ''}) steps={program.steps} "
           f"({'pinned' if program.pinned else args.halo_steps}), "
           f"exchanges/step={program.exchanges_per_step:.3f}, "
           f"exchanges/cycle={program.exchanges_per_cycle:.3f}, "

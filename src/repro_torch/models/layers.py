@@ -1,0 +1,263 @@
+"""Core transformer layers of the dense family: RMSNorm, RoPE, chunked
+(flash-style) attention with GQA / sliding window, single-token decode
+attention against a KV cache, and the gated MLP.
+
+The port of the reference's ``repro.models.layers``, written as it writes
+them: where the reference asks for a float32 product
+(``preferred_element_type``) the operands are upcast first (bf16 values
+are exact in float32), the softmax is spelled out, and
+norms and rotary angles in float32.  No library attention kernel is used,
+so the port computes the reference's operations.  The reference's
+sharding annotations have no meaning on one card and are left out, as is
+the flash backward (training).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+__all__ = [
+    "ATTN_CHUNK",
+    "decode_attention",
+    "flash_attention",
+    "gated_mlp",
+    "init_dense",
+    "init_norm",
+    "ring_update",
+    "ring_update_stacked",
+    "rms_norm",
+    "rope",
+]
+
+ATTN_CHUNK = 1024  # kv-chunk for online softmax
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               device=None) -> torch.Tensor:
+    """A ``(d_in, d_out)`` weight: standard normal in float32 scaled by
+    ``1/sqrt(d_in)``, cast to ``dtype`` (the reference's distribution,
+    drawn from ``gen``)."""
+    scale = 1.0 / math.sqrt(d_in)
+    w = torch.randn((d_in, d_out), generator=gen, dtype=torch.float32,
+                    device=device if device is not None else gen.device)
+    return (w * scale).to(dtype)
+
+
+def init_norm(d: int, dtype, device=None) -> torch.Tensor:
+    return torch.ones((d,), dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps)
+    return (out * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def _rope_angles(positions: torch.Tensor, dims: int, theta: float) -> torch.Tensor:
+    """(..., dims/2) float32 angles for integer positions."""
+    exps = -torch.arange(0, dims, 2, dtype=torch.float32, device=positions.device) / dims
+    # a Python base: no host-to-device copy (and no host sync) per call
+    freqs = torch.pow(float(theta), exps)
+    return positions[..., None].float() * freqs
+
+
+def _apply_angles(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D); angles: (B, S, D/2).  Split halves, not
+    interleaved pairs."""
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e4) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Standard RoPE.  positions: (B, S) int."""
+    ang = _rope_angles(positions, q.shape[-1], theta)
+    return _apply_angles(q, ang).to(q.dtype), _apply_angles(k, ang).to(k.dtype)
+
+
+# ---------------------------------------------------------------------------
+# chunked online-softmax attention (flash-style forward)
+# ---------------------------------------------------------------------------
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """(Sq, Sk) boolean validity mask from absolute positions."""
+    ok = torch.ones((qpos.shape[-1], kpos.shape[-1]), dtype=torch.bool, device=qpos.device)
+    if causal:
+        ok = ok & (qpos[:, None] >= kpos[None, :])
+    if window is not None:
+        ok = ok & (qpos[:, None] - kpos[None, :] < window)
+    return ok
+
+
+def _flash_forward(q, k, v, causal, window, q_offset, chunk, merged):
+    """Online-softmax forward; returns (out, m, l) with float32 stats.
+    ``merged`` keeps the heads merged (H = KVH*G, k/v repeated per
+    chunk); otherwise the split (KVH, G) layout."""
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    G = H // KVH
+    scale = 1.0 / math.sqrt(D)
+
+    nchunks = max(Sk // chunk, 1)
+    chunk = Sk // nchunks
+    assert Sk % nchunks == 0, (Sk, chunk)
+
+    dev = q.device
+    qpos = q_offset + torch.arange(Sq, device=dev)
+    qq = q if merged else q.reshape(B, Sq, KVH, G, D)
+    qf = qq.float()
+
+    acc = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=dev)
+    m = torch.full((B, Sq, H), -math.inf, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, Sq, H), dtype=torch.float32, device=dev)
+    for c in range(nchunks):
+        kb = k[:, c * chunk:(c + 1) * chunk]
+        vb = v[:, c * chunk:(c + 1) * chunk]
+        kpos = c * chunk + torch.arange(chunk, device=dev)
+        if merged:
+            kb = kb.repeat_interleave(G, dim=2)      # (B, C, H, D)
+            vb = vb.repeat_interleave(G, dim=2)
+            s = torch.einsum("bqhd,bchd->bqhc", qf, kb.float()) * scale
+        else:
+            s = torch.einsum("bqkgd,bckd->bqkgc", qf, kb.float()) * scale
+            s = s.reshape(B, Sq, H, chunk)
+        ok = _mask(qpos, kpos, causal, window)[None, :, None, :]  # (1, Sq, 1, chunk)
+        s = torch.where(ok, s, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        # guard fully-masked rows (m_new == -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(s - m_safe[..., None])
+        p = torch.where(ok, p, 0.0)
+        alpha = torch.where(torch.isfinite(m), torch.exp(m - m_safe), 0.0)
+        l = l * alpha + p.sum(dim=-1)
+        pv_in = p.to(v.dtype).float()
+        if merged:
+            pv = torch.einsum("bqhc,bchd->bqhd", pv_in, vb.float())
+        else:
+            pv = torch.einsum(
+                "bqkgc,bckd->bqkgd", pv_in.reshape(B, Sq, KVH, G, chunk), vb.float(),
+            ).reshape(B, Sq, H, D)
+        acc = acc * alpha[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l[..., None], min=1e-37)
+    return out.to(q.dtype), m, l
+
+
+def flash_attention(
+    q: torch.Tensor,          # (B, Sq, H, D)
+    k: torch.Tensor,          # (B, Sk, KVH, D)
+    v: torch.Tensor,          # (B, Sk, KVH, D)
+    *,
+    causal: bool = True,
+    window: Optional[int] = None,
+    q_offset: int = 0,
+    chunk: int = ATTN_CHUNK,
+    merged: bool = False,
+) -> torch.Tensor:
+    """Online-softmax attention over kv chunks; GQA via head grouping.
+    Never materializes the (Sq, Sk) score matrix.  ``merged`` picks the
+    merged-head layout (the reference takes it when the heads divide a
+    sharded mesh axis; on one card the split layout, the default)."""
+    out, _, _ = _flash_forward(q, k, v, causal, window, q_offset, chunk, merged)
+    return out
+
+
+def ring_update(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
+    """Write one token into a ring-buffer cache at ``slot`` along axis 1,
+    in place (the reference's one-device ``dynamic_update_slice`` on a
+    donated buffer: traffic is one row); returns ``cache``.
+    cache: (B, S, KV, hd); new: (B, 1, KV, hd)."""
+    s = int(slot)
+    cache[:, s:s + 1] = new.to(cache.dtype)
+    return cache
+
+
+def ring_update_stacked(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
+    """Batched deferred cache write, every layer at once, in place.
+    cache: (L, B, S, KV, hd); new: (L, B, 1, KV, hd).  Returns ``cache``."""
+    s = int(slot)
+    cache[:, :, s:s + 1] = new.to(cache.dtype)
+    return cache
+
+
+def decode_attention(
+    q: torch.Tensor,        # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KVH, D)
+    v_cache: torch.Tensor,
+    t,                      # current position (int or 0-d tensor)
+    *,
+    window: Optional[int] = None,
+    kpos: Optional[torch.Tensor] = None,  # (S,) absolute position per slot (-1 = empty)
+    current: Optional[tuple] = None,      # deferred write: (k_new, v_new) (B,1,KVH,D)
+) -> torch.Tensor:
+    """Single-token attention against a KV cache, with an explicit
+    softmax over the valid slots."""
+    B, _, H, D = q.shape
+    _, S, KVH, _ = k_cache.shape
+    G = H // KVH
+    qg = q.reshape(B, KVH, G, D)
+    if kpos is None:
+        kpos = torch.arange(S, device=q.device)
+        valid = kpos <= t
+    else:
+        valid = (kpos >= 0) & (kpos <= t)
+    if window is not None:
+        valid = valid & (kpos > t - window)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), k_cache.float()) / math.sqrt(D)
+    s = torch.where(valid[None, None, None, :], s, -math.inf)
+    if current is not None:
+        # deferred-write mode: the current token's (k, v) are not in the
+        # cache yet; attend to them explicitly (the cache row at the slot
+        # is stale and masked out by the caller's kpos)
+        k_cur, v_cur = current
+        s_cur = torch.einsum(
+            "bkgd,bkd->bkg", qg.float(), k_cur[:, 0].to(qg.dtype).float(),
+        )[..., None] / math.sqrt(D)
+        s = torch.cat([s, s_cur], dim=-1)
+        p = torch.softmax(s, dim=-1)
+        p_cache, p_cur = p[..., :-1], p[..., -1:]
+        out = torch.einsum(
+            "bkgs,bskd->bkgd", p_cache.to(v_cache.dtype).float(), v_cache.float(),
+        ) + p_cur * v_cur[:, 0, :, None, :].float()
+        return out.reshape(B, 1, H, D).to(q.dtype)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
+    return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# gated MLP (SwiGLU family)
+# ---------------------------------------------------------------------------
+
+_ACTIVATIONS = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+    "relu": F.relu,
+}
+
+
+def gated_mlp(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
+    """``p`` carries ``w_gate``, ``w_in`` and ``w_out``."""
+    act = _ACTIVATIONS[activation]
+    h = act(x @ p.w_gate) * (x @ p.w_in)
+    return h @ p.w_out

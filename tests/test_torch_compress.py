@@ -385,8 +385,14 @@ def _grid27(interior=(6, 6, 6)):
 def no_native_ragged(monkeypatch):
     """The reference prices and takes its native ragged collective when
     this JAX has one; XLA:CPU cannot run it and the port's local mesh
-    has none."""
+    has none.  The reference's plan cache is cleared around the test
+    (its key does not hold the answer), so no plan leaks to a later test."""
+    import repro.comm.wireplan as rwp
+
     monkeypatch.setattr(repro.compat, "has_ragged_all_to_all", lambda: False)
+    rwp.plan_wire.cache_clear()
+    yield
+    rwp.plan_wire.cache_clear()
 
 
 @pytest.mark.parametrize("policy", ["tempi", "rlewire"])

@@ -753,3 +753,45 @@ def test_packed_collectives_in_a_world_of_one_equal_the_local_mesh(nccl_world):
     assert g.shape == (1, 1, 24) and a.shape == (1, 1, 24)
     assert torch.equal(g, g2) and torch.equal(a, a2) and torch.equal(s, s2)
     assert ops == ops2 == 3
+
+
+@pytest.mark.cuda
+def test_smoother_on_the_card_equals_the_cpu_run():
+    from repro_torch.launch.smoother import run_smoother
+
+    _card()
+    reset_launch_counts()
+    got = run_smoother(Communicator(device="cuda"), iters=2, interior=(8, 8, 8),
+                       cycle="predictor-corrector", halo_steps=1)
+    counts = launch_counts()
+    want = run_smoother(Communicator(device="cpu"), iters=2, interior=(8, 8, 8),
+                        cycle="predictor-corrector", halo_steps=1)
+    assert got.program.fingerprint == want.program.fingerprint
+    assert got.checksum == pytest.approx(want.checksum, rel=1e-5)
+    assert sum(counts.values()) > 0  # the exchange went through the kernels
+
+
+@pytest.mark.cuda
+def test_smoke_serve_on_the_card():
+    from repro_torch.configs import smoke_config
+    from repro_torch.launch.serve import ServeLoop, make_requests
+
+    _card()
+    cfg = smoke_config("qwen2-0.5b")
+    outs = []
+    for _ in range(2):
+        loop = ServeLoop(cfg, 2, 64, device="cuda")
+        assert loop.cache["k"].is_cuda
+        done = loop.run(make_requests(cfg, 3, 4))
+        assert len(done) == 3 and all(len(v) == 4 for v in done.values())
+        outs.append(done)
+    assert outs[0] == outs[1]
+    # float32: the card's decode follows its own forward, teacher-forced
+    model = ServeLoop(cfg.replace(dtype="float32", kv_cache_dtype="float32"), 2, 16,
+                      device="cuda").model
+    toks = torch.randint(0, cfg.vocab_size, (2, 10), device="cuda")
+    fwd, _ = model.forward(toks)
+    cache = model.init_cache(2, 16)
+    for step in range(10):
+        lg, cache = model.decode_step(cache, toks[:, step], step)
+        torch.testing.assert_close(lg, fwd[:, step], rtol=1e-3, atol=1e-3)

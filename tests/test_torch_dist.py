@@ -454,6 +454,9 @@ def _ref_comm():
 
 
 def _ref_plan(policy):
+    import repro.comm.wireplan as rwp
+
+    rwp.plan_wire.cache_clear()  # a plan cached under a patched flag must not answer
     ref_spec = rhalo.HaloSpec(grid=GRID, interior=INTERIOR, radius=RADIUS)
     ref_comm = _ref_comm()
     return ref_comm, rhalo.make_halo_plan(ref_spec, ref_comm, schedule_policy=policy)

@@ -642,12 +642,17 @@ def test_program_key_changes_with_the_topology():
 
 
 @pytest.mark.parametrize("topo", [None, (8, 4), (8, 2)])
-def test_program_decisions_equal_the_reference_under_a_topology(topo, monkeypatch):
+def test_program_decisions_equal_the_reference_under_a_topology(topo, monkeypatch, request):
     """The local mesh has no native ragged collective; neither has the
-    reference here (``has_ragged_all_to_all`` patched to False)."""
+    reference here (``has_ragged_all_to_all`` patched to False; the
+    reference's plan cache, whose key does not hold the answer, is cleared
+    before and after)."""
+    import repro.comm.wireplan as rwp
     import repro.compat
 
     monkeypatch.setattr(repro.compat, "has_ragged_all_to_all", lambda: False)
+    rwp.plan_wire.cache_clear()
+    request.addfinalizer(rwp.plan_wire.cache_clear)
     t = Topology.blocked(*topo) if topo else None
     ref_p, p = _param_pair("h100")
     dc, rdc = DecisionCache(), rmeasure.DecisionCache()

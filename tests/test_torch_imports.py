@@ -8,7 +8,8 @@
   ``device="cpu"``: without a card it raises instead of quietly running
   on the host.  That holds for the observed entry points too
   (``production_communicator(tracer=True, telemetry=True)``, the
-  ``Interposer`` shim).
+  ``Interposer`` shim), and the serving path (``ServeLoop``,
+  ``run_smoother``, ``build_model`` and both CLIs).
 """
 
 import os
@@ -25,7 +26,13 @@ from repro_torch.comm import Communicator, as_communicator
 from repro_torch.comm.interposer import Interposer
 from repro_torch.device import resolve_device
 from repro_torch.halo import HaloSpec, from_reference, make_halo_step
+from repro_torch.configs import smoke_config
+from repro_torch.launch.serve import ServeLoop
+from repro_torch.launch.serve import main as serve_main
+from repro_torch.launch.smoother import main as smoother_main
+from repro_torch.launch.smoother import run_smoother
 from repro_torch.measure import production_communicator
+from repro_torch.models import build_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -54,6 +61,8 @@ print("SCALE", sorted(m for m in names if m in ("repro_torch.comm.scale", "repro
 print("OBS", sorted(m for m in names if m.startswith(("repro_torch.obs", "repro_torch.fleet"))))
 print("SHIMS", sorted(m for m in names if m in ("repro_torch.comm.interposer",
                                                "repro_torch.comm.calibrate")))
+print("SERVING", sorted(m for m in names if m.startswith(("repro_torch.models",
+                                                          "repro_torch.configs"))))
 print("FORBIDDEN", bad)
 """
 
@@ -71,6 +80,8 @@ def test_no_module_imports_jax_or_the_reference():
                                  "repro_torch.halo.stencil"])
     assert lines["LAUNCH"] == str(["repro_torch.comm.distributed",
                                    "repro_torch.launch.procgroup",
+                                   "repro_torch.launch.serve",
+                                   "repro_torch.launch.smoother",
                                    "repro_torch.launch.stencil3d"])
     assert lines["COMPRESS"] == "True"
     assert lines["SCALE"] == str(["repro_torch.comm.scale", "repro_torch.train",
@@ -81,6 +92,13 @@ def test_no_module_imports_jax_or_the_reference():
         "repro_torch.obs.__main__", "repro_torch.obs.export", "repro_torch.obs.metrics",
         "repro_torch.obs.trace"])
     assert lines["SHIMS"] == str(["repro_torch.comm.calibrate", "repro_torch.comm.interposer"])
+    arch_modules = ["grok_1_314b", "h2o_danube_1_8b", "mixtral_8x22b", "qwen2_0_5b",
+                    "qwen2_vl_2b", "qwen3_32b", "rwkv6_7b", "seamless_m4t_large_v2", "yi_6b",
+                    "zamba2_2_7b"]
+    assert lines["SERVING"] == str(sorted(
+        ["repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.registry",
+         "repro_torch.models", "repro_torch.models.blocks", "repro_torch.models.layers",
+         "repro_torch.models.model"] + [f"repro_torch.configs.{m}" for m in arch_modules]))
     assert lines["FORBIDDEN"] == "[]"
 
 
@@ -102,6 +120,17 @@ def test_entry_points_default_to_the_card():
         Interposer()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         production_communicator(calibrate=False, tracer=True, telemetry=True)
+    cfg = smoke_config("qwen2-0.5b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ServeLoop(cfg, 1, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_smoother()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        smoother_main(["--comm-cache", "unused"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_main(["--no-comm-cache"])
 
 
 def test_entry_points_run_on_the_cpu_when_asked():
@@ -124,3 +153,10 @@ def test_observed_entry_points_run_on_the_cpu_when_asked(tmp_path):
     assert as_communicator(ip) is ip.comm
     save()
     assert (tmp_path / "metrics.json").exists() and (tmp_path / "telemetry.json").exists()
+
+
+def test_serving_entry_points_run_on_the_cpu_when_asked():
+    loop = ServeLoop(smoke_config("qwen2-0.5b"), 1, 8, device="cpu")
+    assert loop.model.device == torch.device("cpu") and loop.cache["k"].device.type == "cpu"
+    report = run_smoother(Communicator(device="cpu"), ranks=2, halo_steps=1)
+    assert report.program.spec.grid == (2, 1, 1)

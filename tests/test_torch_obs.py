@@ -29,11 +29,10 @@
   and ``production_communicator(telemetry=True, tracer=True)``.
 * Untraced, the exchange and the program iteration synchronize nothing.
 
-Left out: the reference's
-``test_run_smoother_traced_exchanges_bounded_by_iterations`` and the
-smoother half of ``test_tracer_aggregates_feed_audit_end_to_end`` wait
-for the smoother (ROADMAP Queue 1, training-side wire users); the audit
-is fed from traced program iterations here instead.
+The reference's ``test_run_smoother_traced_exchanges_bounded_by_iterations``
+and the smoother half of ``test_tracer_aggregates_feed_audit_end_to_end``
+are ported in ``tests/test_torch_smoother.py``; here the audit is fed
+from traced program iterations.
 """
 
 import dataclasses
