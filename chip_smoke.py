@@ -157,12 +157,18 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            host-clock ms per exchange and CUDA-event ms per stencil
            application.
 
+The ``[train]`` phase (:func:`phase_train`) runs the training entry point
+``repro_torch.launch.train.main`` at the full width of qwen2-0.5b (4
+steps after the startup smoother), the flash backward and a bf16 step
+against float32, the gradient wire's four modes from one state, and a
+checkpoint with two resumes.
+
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
 ``{"dist": ...}`` line, a ``{"compress": ...}`` line, a ``{"tiered": ...}``
 line, an ``{"obs": ...}`` line, a ``{"smoother": ...}`` line, a
-``{"serve": ...}`` line, one JSON line ``{"kernels": [...]}``
-(``launches``: the main path's loop plus the program, dist, compress,
-tiered, obs, smoother and serve phases),
+``{"serve": ...}`` line, a ``{"train": ...}`` line, one JSON line
+``{"kernels": [...]}`` (``launches``: the main path's loop plus the
+program, dist, compress, tiered, obs, smoother, serve and train phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -211,6 +217,16 @@ SERVE_ARCH = "qwen2-0.5b"  # [serve]: the model, at full width
 SERVE_DEFAULTS = {"batch": 4, "requests": 8, "max_new": 16, "max_len": 128}  # serve CLI defaults
 SERVE_REL = 0.05           # teacher-forced decode vs forward: max |diff| <= 5% of max |logit|
 SERVE_TIMED_STEPS = 20     # synchronized decode steps timed a reading
+TRAIN_ARCH = "qwen2-0.5b"  # [train]: the model, at full width
+TRAIN_DEFAULTS = {"seq_len": 256, "global_batch": 8, "steps": 4}  # the train CLI's seq and batch
+TRAIN_FIXED_STEPS = 8      # [train] steps on one fixed batch, no warmup: the loss must fall
+TRAIN_WIRE_STEPS = 2       # [train] steps each gradient-wire mode runs from one initial state
+FLASH_F32_TOL = 1e-4       # flash backward against autograd, float32 (rtol = atol)
+FLASH_BF16_REL = 0.02      # ... bf16: max |diff| <= 2% of the largest gradient
+BF16_LOSS_REL = 0.01       # one step, bf16 model against its float32 copy: loss
+BF16_GNORM_REL = 0.05      # ... and grad norm
+BF16_FLOPS = 989e12        # H100 SXM data sheet, bf16 dense
+F32_FLOPS = 67e12          # ... float32 outside the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -903,12 +919,13 @@ def interior_of(spec, x):
     return x[:, r[0]:r[0] + n[0], r[1]:r[1] + n[1], r[2]:r[2] + n[2]]
 
 
-def device_busy(torch, fn, iters=2):
+def device_busy(torch, fn, iters=2, top=0):
     """``torch.profiler`` over ``iters`` back-to-back calls of ``fn``,
     synchronized before and after: the wall time, the union of the
     card's activity intervals (busy), the sum of their durations (above
     busy where two streams ran at once), the idle share, and the host's
-    stream synchronizations (``cudaStreamSynchronize`` calls)."""
+    stream synchronizations (``cudaStreamSynchronize`` calls); with
+    ``top``, also :func:`kernels_by_name` of the same profile."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -930,8 +947,11 @@ def device_busy(torch, fn, iters=2):
             hi = max(hi, b)
     busy += hi - lo
     syncs = sum(e.name == "cudaStreamSynchronize" for e in prof.events())
-    return {"wall_us": wall, "busy_us": busy, "activity_sum_us": sum(b - a for a, b in spans),
-            "activities": len(spans), "idle_share": 1.0 - busy / wall, "stream_syncs": syncs}
+    out = {"wall_us": wall, "busy_us": busy, "activity_sum_us": sum(b - a for a, b in spans),
+           "activities": len(spans), "idle_share": 1.0 - busy / wall, "stream_syncs": syncs}
+    if top:
+        out.update(kernels_by_name(torch, prof, top))
+    return out
 
 
 def split_application(torch, dev, spec, x):
@@ -2250,6 +2270,12 @@ def decode_kernel_share(torch, fn, top=6):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
+    return kernels_by_name(torch, prof, top)
+
+
+def kernels_by_name(torch, prof, top):
+    """A profile's device kernels grouped by name: the ``top`` by device
+    µs, with their count, and the total device µs and kernel count."""
     by_name = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
@@ -2423,6 +2449,426 @@ def phase_serve(torch, dev, card, measured):
           f"{smoother_launches}; {card}")
     print(json.dumps({"serve": out}))
     return smoother_launches
+
+
+def train_bound(cfg, B, S):
+    """The least time one fused train step of ``cfg`` could take on the
+    card, from the code's own shapes: the GEMM operations with remat
+    (forward, the backward's recompute, the backward's two products per
+    weight), the attention's chunked products (the full S x S computed,
+    as the code computes it), the tied head (forward and two backward
+    products), and AdamW's bytes (each parameter, gradient and moment
+    read once, each parameter and moment written once).  The head runs
+    as a float32 GEMM (the port upcasts it), which the card does at
+    67 TFLOP/s outside the tensor cores; the rest at the bf16 dense
+    rate.  Returns the operation counts, the bytes and the bounds in ms."""
+    T, D, H, KV, hd, F, V, L = (B * S, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
+                                cfg.d_ff, cfg.vocab_size, cfg.num_layers)
+    dense = 2 * T * L * (D * (H + 2 * KV) * hd + H * hd * D + 3 * D * F)
+    attn = 2 * B * L * S * S * H * hd                    # one S x S product
+    layer_flops = 4 * dense + (2 + 2 + 5) * attn         # fwd, recompute, bwd (2x / 5 products)
+    head_flops = 3 * 2 * T * D * V
+    nparams = (V * D + D + L * (2 * D + D * (H + 2 * KV) * hd + (H + 2 * KV) * hd
+                                + H * hd * D + 3 * D * F))
+    opt_bytes = nparams * (2 + 2 + 4 + 4 + 2 + 4 + 4)
+    ops_ms = (layer_flops + head_flops) / BF16_FLOPS * 1e3
+    ops_f32_head_ms = (layer_flops / BF16_FLOPS + head_flops / F32_FLOPS) * 1e3
+    bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
+    return {"layer_gemm_tflop": layer_flops / 1e12, "head_tflop": head_flops / 1e12,
+            "params": nparams, "adamw_bytes": opt_bytes, "ops_bf16_ms": ops_ms,
+            "ops_with_f32_head_ms": ops_f32_head_ms, "adamw_bytes_ms": bytes_ms,
+            "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms
+            else "bytes"}
+
+
+def int8_wire_error(grads, out):
+    """The int8 wire's error against its own per-block bound
+    (:func:`repro_torch.train.grad_wire.int8_block_bound`), leaf by leaf.
+    Returns (worst error / bound, the leaves whose per-leaf bound ``2
+    (max|g| / 127 + 1e-7)`` plus half a bf16 ulp fails)."""
+    from repro_torch.train.grad_wire import int8_block_bound
+
+    worst, leaf_fails = 0.0, []
+    for k, bound in int8_block_bound(grads).items():
+        gf = grads[k].float()
+        err = (out[k].float() - gf).abs()
+        worst = max(worst, float((err / bound).max()))
+        top = float(gf.abs().max())
+        if float(err.max()) > 2 * (top / 127 + 1e-7) + top * 2.0 ** -8:
+            leaf_fails.append(k)
+    return worst, leaf_fails
+
+
+def phase_train(torch, dev, card, measured):
+    """The training path at the full width of qwen2-0.5b (494,032,768
+    bf16 parameters, 24 layers, remat on; drawn on the card from seed 0)
+    with the train CLI's defaults (seq 256, global batch 8, AdamW with
+    float32 moments), in a temporary measure store (seeded with the
+    ``[measure]`` phase's tables, so nothing recalibrates) and temporary
+    checkpoint directories, all removed after.
+
+    1. ``repro_torch.launch.train.main`` with ``--scale full --arch
+       qwen2-0.5b --steps 4``: the startup smoother (through the four
+       kernels: launch counts zeroed before, read after; fails if none
+       launched), then 4 fused steps; every loss and grad norm finite;
+       the step-0 loss beside ln(vocab).  ms per step (synchronized, median
+       of the steps after the first), tokens/s, ``max_memory_allocated``,
+       device busy/idle share and host stream syncs of a step and its
+       largest device kernels (``torch.profiler``), the step's bound.
+    2. Numerics: the ``FlashAttention`` backward against autograd through
+       the plain chunked forward at the model's attention shape (float32
+       to ``FLASH_F32_TOL``, bf16 to ``FLASH_BF16_REL`` of the largest
+       gradient); one step of the bf16 model and of a float32 copy made
+       from its own values (losses to ``BF16_LOSS_REL``, grad norms to
+       ``BF16_GNORM_REL``);
+       ``TRAIN_FIXED_STEPS`` steps on one batch with no warmup: the last
+       loss below the first.
+    3. Determinism, then GradWire: 2 fused steps twice from the same
+       state (their spread); then 2 steps under ``rle``, ``auto`` and
+       ``int8`` from that state.  Lossless modes: every exchanged
+       gradient, the losses and the final parameters equal ``off``'s
+       within the measured spread (``torch.equal`` when it is 0); int8:
+       every element within the wire's own bound (``int8_wire_error``).
+    4. Checkpoint: 3 steps with ``ckpt_every=2`` (one checkpoint, bytes
+       and seconds to save); the restored tree ``torch.equal`` to the
+       saved state (seconds to restore); two resumes give equal losses,
+       the first equal to batch 2's loss on the restored state.
+    Returns the phase's launches."""
+    import shutil
+    import tempfile
+
+    from repro_torch.comm import Communicator
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import train as launch_train
+    from repro_torch.measure import ParamsStore
+    from repro_torch.models import build_model, layers
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.grad_wire import GradWire
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_grad_step, make_loss_fn, make_train_step
+
+    sync = torch.cuda.synchronize
+    cfg = launch_train.resolve_config(TRAIN_ARCH, "full")
+    S, B, steps = (TRAIN_DEFAULTS[k] for k in ("seq_len", "global_batch", "steps"))
+    shape = ShapeConfig("train", S, B, "train")
+    out = {"card": card, "arch": cfg.name, "scale": "full", "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads,
+           "d_ff": cfg.d_ff, "vocab": cfg.vocab_size, "dtype": cfg.dtype, "remat": cfg.remat,
+           "seq_len": S, "global_batch": B, "moment_dtype": cfg.opt_moment_dtype}
+    t_phase = time.perf_counter()
+
+    def fresh():
+        model = build_model(cfg, device=dev).init(SEED)
+        return model, model.trainable()
+
+    def free():
+        sync()
+        torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as root:
+        store = os.path.join(root, "store")
+        ParamsStore(store, device=dev).save(measured)
+
+        # -- 1. the entry point ------------------------------------------
+        free()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        run = launch_train.main(["--arch", TRAIN_ARCH, "--scale", "full", "--steps", str(steps),
+                                 "--seq-len", str(S), "--global-batch", str(B),
+                                 "--comm-cache", store, "--ckpt-dir",
+                                 os.path.join(root, "ckpt_main")])
+        sync()
+        out["main_s"] = time.perf_counter() - t0
+        launches = launch_counts()
+        if not any(launches.values()):
+            fail(f"train: the startup smoother launched no kernel: {launches}")
+        out["launches_main"] = dict(launches)
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        losses, gnorms = run["losses"], run["grad_norms"]
+        if len(losses) != steps or not all(math.isfinite(x) for x in losses + gnorms):
+            fail(f"train: losses {losses}, grad norms {gnorms}")
+        step_ms = [s * 1e3 for s in run["step_s"]]
+        out.update(losses=losses, grad_norms=gnorms, step_ms_all=step_ms,
+                   ms_per_step=statistics.median(step_ms[1:]),
+                   uniform_logits_loss=math.log(cfg.vocab_size))
+        out["tokens_per_s"] = B * S / out["ms_per_step"] * 1e3
+        model, params, opt_state = run["model"], run["params"], run["opt_state"]
+        out["param_count"] = sum(p.numel() for p in params.values())
+        opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype, total_steps=10)
+        step_fn = make_train_step(model, opt_cfg)
+        batch = synthetic_batch(cfg, shape, steps, device=dev)
+        # one profiled step: the profiler's own bookkeeping takes seconds a step
+        out["step_profile"] = device_busy(
+            torch, lambda: step_fn(params, opt_state, batch), iters=1, top=8)
+        out["bound"] = train_bound(cfg, B, S)
+        del run, model, params, opt_state, step_fn, batch
+        free()
+        out["entry_point_s"] = time.perf_counter() - t_phase
+
+        # -- 2. numerics at full width -------------------------------------
+        t_part = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        qkv = [torch.randn(s, generator=gen, device=dev) * 0.5
+               for s in ((B, S, H, hd), (B, S, KV, hd), (B, S, KV, hd))]
+        flash = {}
+        for dtype, tol in ((torch.float32, None), (torch.bfloat16, FLASH_BF16_REL)):
+            grads, ms = [], []
+            for fn in (lambda q, k, v: layers.flash_attention(q, k, v),
+                       lambda q, k, v: layers._flash_forward(q, k, v, True, None, 0,
+                                                             layers.ATTN_CHUNK, False)[0]):
+                ts = [t.to(dtype).clone().requires_grad_(True) for t in qkv]
+
+                def fwd_bwd():
+                    for t in ts:
+                        t.grad = None
+                    torch.sin(fn(*ts).float()).sum().backward()
+
+                fwd_bwd()
+                ms.append(wall_ms(torch, fwd_bwd, 5))
+                grads.append([t.grad.float() for t in ts])
+            errs = [float((a - b).abs().max()) for a, b in zip(*grads)]
+            scale_ = [float(b.abs().max()) for b in grads[1]]
+            name = str(dtype).split(".")[1]
+            flash[name] = {"max_abs_err": errs, "max_abs_grad": scale_,
+                           "ms_function": ms[0], "ms_autograd": ms[1]}
+            for e, m_, (a, b) in zip(errs, scale_, zip(*grads)):
+                if tol is None:
+                    torch.testing.assert_close(a, b, rtol=FLASH_F32_TOL, atol=FLASH_F32_TOL)
+                elif e > tol * m_:
+                    fail(f"train: bf16 flash backward differs by {e} > {tol} x {m_}")
+        out["flash_backward"] = flash
+        del qkv, grads
+        free()
+
+        # one step (the split halves: the fused step's ops) of the bf16
+        # model and of a float32 copy holding its values (so only the
+        # compute's precision differs), with each leaf's gradient norm
+        batch = synthetic_batch(cfg, shape, 0, device=dev)
+        pair, leaf_norms = {}, {}
+        model, params = fresh()
+        f32_values = {k: v.float() for k, v in model.state_dict().items()}
+        for dtype in (cfg.dtype, "float32"):
+            if dtype == "float32":
+                model = build_model(cfg.replace(dtype="float32"), device=dev)
+                model.load_state_dict(f32_values)
+                params = model.trainable()
+                del f32_values
+            grad_fn, update_fn = make_grad_step(model, opt_cfg)
+            loss, m0, grads = grad_fn(params, batch)
+            leaf_norms[dtype] = {k: float(g.float().norm()) for k, g in grads.items()}
+            _, _, m = update_fn(params, init_opt_state(params, opt_cfg), grads, loss, m0)
+            pair[dtype] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+            del model, params, grads, m, grad_fn, update_fn
+            free()
+        lb, lf = pair[cfg.dtype], pair["float32"]
+        nb, nf = leaf_norms[cfg.dtype], leaf_norms["float32"]
+        gap = sorted(nb, key=lambda k: -abs(nb[k] ** 2 - nf[k] ** 2))
+        out["bf16_vs_f32"] = dict(pair, loss_rel=abs(lb["loss"] - lf["loss"]) / abs(lf["loss"]),
+                                  grad_norm_rel=abs(lb["grad_norm"] - lf["grad_norm"])
+                                  / abs(lf["grad_norm"]),
+                                  widest_leaf_norms={k: [nb[k], nf[k]] for k in gap[:4]})
+        if out["bf16_vs_f32"]["loss_rel"] > BF16_LOSS_REL:
+            fail(f"train: bf16 and float32 losses differ: {pair}")
+        if out["bf16_vs_f32"]["grad_norm_rel"] > BF16_GNORM_REL:
+            fail(f"train: bf16 and float32 grad norms differ: {pair}")
+
+        # a fixed batch, no warmup: the loss falls
+        model, params = fresh()
+        fixed_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype, warmup_steps=0,
+                                total_steps=TRAIN_FIXED_STEPS)
+        step_fn, opt = make_train_step(model, fixed_cfg), init_opt_state(params, fixed_cfg)
+        curve = []
+        for _ in range(TRAIN_FIXED_STEPS):
+            params, opt, m = step_fn(params, opt, batch)
+            curve.append(float(m["loss"]))
+        out["fixed_batch_curve"] = curve
+        if not curve[-1] < curve[0]:
+            fail(f"train: {TRAIN_FIXED_STEPS} steps on one batch did not lower the loss: {curve}")
+        del model, params, opt, step_fn, m
+        free()
+
+        out["numerics_s"] = time.perf_counter() - t_part
+
+        # -- 3. determinism, then the gradient wire ------------------------
+        t_part = time.perf_counter()
+        comm = Communicator(params=measured, device=dev)
+
+        def wire_run(mode):
+            model, params = fresh()
+            opt = init_opt_state(params, opt_cfg)
+            rec = {"losses": []}
+            if mode == "off":
+                step_fn = make_train_step(model, opt_cfg)
+            else:
+                grad_fn, update_fn = make_grad_step(model, opt_cfg)
+                wire, rec["exchange_ms"], rec["exchanges_equal"] = GradWire(comm, mode), [], True
+            for s in range(TRAIN_WIRE_STEPS):
+                batch = synthetic_batch(cfg, shape, s, device=dev)
+                if mode == "off":
+                    params, opt, m = step_fn(params, opt, batch)
+                else:
+                    loss, m0, grads = grad_fn(params, batch)
+                    if not wire.planned:
+                        wire.plan_for(grads)
+                    sync()
+                    t0 = time.perf_counter()
+                    sent = wire.exchange(grads)
+                    sync()
+                    rec["exchange_ms"].append((time.perf_counter() - t0) * 1e3)
+                    if mode == "int8":
+                        worst, leaf_fails = int8_wire_error(grads, sent)
+                        rec["int8_worst_over_bound"] = max(worst, rec.get(
+                            "int8_worst_over_bound", 0.0))
+                        rec["int8_per_leaf_bound_fails"] = leaf_fails
+                        if worst > 1.0:
+                            fail(f"train: int8 wire error {worst:.3f} x its bound")
+                    else:
+                        rec["exchanges_equal"] &= all(torch.equal(sent[k], grads[k])
+                                                      for k in grads)
+                    params, opt, m = update_fn(params, opt, sent, loss, m0)
+                    del grads, sent
+                rec["losses"].append(float(m["loss"]))
+            if mode != "off":
+                p = wire._plan_fwd
+                rec.update(strategy=wire._strats[0].name, schedule=p.schedule,
+                           wire_bytes=p.wire_bytes, issued_bytes=p.issued_bytes,
+                           stream_bytes=list(p.stream_bytes or ()), ratio=p.stream_ratio,
+                           describe=wire.describe())
+            final = {k: v.detach() for k, v in params.items()}
+            del model, opt
+            return rec, final
+
+        reset_launch_counts()
+        wires = {}
+        wires["off"], ref_params = wire_run("off")
+        again, again_params = wire_run("off")
+        spread = max(float((a.float() - again_params[k].float()).abs().max())
+                     for k, a in ref_params.items())
+        loss_spread = max(abs(a - b) for a, b in zip(wires["off"]["losses"], again["losses"]))
+        out["determinism"] = {"losses": [wires["off"]["losses"], again["losses"]],
+                              "max_abs_param_spread": spread, "max_abs_loss_spread": loss_spread,
+                              "equal": spread == 0.0 and loss_spread == 0.0}
+        del again_params
+        free()
+
+        def same(a, b):  # bit-equal, or within the measured same-run spread
+            if spread == 0.0:
+                return torch.equal(a, b)
+            return float((a.float() - b.float()).abs().max()) <= spread
+
+        for mode in ("rle", "auto", "int8"):
+            rec, final = wire_run(mode)
+            if mode != "int8":
+                rec["params_equal_off"] = all(same(final[k], v) for k, v in ref_params.items())
+                rec["losses_equal_off"] = all(
+                    abs(a - b) <= loss_spread for a, b in zip(rec["losses"],
+                                                              wires["off"]["losses"]))
+                if not (rec["exchanges_equal"] and rec["params_equal_off"]
+                        and rec["losses_equal_off"]):
+                    fail(f"train: the lossless {mode} wire changed the step: {rec}")
+            wires[mode] = rec
+            del final
+            free()
+        out["grad_wire"] = wires
+        out["launches_grad_wire"] = dict(launch_counts())
+        del ref_params
+        free()
+
+        out["grad_wire_s"] = time.perf_counter() - t_part
+
+        # -- 4. checkpoint and resume --------------------------------------
+        t_part = time.perf_counter()
+        ckdir = os.path.join(root, "ckpt")
+        timed = {}
+        save = ckpt.save_checkpoint
+
+        def timed_save(*a, **k):
+            sync()
+            t0 = time.perf_counter()
+            path = save(*a, **k)
+            timed["save_s"] = time.perf_counter() - t0
+            return path
+
+        ckpt.save_checkpoint = timed_save
+        try:
+            run3 = launch_train.train(cfg, 3, S, B, ckdir, ckpt_every=2, device=dev)
+        finally:
+            ckpt.save_checkpoint = save
+        names = sorted(os.listdir(ckdir))
+        if names != ["step_00000002"]:
+            fail(f"train: checkpoints {names}, want step_00000002")
+        path = os.path.join(ckdir, "step_00000002")
+        out["checkpoint_bytes"] = sum(os.path.getsize(os.path.join(path, f))
+                                      for f in os.listdir(path))
+        t0 = time.perf_counter()
+        step, tree = ckpt.restore_checkpoint(ckdir)
+        out["restore_s"] = time.perf_counter() - t0
+        saved = ckpt._flatten(ckpt.train_state(run3["model"], run3["params"],
+                                               run3["opt_state"]))
+        got = ckpt._flatten(tree)
+        if sorted(got) != sorted(saved) or not all(
+                torch.equal(got[k].to(dev), v) for k, v in saved.items()):
+            fail("train: the restored checkpoint differs from the saved state")
+        if step != 2 or int(got["opt.step"]) != 3:
+            fail(f"train: checkpoint step {step}, opt.step {int(got['opt.step'])}")
+        del saved, run3
+        free()
+        model = build_model(cfg, device=dev)
+        sync()
+        t0 = time.perf_counter()
+        params, _ = ckpt.load_train_state(model, tree)
+        sync()
+        out["load_to_card_s"] = time.perf_counter() - t0
+        del tree, got
+        with torch.no_grad():
+            batch2 = synthetic_batch(cfg, shape, 2, device=dev)
+            direct = float(make_loss_fn(model)(params, batch2)[0])
+        del model, params
+        free()
+        resumes = []
+        for _ in range(2):
+            r = launch_train.train(cfg, 4, S, B, ckdir, ckpt_every=100, device=dev)
+            resumes.append(r["losses"])
+            del r
+            free()
+        out.update(save_s=timed["save_s"], resumed_losses=resumes, batch2_loss_on_saved=direct)
+        if len(resumes[0]) != 2 or any(abs(a - b) > loss_spread
+                                       for a, b in zip(*resumes)):
+            fail(f"train: two resumes gave {resumes}")
+        if abs(resumes[0][0] - direct) > loss_spread:
+            fail(f"train: the first resumed loss {resumes[0][0]} is not batch 2's loss "
+                 f"{direct} on the saved state")
+        out["checkpoint_s"] = time.perf_counter() - t_part
+        out["launches"] = {k: out["launches_main"][k] + out["launches_grad_wire"][k]
+                           for k in out["launches_main"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    free()
+    b = out["bound"]
+    prof = out["step_profile"]
+    print(f"[train] {cfg.name} full width ({out['param_count']:,} parameters), seq {S} x "
+          f"batch {B}: losses {['%.4f' % x for x in losses]} (step 0 against ln(V) = "
+          f"{out['uniform_logits_loss']:.4f}), grad norms {['%.3f' % x for x in gnorms]}; "
+          f"{out['ms_per_step']:.2f} ms/step (bound {b['bound_ms']:.2f} by {b['bound_by']}, "
+          f"{b['ops_with_f32_head_ms']:.2f} with the float32 head), {out['tokens_per_s']:.0f} "
+          f"tok/s, idle {prof['idle_share']:.3f}, "
+          f"{prof['stream_syncs']} syncs a step, peak "
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB; bf16 vs f32 loss "
+          f"{out['bf16_vs_f32']['loss_rel']:.4f}, gnorm {out['bf16_vs_f32']['grad_norm_rel']:.4f};"
+          f" fixed batch {curve[0]:.4f} -> {curve[-1]:.4f}; deterministic "
+          f"{out['determinism']['equal']} (spread {spread}); wire "
+          + ", ".join(f"{k} {v.get('strategy', '-')}/{v.get('schedule', '-')} "
+                      f"{statistics.median(v['exchange_ms']) if v.get('exchange_ms') else 0:.1f}"
+                      f" ms" for k, v in wires.items())
+          + f"; checkpoint {out['checkpoint_bytes'] / 1e9:.2f} GB saved {out['save_s']:.1f} s, "
+          f"restored {out['restore_s']:.1f} s; resumed {resumes[0]}; launches "
+          f"{out['launches']}; phase {out['phase_s']:.1f} s; {card}")
+    print(json.dumps({"train": out}))
+    return out["launches"]
+
 
 
 def plan_launches(plan, comm):
@@ -2677,6 +3123,7 @@ def main() -> int:
     obs = phase_obs(torch, dev, spec, card, program_window_ms)
     smoother = phase_smoother(torch, dev, card, measured)
     serve = phase_serve(torch, dev, card, measured)
+    train = phase_train(torch, dev, card, measured)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -2685,12 +3132,14 @@ def main() -> int:
         kernels.append({
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (counts[kernel] + program[kernel] + dist[kernel] + compress[kernel]
-                         + tiered[kernel] + obs[kernel] + smoother[kernel] + serve[kernel]),
+                         + tiered[kernel] + obs[kernel] + smoother[kernel] + serve[kernel]
+                         + train[kernel]),
             "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
             "launches_dist": dist[kernel], "launches_compress": compress[kernel],
             "launches_tiered": tiered[kernel], "launches_obs": obs[kernel],
             "launches_smoother": smoother[kernel], "launches_serve": serve[kernel],
+            "launches_train": train[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

@@ -1,0 +1,6 @@
+"""repro_torch.data — deterministic sharded synthetic token streams (the
+port of the reference's ``repro.data``)."""
+
+from repro_torch.data.pipeline import DataConfig, batch_iterator, synthetic_batch
+
+__all__ = ["DataConfig", "batch_iterator", "synthetic_batch"]

@@ -8,8 +8,10 @@ them: where the reference asks for a float32 product
 are exact in float32), the softmax is spelled out, and
 norms and rotary angles in float32.  No library attention kernel is used,
 so the port computes the reference's operations.  The reference's
-sharding annotations have no meaning on one card and are left out, as is
-the flash backward (training).
+sharding annotations have no meaning on one card and are left out.
+``flash_attention`` is differentiated by the reference's chunked backward
+(``_flash_vjp``), a :class:`torch.autograd.Function` here, never by
+autograd through the chunk loop.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "ATTN_CHUNK",
+    "FlashAttention",
     "decode_attention",
     "flash_attention",
     "gated_mlp",
@@ -163,6 +166,87 @@ def _flash_forward(q, k, v, causal, window, q_offset, chunk, merged):
     return out.to(q.dtype), m, l
 
 
+def _flash_backward(q, k, v, out, m, l, do, causal, window, q_offset, chunk, merged):
+    """The reference's chunked flash backward (``_flash_vjp``'s ``bwd``):
+    ``p`` is recomputed per kv chunk from the saved float32 stats,
+    ``delta = rowsum(do * out)``, ``dq`` accumulates in float32 across
+    chunks (``ds`` cast to ``q.dtype`` before its product), and each
+    chunk's ``dk``/``dv`` are cast to ``k.dtype``/``v.dtype``.  Returns
+    ``(dq, dk, dv)``."""
+    B, Sq, H, D = q.shape
+    _, Sk, KVH, _ = k.shape
+    G = H // KVH
+    scale = 1.0 / math.sqrt(D)
+    nchunks = max(Sk // chunk, 1)
+    ck = Sk // nchunks
+
+    dev = q.device
+    m_safe = torch.where(torch.isfinite(m), m, 0.0)
+    inv_l = 1.0 / torch.clamp(l, min=1e-37)
+    dof = do.float()
+    delta = torch.einsum("bqhd,bqhd->bqh", dof, out.float())
+    qpos = q_offset + torch.arange(Sq, device=dev)
+    qgf = (q if merged else q.reshape(B, Sq, KVH, G, D)).float()
+    dogf = dof if merged else dof.reshape(B, Sq, KVH, G, D)
+    if not merged:
+        m_safe = m_safe.reshape(B, Sq, KVH, G)
+        inv_l = inv_l.reshape(B, Sq, KVH, G)
+        delta = delta.reshape(B, Sq, KVH, G)
+
+    dq = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for c in range(nchunks):
+        kb = k[:, c * ck:(c + 1) * ck]
+        vb = v[:, c * ck:(c + 1) * ck]
+        kpos = c * ck + torch.arange(ck, device=dev)
+        ok = _mask(qpos, kpos, causal, window)  # (Sq, ck)
+        if merged:
+            kbr = kb.repeat_interleave(G, dim=2).float()  # (B, C, H, D)
+            vbr = vb.repeat_interleave(G, dim=2).float()
+            s = torch.einsum("bqhd,bchd->bqhc", qgf, kbr) * scale
+            p = torch.exp(s - m_safe[..., None]) * inv_l[..., None]
+            p = torch.where(ok[None, :, None, :], p, 0.0)
+            dv_f = torch.einsum("bqhc,bqhd->bchd", p, dogf)
+            dp = torch.einsum("bqhd,bchd->bqhc", dogf, vbr)
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + torch.einsum("bqhc,bchd->bqhd", ds.to(q.dtype).float(), kbr)
+            dk_f = torch.einsum("bqhc,bqhd->bchd", ds, qgf)
+            dk_c = dk_f.reshape(B, ck, KVH, G, D).sum(3)
+            dv_c = dv_f.reshape(B, ck, KVH, G, D).sum(3)
+        else:
+            kbf, vbf = kb.float(), vb.float()
+            s = torch.einsum("bqkgd,bckd->bqkgc", qgf, kbf) * scale
+            p = torch.exp(s - m_safe[..., None]) * inv_l[..., None]
+            p = torch.where(ok[None, :, None, None, :], p, 0.0)
+            dv_c = torch.einsum("bqkgc,bqkgd->bckd", p, dogf)
+            dp = torch.einsum("bqkgd,bckd->bqkgc", dogf, vbf)
+            ds = p * (dp - delta[..., None]) * scale
+            dq = dq + torch.einsum("bqkgc,bckd->bqkgd", ds.to(q.dtype).float(),
+                                   kbf).reshape(B, Sq, H, D)
+            dk_c = torch.einsum("bqkgc,bqkgd->bckd", ds, qgf)
+        dks.append(dk_c.to(k.dtype))
+        dvs.append(dv_c.to(v.dtype))
+    return dq.to(q.dtype), torch.cat(dks, dim=1), torch.cat(dvs, dim=1)
+
+
+class FlashAttention(torch.autograd.Function):
+    """Chunked online-softmax attention with the reference's custom VJP:
+    the forward is :func:`_flash_forward` and saves ``(q, k, v, out, m,
+    l)``; the backward is :func:`_flash_backward`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, q_offset, chunk, merged):
+        out, m, l = _flash_forward(q, k, v, causal, window, q_offset, chunk, merged)
+        ctx.save_for_backward(q, k, v, out, m, l)
+        ctx.config = (causal, window, q_offset, chunk, merged)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        dq, dk, dv = _flash_backward(*ctx.saved_tensors, do, *ctx.config)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def flash_attention(
     q: torch.Tensor,          # (B, Sq, H, D)
     k: torch.Tensor,          # (B, Sk, KVH, D)
@@ -177,9 +261,9 @@ def flash_attention(
     """Online-softmax attention over kv chunks; GQA via head grouping.
     Never materializes the (Sq, Sk) score matrix.  ``merged`` picks the
     merged-head layout (the reference takes it when the heads divide a
-    sharded mesh axis; on one card the split layout, the default)."""
-    out, _, _ = _flash_forward(q, k, v, causal, window, q_offset, chunk, merged)
-    return out
+    sharded mesh axis; on one card the split layout, the default).
+    Differentiable through :class:`FlashAttention`'s chunked backward."""
+    return FlashAttention.apply(q, k, v, causal, window, q_offset, chunk, merged)
 
 
 def ring_update(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:

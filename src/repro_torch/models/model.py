@@ -6,8 +6,12 @@ The port of the dense part of the reference's ``repro.models.model``.
 The reference stacks the layers on a leading L axis and scans them; here
 each layer is a module of its own, run in a Python loop, and the decode
 cache keeps the reference's stacked ``(L, B, S, KV, hd)`` layout.
-:func:`params_from_reference` is the one place the reference's parameter
-tree is mapped onto the port's parameters.
+:func:`params_from_reference` and :func:`params_to_reference` are the one
+place the reference's parameter tree is mapped onto the port's
+parameters and back.  Training (:meth:`Model.trainable`) turns gradients
+on; with ``cfg.remat`` each layer then runs under activation
+checkpointing, as the reference wraps its scan body in
+``jax.checkpoint``.  Serving builds the model with gradients off.
 
 Other families (``moe``, ``ssm``, ``rwkv``, ``hybrid``, ``encdec``,
 ``vlm``) and ``prefill`` are not ported yet (ROADMAP Queue 1).
@@ -16,18 +20,20 @@ Other families (``moe``, ``ssm``, ``rwkv``, ``hybrid``, ``encdec``,
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import init_dense, init_norm, ring_update_stacked, rms_norm
 
-__all__ = ["PORTED_FAMILIES", "Model", "build_model", "params_from_reference"]
+__all__ = ["PORTED_FAMILIES", "Model", "build_model", "params_from_reference",
+           "params_to_reference", "reference_order"]
 
 #: the families whose blocks are ported
 PORTED_FAMILIES = ("dense",)
@@ -85,6 +91,14 @@ class Model(nn.Module):
     def device(self) -> torch.device:
         return self.final_norm.device
 
+    def trainable(self) -> Dict[str, nn.Parameter]:
+        """Turn gradients on and return the parameters by name in the
+        reference's tree order (:func:`reference_order`): the ``params``
+        the training step takes and updates in place."""
+        self.requires_grad_(True)
+        named = dict(self.named_parameters())
+        return {name: named[name] for name in reference_order(named)}
+
     # ------------------------------------------------------------------
     # init
     # ------------------------------------------------------------------
@@ -120,9 +134,18 @@ class Model(nn.Module):
     # layer stack (train / prefill direction)
     # ------------------------------------------------------------------
     def _run_stack(self, x: torch.Tensor, positions, *, causal=True):
+        cfg = self.cfg
+        remat = cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for layer in self.layers:
-            x, (a, _) = B.dense_block(layer, x, self.cfg, positions, causal=causal)
+            def body(h, layer=layer):
+                h, (a, _) = B.dense_block(layer, h, cfg, positions, causal=causal)
+                return h, a
+
+            if remat:  # keep each layer's input; recompute the rest in backward
+                x, a = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a = body(x)
             aux = aux + a
         return x, aux
 
@@ -202,8 +225,10 @@ def build_model(cfg: ModelConfig, device="cuda") -> Model:
 
 
 def _to_torch(a: Any) -> torch.Tensor:
-    """A reference array (jax or numpy, bf16 included) as a CPU tensor,
-    bit for bit."""
+    """A reference array (jax or numpy, bf16 included, or a tensor) as a
+    CPU tensor, bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu()
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(
@@ -237,3 +262,54 @@ def params_from_reference(cfg: ModelConfig, params: Mapping[str, Any]) -> Dict[s
 
     walk(params["layers"], "")
     return out
+
+
+def _reference_key(name: str) -> Tuple[str, int]:
+    """A port parameter name as ``(reference key, layer)``: a layer's
+    ``layers.<i>.<rest>`` is the stacked reference leaf ``layers.<rest>``
+    at index ``i``; any other name is its own key (layer 0)."""
+    parts = name.split(".")
+    if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
+        return ".".join(["layers"] + parts[2:]), int(parts[1])
+    return name, 0
+
+
+def reference_order(names: Iterable[str]) -> List[str]:
+    """``names`` in the order ``jax.tree.leaves`` visits the reference's
+    stacked tree (dict keys sorted at every level), each stacked leaf's
+    layers in turn: the byte order of the reference's flattened tree."""
+    def key(name):
+        ref, layer = _reference_key(name)
+        return tuple(ref.split(".")), layer
+
+    return sorted(names, key=key)
+
+
+def params_to_reference(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+    """The inverse of :func:`params_from_reference`: tensors keyed by
+    :class:`Model` parameter names (parameters, or anything shaped like
+    them, such as AdamW moments) as the reference's nested tree, the
+    layers stacked on a leading L axis.  Detached tensors on the inputs'
+    device."""
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet: ROADMAP Queue 1")
+    flat: Dict[str, Any] = {}
+    for name, t in state_dict.items():
+        ref, layer = _reference_key(name)
+        if ref.startswith("layers."):
+            flat.setdefault(ref, [None] * cfg.num_layers)[layer] = t.detach()
+        else:
+            flat[ref] = t.detach()
+    tree: Dict[str, Any] = {}
+    for ref, val in flat.items():
+        if isinstance(val, list):
+            missing = [i for i, t in enumerate(val) if t is None]
+            if missing:
+                raise ValueError(f"{ref}: no tensor for layers {missing}")
+            val = torch.stack(val)
+        *path, leaf = ref.split(".")
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        node[leaf] = val
+    return tree

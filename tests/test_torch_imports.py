@@ -8,8 +8,10 @@
   ``device="cpu"``: without a card it raises instead of quietly running
   on the host.  That holds for the observed entry points too
   (``production_communicator(tracer=True, telemetry=True)``, the
-  ``Interposer`` shim), and the serving path (``ServeLoop``,
-  ``run_smoother``, ``build_model`` and both CLIs).
+  ``Interposer`` shim), the serving path (``ServeLoop``,
+  ``run_smoother``, ``build_model`` and both CLIs) and the training path
+  (``synthetic_batch``, ``train`` and its CLI, which runs with
+  ``--device cpu``).
 """
 
 import os
@@ -31,6 +33,10 @@ from repro_torch.launch.serve import ServeLoop
 from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.smoother import main as smoother_main
 from repro_torch.launch.smoother import run_smoother
+from repro_torch.launch.train import main as train_main
+from repro_torch.launch.train import train
+from repro_torch.data import synthetic_batch
+from repro_torch.configs import ShapeConfig
 from repro_torch.measure import production_communicator
 from repro_torch.models import build_model
 
@@ -63,6 +69,8 @@ print("SHIMS", sorted(m for m in names if m in ("repro_torch.comm.interposer",
                                                "repro_torch.comm.calibrate")))
 print("SERVING", sorted(m for m in names if m.startswith(("repro_torch.models",
                                                           "repro_torch.configs"))))
+print("TRAIN", sorted(m for m in names if m.startswith(("repro_torch.data",
+                                                        "repro_torch.train."))))
 print("FORBIDDEN", bad)
 """
 
@@ -82,7 +90,8 @@ def test_no_module_imports_jax_or_the_reference():
                                    "repro_torch.launch.procgroup",
                                    "repro_torch.launch.serve",
                                    "repro_torch.launch.smoother",
-                                   "repro_torch.launch.stencil3d"])
+                                   "repro_torch.launch.stencil3d",
+                                   "repro_torch.launch.train"])
     assert lines["COMPRESS"] == "True"
     assert lines["SCALE"] == str(["repro_torch.comm.scale", "repro_torch.train",
                                   "repro_torch.train.elastic"])
@@ -99,6 +108,10 @@ def test_no_module_imports_jax_or_the_reference():
         ["repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.registry",
          "repro_torch.models", "repro_torch.models.blocks", "repro_torch.models.layers",
          "repro_torch.models.model"] + [f"repro_torch.configs.{m}" for m in arch_modules]))
+    assert lines["TRAIN"] == str([
+        "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.train.checkpoint",
+        "repro_torch.train.elastic", "repro_torch.train.grad_wire",
+        "repro_torch.train.optimizer", "repro_torch.train.train_step"])
     assert lines["FORBIDDEN"] == "[]"
 
 
@@ -131,6 +144,12 @@ def test_entry_points_default_to_the_card():
         smoother_main(["--comm-cache", "unused"])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_main(["--no-comm-cache"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_main(["--no-comm-cache", "--scale", "smoke", "--arch", "qwen2-0.5b"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(cfg, 1, 8, 2, "unused")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        synthetic_batch(cfg, ShapeConfig("t", 8, 2, "train"), 0)
 
 
 def test_entry_points_run_on_the_cpu_when_asked():
@@ -160,3 +179,17 @@ def test_serving_entry_points_run_on_the_cpu_when_asked():
     assert loop.model.device == torch.device("cpu") and loop.cache["k"].device.type == "cpu"
     report = run_smoother(Communicator(device="cpu"), ranks=2, halo_steps=1)
     assert report.program.spec.grid == (2, 1, 1)
+
+
+def test_training_entry_point_runs_on_the_cpu_when_asked(tmp_path):
+    from repro_torch.halo.program import get_default_halo_steps, set_default_halo_steps
+
+    before = get_default_halo_steps()  # the CLI installs the process-wide depth
+    try:
+        out = train_main(["--arch", "qwen2-0.5b", "--scale", "smoke", "--device", "cpu",
+                         "--no-comm-cache", "--steps", "1", "--seq-len", "8",
+                         "--global-batch", "2", "--ckpt-dir", str(tmp_path)])
+    finally:
+        set_default_halo_steps(before)
+    assert out["model"].device == torch.device("cpu") and len(out["losses"]) == 1
+    assert all(p.device.type == "cpu" for p in out["params"].values())
