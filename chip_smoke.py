@@ -161,14 +161,20 @@ The ``[train]`` phase (:func:`phase_train`) runs the training entry point
 ``repro_torch.launch.train.main`` at the full width of qwen2-0.5b (4
 steps after the startup smoother), the flash backward and a bf16 step
 against float32, the gradient wire's four modes from one state, and a
-checkpoint with two resumes.
+checkpoint with two resumes.  The ``[families]`` phase
+(:func:`phase_families`) then serves, prefills, teacher-forces and
+trains (two steps through ``train()``) qwen2-vl-2b and
+seamless-m4t-large-v2 whole and mixtral-8x22b at full width with its
+depth cut (8 of 56 layers; 1 for the train step), each held to its own
+``forward``, and prints a ``{"families": ...}`` line.
 
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
 ``{"dist": ...}`` line, a ``{"compress": ...}`` line, a ``{"tiered": ...}``
 line, an ``{"obs": ...}`` line, a ``{"smoother": ...}`` line, a
-``{"serve": ...}`` line, a ``{"train": ...}`` line, one JSON line
-``{"kernels": [...]}`` (``launches``: the main path's loop plus the
-program, dist, compress, tiered, obs, smoother, serve and train phases),
+``{"serve": ...}`` line, a ``{"train": ...}`` line, a ``{"families": ...}``
+line, one JSON line ``{"kernels": [...]}`` (``launches``: the main
+path's loop plus the program, dist, compress, tiered, obs, smoother,
+serve, train and families phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -2451,26 +2457,47 @@ def phase_serve(torch, dev, card, measured):
     return smoother_launches
 
 
-def train_bound(cfg, B, S):
+def train_bound(cfg, B, S, nparams=None):
     """The least time one fused train step of ``cfg`` could take on the
     card, from the code's own shapes: the GEMM operations with remat
     (forward, the backward's recompute, the backward's two products per
     weight), the attention's chunked products (the full S x S computed,
-    as the code computes it), the tied head (forward and two backward
+    as the code computes it), the head (forward and two backward
     products), and AdamW's bytes (each parameter, gradient and moment
-    read once, each parameter and moment written once).  The head runs
-    as a float32 GEMM (the port upcasts it), which the card does at
-    67 TFLOP/s outside the tensor cores; the rest at the bf16 dense
-    rate.  Returns the operation counts, the bytes and the bounds in ms."""
+    read once, each parameter and moment written once; with
+    ``microbatches`` > 1 the float32 accumulator's traffic besides).  The
+    MoE experts run over every capacity slot of a group (``E * cap / gs``
+    slots a token, as the dispatch computes them); the encoder-decoder
+    adds its encoder over ``enc_embeds`` of the batch's length and a
+    cross-attention a layer.  ``nparams`` defaults to the dense family's
+    count.  The head runs as a float32 GEMM (the port upcasts it), which
+    the card does at 67 TFLOP/s outside the tensor cores; the rest at the
+    bf16 dense rate.  Returns the operation counts, the bytes and the
+    bounds in ms."""
     T, D, H, KV, hd, F, V, L = (B * S, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
                                 cfg.d_ff, cfg.vocab_size, cfg.num_layers)
-    dense = 2 * T * L * (D * (H + 2 * KV) * hd + H * hd * D + 3 * D * F)
+    proj = D * (H + 2 * KV) * hd + H * hd * D
+    mlp = 3 * D * F
+    if cfg.family == "moe":
+        gs = min(cfg.moe_group_size, S)
+        cap = max(int(gs * cfg.experts_per_token / cfg.num_experts * cfg.moe_capacity_factor), 1)
+        mlp = mlp * cfg.num_experts * cap / gs
+    dense = 2 * T * L * (proj + mlp)
     attn = 2 * B * L * S * S * H * hd                    # one S x S product
+    if cfg.family == "encdec":
+        Le = cfg.encoder_layers
+        dense += 2 * T * Le * (proj + mlp) + 2 * T * L * 2 * (D * H * hd + D * KV * hd)
+        attn += 2 * B * Le * S * S * H * hd + 2 * B * L * S * S * H * hd
     layer_flops = 4 * dense + (2 + 2 + 5) * attn         # fwd, recompute, bwd (2x / 5 products)
     head_flops = 3 * 2 * T * D * V
-    nparams = (V * D + D + L * (2 * D + D * (H + 2 * KV) * hd + (H + 2 * KV) * hd
-                                + H * hd * D + 3 * D * F))
-    opt_bytes = nparams * (2 + 2 + 4 + 4 + 2 + 4 + 4)
+    if nparams is None:
+        nparams = (V * D + D + L * (2 * D + D * (H + 2 * KV) * hd + (H + 2 * KV) * hd
+                                    + H * hd * D + 3 * D * F))
+    mb = 4 if cfg.opt_moment_dtype == "float32" else 2
+    n_micro = max(cfg.microbatches, 1)
+    opt_bytes = nparams * (2 + 2 + (4 if n_micro > 1 else 2) + 4 * mb)
+    if n_micro > 1:  # each micro-batch's bf16 gradient written and read, the accumulator r/w
+        opt_bytes += nparams * n_micro * (2 + 2 + 4 + 4)
     ops_ms = (layer_flops + head_flops) / BF16_FLOPS * 1e3
     ops_f32_head_ms = (layer_flops / BF16_FLOPS + head_flops / F32_FLOPS) * 1e3
     bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
@@ -2871,6 +2898,413 @@ def phase_train(torch, dev, card, measured):
 
 
 
+FAMILY_ARCHS = ("qwen2-vl-2b", "seamless-m4t-large-v2", "mixtral-8x22b")  # [families]
+FAMILY_MOE_LAYERS = 8        # mixtral-8x22b's depth for forward, prefill and serving (of 56)
+FAMILY_MOE_TRAIN_LAYERS = 1  # ... and for the train step
+FAMILY_TF_TOKENS = 32        # teacher-forced positions; the prefill held to decode's K/V
+FAMILY_PREFILL_SEQ = {"qwen2-vl-2b": 512, "mixtral-8x22b": 256}  # timed prefill (vlm: 256
+#                              patches + 256 text); mixtral's gs = 128 drops read there too
+FAMILY_TRAIN_SEQ = {"qwen2-vl-2b": 512, "seamless-m4t-large-v2": 256, "mixtral-8x22b": 256}
+FAMILY_TRAIN = {"steps": 2, "global_batch": 8}
+FAMILY_TIE = 5e-3            # a top-K expert within this probability of the next: a near-tie
+PREFILL_LOGIT_REL = 1e-4     # prefill's last logits vs forward's last row: the float32 head
+#                              GEMM at another shape, of max |logit|
+PREFILL_KV_REL = 0.05        # prefill's K/V vs teacher-forced decode's, bf16: of each layer's
+#                              largest |K| / |V|
+STEP0_LOSS_TOL = 0.05        # step-0 logits' label-free loss against the init's expectation
+STEP0_DIRECT_REL = 1e-4      # train()'s step-0 loss against the same forward run directly
+
+
+def init_loss(cfg):
+    """The expected cross-entropy of the init's logits against labels
+    they carry no information about: random logits of variance ``s2``
+    over V classes give ``ln V + s2 / 2``.  The final norm leaves each row
+    at unit RMS, so ``s2`` is the head's column variance times D: 1 for
+    an untied head (``1/sqrt(D)`` draws), D / V for the tied embedding
+    (``1/sqrt(V)`` draws)."""
+    s2 = cfg.d_model / cfg.vocab_size if cfg.tie_embeddings else 1.0
+    return math.log(cfg.vocab_size) + s2 / 2
+
+
+def step0_logits(torch, dev, cfg, S, B):
+    """The logits ``train()`` starts from, by its own ops: a model drawn
+    from seed 0, batch 0, split into the config's micro-batches.  Returns
+    the loss the step computes (cross-entropy plus ``AUX_WEIGHT * aux``,
+    averaged over the micro-batches), its label-free part (the mean of
+    ``logsumexp(z) - mean_v(z)``: the loss against labels the logits know
+    nothing of) and the labels' mean excess logit (the rest)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import build_model
+    from repro_torch.train.train_step import AUX_WEIGHT, cross_entropy
+
+    model = build_model(cfg, device=dev).init(SEED)
+    batch = synthetic_batch(cfg, ShapeConfig("train", S, B, "train"), 0, device=dev)
+    n_micro = max(cfg.microbatches, 1)
+    loss, free_part, excess = 0.0, 0.0, 0.0
+    with torch.inference_mode():
+        for i in range(n_micro):
+            mb = {k: v.reshape(n_micro, -1, *v.shape[1:])[i] for k, v in batch.items()}
+            logits, aux = model.forward(mb["tokens"], mb.get("positions"),
+                                        patch_embeds=mb.get("patch_embeds"),
+                                        enc_embeds=mb.get("enc_embeds"))
+            loss += float(cross_entropy(logits, mb["labels"]) + AUX_WEIGHT * aux) / n_micro
+            zbar = logits.mean(-1)
+            free_part += float((torch.logsumexp(logits, -1) - zbar).mean()) / n_micro
+            label = torch.gather(logits, -1, mb["labels"].long()[..., None])[..., 0]
+            excess += float((label - zbar).mean()) / n_micro
+            del logits
+    del model, batch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return loss, free_part, excess
+
+
+def expert_sets(torch, routes, B, K, steps=None):
+    """Recorded MoE routing (``recording_routes``) as (layers, B, S, K)
+    sorted experts and (layers, B, S) top-K margins: a forward's records
+    (one a layer) or ``steps`` decode steps' (one a layer a step)."""
+    idx, gap = [], []
+    for r in routes:
+        top = torch.sort(r["probs"].float(), dim=-1, descending=True).values
+        gap.append((top[..., K - 1] - top[..., K]).reshape(B, -1))
+        idx.append(torch.sort(r["gate_idx"].reshape(B, -1, K), dim=-1).values)
+    if steps is None:
+        return torch.stack(idx), torch.stack(gap)
+    L = len(idx) // steps
+    return (torch.stack([torch.cat(idx[l::L], 1) for l in range(L)]),
+            torch.stack([torch.cat(gap[l::L], 1) for l in range(L)]))
+
+
+def route_match(torch, fwd, dec):
+    """Where the forward's and the decode's experts differ: the (B, S)
+    positions of each row before its first flip, the flipped decisions,
+    and each row's first flip's margin in the forward (earliest position,
+    lowest layer there; later flips follow from it)."""
+    (fi, fg), (di, _) = fwd, dec
+    flipped = (fi != di).any(-1)                              # (layers, B, S)
+    ok = torch.cumprod((~flipped.any(0)).int(), dim=1).bool()
+    first = []
+    for b in range(ok.shape[0]):
+        s = int(ok[b].sum())
+        if s < ok.shape[1]:
+            first.append(float(fg[int(flipped[:, b, s].int().argmax()), b, s]))
+    return ok, int(flipped.sum()), first
+
+
+def family_run(torch, dev, card, arch):
+    """One model of the ``[families]`` phase: serving (twice), the
+    teacher-forced and prefill checks on the first loop's model, timings,
+    then two train steps through ``train()``."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import ServeLoop, make_requests
+    from repro_torch.models import blocks
+    from repro_torch.models.frontends import random_frontend_batch
+
+    sync = torch.cuda.synchronize
+
+    def free():
+        sync()
+        torch.cuda.empty_cache()
+
+    full = get_config(arch)
+    cfg, reduced = full, []
+    B, nreq, max_new, max_len = (SERVE_DEFAULTS[k] for k in ("batch", "requests", "max_new",
+                                                            "max_len"))
+    moe, encdec, vlm = (full.family == f for f in ("moe", "encdec", "vlm"))
+    free()
+    if moe:  # the deepest cut up to FAMILY_MOE_LAYERS whose bf16 weights fit with 25% spare
+        free_bytes = torch.cuda.mem_get_info()[0]
+        depth = FAMILY_MOE_LAYERS
+        while depth > 1 and 2 * full.replace(num_layers=depth).param_count() > 0.75 * free_bytes:
+            depth -= 1
+        cfg = full.replace(num_layers=depth)
+        reduced.append(f"forward, prefill and serving at {depth} of {full.num_layers} layers")
+    K = cfg.experts_per_token
+    out = {"card": card, "arch": arch, "family": full.family, "layers": cfg.num_layers,
+           "encoder_layers": cfg.encoder_layers, "d_model": cfg.d_model,
+           "heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads, "d_ff": cfg.d_ff,
+           "vocab": cfg.vocab_size, "dtype": cfg.dtype, "batch": B, "requests": nreq,
+           "max_new": max_new, "max_len": max_len, "reduced": reduced}
+    t_model = time.perf_counter()
+
+    # -- serving, run 1; its model carries the checks and the timings -----
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = ServeLoop(cfg, B, max_len, device=dev, seed=SEED)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    model = loop.model
+    out["params"] = sum(p.numel() for p in model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters())
+    cache_bytes = sum(v.numel() * v.element_size() for v in loop.cache.values())
+    steps = [0]
+    decode = loop._decode
+
+    def counting(*a):
+        steps[0] += 1
+        return decode(*a)
+
+    loop._decode = counting
+    t0 = time.perf_counter()
+    done = loop.run(make_requests(cfg, nreq, max_new))
+    sync()
+    run_s = time.perf_counter() - t0
+    tokens = sum(len(v) for v in done.values())
+    if len(done) != nreq or any(len(v) != max_new for v in done.values()):
+        fail(f"families: {arch}: {len(done)}/{nreq} requests served, lengths "
+             f"{sorted(len(v) for v in done.values())}")
+
+    S = FAMILY_TF_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+    with torch.inference_mode():
+        kw = {}
+        if vlm:  # served text has no patches: an empty prefix
+            kw["patch_embeds"] = torch.zeros((B, 0, cfg.d_model), dtype=torch.bfloat16,
+                                             device=dev)
+        if encdec:
+            kw["enc_embeds"] = random_frontend_batch(cfg, gen, B, S)["enc_embeds"]
+        # MoE at group size 1 in forward and prefill, as decode routes: nothing drops
+        model.cfg = cfg.replace(moe_group_size=1) if moe else cfg
+        with blocks.recording_routes() as f_routes:
+            fwd, _ = model.forward(toks, **kw)
+        cache = model.init_cache(B, max_len, enc_len=S)
+        if encdec:
+            cache["xk"], cache["xv"] = model.make_cross_cache(model.encode(kw["enc_embeds"]))
+        dec = []
+        with blocks.recording_routes() as d_routes:
+            for t in range(S):
+                lg, cache = model.decode_step(cache, toks[:, t], t)
+                dec.append(lg)
+        dec = torch.stack(dec, 1)
+        if not (torch.isfinite(fwd).all() and torch.isfinite(dec).all()):
+            fail(f"families: {arch}: non-finite logits in the teacher-forced pass")
+        ok = torch.ones((B, S), dtype=torch.bool, device=dev)
+        if moe:
+            ok, flips, first = route_match(torch, expert_sets(torch, f_routes, B, K),
+                                           expert_sets(torch, d_routes, B, K, steps=S))
+            out["teacher_forced_route_flips"] = flips
+            out["teacher_forced_first_flip_margins"] = first
+            out["teacher_forced_positions_compared"] = int(ok.sum())
+            if any(g >= FAMILY_TIE for g in first):
+                fail(f"families: {arch}: decode routed a token to other experts than forward "
+                     f"at a margin of {max(first)} >= {FAMILY_TIE}")
+        scale = float(fwd.abs().max())
+        diff = float((dec - fwd).abs().amax(-1)[ok].max())
+        if diff > SERVE_REL * scale:
+            fail(f"families: {arch}: decode differs from forward by {diff:.4f} > {SERVE_REL} x "
+                 f"max |logit| {scale:.4f}")
+        out.update(decode_vs_forward_max_abs=diff, forward_max_abs_logit=scale,
+                   decode_vs_forward_rel=diff / scale,
+                   decode_vs_forward_argmax_agree=float((dec.argmax(-1) == fwd.argmax(-1))[ok]
+                                                        .float().mean()))
+        if encdec:
+            try:
+                model.prefill(toks)
+            except NotImplementedError:
+                out["prefill"] = "raises NotImplementedError, as the reference's"
+            else:
+                fail("families: the encoder-decoder's prefill did not raise as the reference's")
+        else:
+            with blocks.recording_routes() as p_routes:
+                plog, pcache = model.prefill(toks)
+            if moe and not all(torch.equal(a["gate_idx"], b["gate_idx"])
+                               for a, b in zip(p_routes, f_routes)):
+                fail(f"families: {arch}: prefill routed otherwise than forward on one input")
+            pdiff = float((plog - fwd[:, -1]).abs().max())
+            if pdiff > PREFILL_LOGIT_REL * scale:
+                fail(f"families: {arch}: prefill's last logits differ from forward's by {pdiff}")
+            kv_rel = []
+            for key in ("k", "v"):
+                for layer in range(cfg.num_layers):
+                    want = pcache[key][layer].float()
+                    got = cache[key][layer, :, :S].float()
+                    err = float((got - want).abs().amax((-2, -1))[ok].max())
+                    kv_rel.append(err / float(want.abs().max()))
+            out.update(prefill_vs_forward_max_abs=pdiff,
+                       prefill_vs_forward_equal=bool(torch.equal(plog, fwd[:, -1])),
+                       prefill_kv_vs_decode_max_rel=max(kv_rel), prefill_kv_rel_bound=PREFILL_KV_REL)
+            if max(kv_rel) > PREFILL_KV_REL:
+                fail(f"families: {arch}: prefill's K/V differ from decode's by {max(kv_rel):.4f} "
+                     f"of the largest value")
+        model.cfg = cfg
+        del fwd, dec, cache, f_routes, d_routes
+
+        # the timed prefill, and what the gs = 128 forward drops at its length
+        if not encdec:
+            Sp = FAMILY_PREFILL_SEQ[arch]
+            ptoks = torch.randint(0, cfg.vocab_size, (B, Sp), generator=gen, device=dev)
+            pkw = {}
+            if vlm:
+                pkw["patch_embeds"] = random_frontend_batch(cfg, gen, B, Sp)["patch_embeds"]
+            if moe:
+                with blocks.recording_routes() as routes:
+                    model.forward(ptoks)
+                kept = sum(float(r["keep"].sum()) for r in routes)
+                out["forward_drop_share"] = 1.0 - kept / (B * Sp * K * cfg.num_layers)
+                out["forward_drop_share_by_layer"] = [
+                    1.0 - float(r["keep"].sum()) / (B * Sp * K) for r in routes]
+                del routes
+            model.prefill(ptoks, **pkw)
+            out["prefill_seq"] = Sp
+            out["ms_per_prefill"] = wall_ms(torch, lambda: model.prefill(ptoks, **pkw), 3)
+
+        # ms per decode step, synchronized each
+        cache = model.init_cache(B, max_len, enc_len=S)
+        times = []
+        for t in range(SERVE_TIMED_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            model.decode_step(cache, toks[:, t % S], t)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        del cache
+    out.update(weight_bytes=weight_bytes, kv_cache_bytes=cache_bytes, served=len(done),
+               tokens=tokens, decode_steps=steps[0], run_s=run_s, tokens_per_s=tokens / run_s,
+               ms_per_decode_step=statistics.median(times), ms_per_decode_step_all=times,
+               weight_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+               bound_ms=(weight_bytes + cache_bytes) / HBM_BYTES_PER_S * 1e3,
+               tolerance_rel=SERVE_REL, max_memory_allocated_serve=torch.cuda.max_memory_allocated(),
+               first_tokens={rid: done[rid][:8] for rid in sorted(done)[:3]})
+    del loop, model, decode, counting
+    free()
+
+    # -- serving, run 2: the same tokens, every logit finite ---------------
+    loop2 = ServeLoop(cfg, B, max_len, device=dev, seed=SEED)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    decode2 = loop2.model.decode_step
+
+    def checked(*a):
+        nonlocal finite
+        logits, c = decode2(*a)
+        finite = finite & torch.isfinite(logits).all()
+        return logits, c
+
+    loop2._decode = checked
+    if loop2.run(make_requests(cfg, nreq, max_new)) != done:
+        fail(f"families: {arch}: a second loop from the same seed gave other tokens")
+    if not bool(finite):
+        fail(f"families: {arch}: a decode step returned a non-finite logit")
+    del loop2, decode2, checked
+    free()
+
+    # -- two train steps through train() -------------------------------------
+    tcfg = full
+    if moe:
+        tcfg = full.replace(num_layers=FAMILY_MOE_TRAIN_LAYERS)
+        reduced.append(f"train step at {FAMILY_MOE_TRAIN_LAYERS} of {full.num_layers} layers")
+    St, Bt = FAMILY_TRAIN_SEQ[arch], FAMILY_TRAIN["global_batch"]
+    direct, label_free, excess = step0_logits(torch, dev, tcfg, St, Bt)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_families_") as ckdir:
+        run = launch_train.train(tcfg, FAMILY_TRAIN["steps"], St, Bt, ckdir, device=dev)
+    sync()
+    losses, step_ms = run["losses"], [x * 1e3 for x in run["step_s"]]
+    nparams = sum(p.numel() for p in run["params"].values())
+    peak_train = torch.cuda.max_memory_allocated()
+    del run
+    free()
+    expect = init_loss(tcfg)
+    if len(losses) != FAMILY_TRAIN["steps"] or not all(math.isfinite(x) for x in losses):
+        fail(f"families: {arch}: train losses {losses}")
+    if abs(losses[0] - direct) > STEP0_DIRECT_REL * abs(direct):
+        fail(f"families: {arch}: train()'s step-0 loss {losses[0]:.6f} is not its forward's "
+             f"{direct:.6f}")
+    if abs(label_free - expect) > STEP0_LOSS_TOL:
+        fail(f"families: {arch}: the step-0 logits' label-free loss {label_free:.4f} is not "
+             f"within {STEP0_LOSS_TOL} of {expect:.4f} (ln V + s2 / 2)")
+    bound = train_bound(tcfg, Bt, St, nparams)
+    out.update(train_layers=tcfg.num_layers, train_params=nparams, train_seq=St,
+               train_batch=Bt, microbatches=tcfg.microbatches,
+               moment_dtype=tcfg.opt_moment_dtype, losses=losses, step0_expected=expect,
+               step0_direct=direct, step0_label_free=label_free,
+               step0_label_excess_logit=excess,
+               ln_vocab=math.log(tcfg.vocab_size), step_ms_all=step_ms,
+               ms_per_train_step=step_ms[-1], train_tokens_per_s=Bt * St / step_ms[-1] * 1e3,
+               train_bound=bound, max_memory_allocated_train=peak_train,
+               phase_s=time.perf_counter() - t_model)
+    return out
+
+
+def phase_families(torch, dev, card):
+    """The attention families at full width (weights drawn on the card
+    from seed 0), after the earlier phases' models are freed:
+    qwen2-vl-2b (vlm: M-RoPE, 256 patches) and seamless-m4t-large-v2
+    (encdec) whole, mixtral-8x22b (moe, GShard dispatch) at full width
+    with its depth cut (``FAMILY_MOE_LAYERS`` for serving, prefill and
+    forward, ``FAMILY_MOE_TRAIN_LAYERS`` for the train step; each cut in
+    ``reduced``).  For each (:func:`family_run`):
+
+    1. ``ServeLoop`` at the serve CLI's defaults (batch 4, 8 requests of
+       16 new tokens, max_len 128): all served; a second loop from the
+       same seed gives the same tokens with every logit finite.
+    2. ``FAMILY_TF_TOKENS`` tokens teacher-forced: decode against
+       ``forward`` within ``SERVE_REL`` of the largest logit (vlm: text
+       only, as served; encdec: the cross cache from ``encode`` +
+       ``make_cross_cache`` of drawn audio embeddings; moe: forward at
+       group size 1, where nothing drops, and each row compared before its
+       first position routed to other experts than decode's, which must
+       be a near-tie, ``FAMILY_TIE``); ``prefill``'s last logits against
+       forward's last row (``PREFILL_LOGIT_REL``) and its K/V against the
+       decode's (``PREFILL_KV_REL``); encdec's prefill raises, as the
+       reference's.
+    3. ms per prefill (``FAMILY_PREFILL_SEQ``; vlm with its patches), the
+       share of (token, choice) pairs mixtral's ``gs = 128`` forward drops
+       at that length, ms per decode step (median of
+       ``SERVE_TIMED_STEPS``, synchronized) against the weight-bytes
+       bound, tokens/s of the loop, peak memory.
+    4. ``train()`` for two steps (global batch 8, seq
+       ``FAMILY_TRAIN_SEQ``): finite losses; the step-0 loss equal to the
+       same forward run directly (:func:`step0_logits`,
+       ``STEP0_DIRECT_REL``), whose label-free part is within
+       ``STEP0_LOSS_TOL`` of :func:`init_loss`; ms per step against
+       :func:`train_bound`.
+
+    No smoother runs, so no pack/unpack kernel should launch: the counts
+    are zeroed before and read after, and returned."""
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    runs = []
+    for arch in FAMILY_ARCHS:
+        r = family_run(torch, dev, card, arch)
+        runs.append(r)
+        print(f"[families] {arch} ({r['params']:,} parameters, {r['layers']} layers"
+              + (f" + {r['encoder_layers']} encoder" if r["encoder_layers"] else "")
+              + f"; reduced: {r['reduced'] or 'none'}): {r['served']}/{r['requests']} served, "
+              f"deterministic; decode vs forward {r['decode_vs_forward_rel']:.4f} of max |logit|"
+              + (f" ({r['teacher_forced_route_flips']} route flips, "
+                 f"{r['teacher_forced_positions_compared']} positions compared)"
+                 if "teacher_forced_route_flips" in r else "")
+              + (f"; prefill logits {r['prefill_vs_forward_max_abs']:.2e}, K/V "
+                 f"{r['prefill_kv_vs_decode_max_rel']:.4f}; {r['ms_per_prefill']:.2f} ms/prefill "
+                 f"(seq {r['prefill_seq']})" if "ms_per_prefill" in r else "; no prefill")
+              + (f"; gs=128 forward drops {r['forward_drop_share']:.4f}"
+                 if "forward_drop_share" in r else "")
+              + f"; {r['ms_per_decode_step']:.2f} ms/decode step (weight bound "
+              f"{r['weight_bound_ms']:.3f}), {r['tokens_per_s']:.1f} tok/s, peak "
+              f"{r['max_memory_allocated_serve'] / 2**30:.2f} GiB; train {r['train_layers']} "
+              f"layers seq {r['train_seq']}: losses {['%.4f' % x for x in r['losses']]} "
+              f"(label-free {r['step0_label_free']:.4f} against ln V + s2/2 "
+              f"{r['step0_expected']:.4f}, ln V {r['ln_vocab']:.4f}; labels' excess logit "
+              f"{r['step0_label_excess_logit']:+.4f}), "
+              f"{r['ms_per_train_step']:.1f} ms/step (bound {r['train_bound']['bound_ms']:.2f} "
+              f"by {r['train_bound']['bound_by']}), peak "
+              f"{r['max_memory_allocated_train'] / 2**30:.2f} GiB; {r['phase_s']:.1f} s; {card}")
+    launches = dict(launch_counts())
+    out = {"card": card, "models": runs, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"families": out}))
+    return launches
+
+
+
+
 def plan_launches(plan, comm):
     """Kernel launches one exchange of ``plan`` on ``comm`` makes: per
     region, a pack by its send strategy (for ``bounding``, the receiver's
@@ -3124,6 +3558,7 @@ def main() -> int:
     smoother = phase_smoother(torch, dev, card, measured)
     serve = phase_serve(torch, dev, card, measured)
     train = phase_train(torch, dev, card, measured)
+    families = phase_families(torch, dev, card)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -3133,13 +3568,13 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (counts[kernel] + program[kernel] + dist[kernel] + compress[kernel]
                          + tiered[kernel] + obs[kernel] + smoother[kernel] + serve[kernel]
-                         + train[kernel]),
+                         + train[kernel] + families[kernel]),
             "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
             "launches_dist": dist[kernel], "launches_compress": compress[kernel],
             "launches_tiered": tiered[kernel], "launches_obs": obs[kernel],
             "launches_smoother": smoother[kernel], "launches_serve": serve[kernel],
-            "launches_train": train[kernel],
+            "launches_train": train[kernel], "launches_families": families[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

@@ -1,8 +1,11 @@
-"""Per-layer blocks of the dense family: GQA attention (bias, qk-norm,
-sliding window, RoPE) and the gated-MLP residual, full-sequence and
-single-token decode.
+"""Per-layer blocks of the attention families: GQA attention (bias,
+qk-norm, sliding window, RoPE or M-RoPE), the gated-MLP residual, the
+top-k mixture of experts with GShard's grouped capacity dispatch, and
+the encoder-decoder cross-attention, full-sequence and single-token
+decode.
 
-The port of the dense part of the reference's ``repro.models.blocks``.
+The port of the attention part of the reference's ``repro.models.blocks``
+(the Mamba2 and RWKV6 blocks are not ported yet: ROADMAP Queue 1).
 Parameters live in :class:`torch.nn.Module` s whose attribute names are
 the reference's dict keys (``attn.wq``, ``mlp.w_gate``, ...); the blocks
 themselves are plain functions ``block(p, x, ...)`` over those modules,
@@ -11,18 +14,23 @@ as the reference's are over dicts.
 
 from __future__ import annotations
 
-from typing import Optional
+import math
+from contextlib import contextmanager
+from typing import Dict, Iterator, List, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.layers import (
+    _ACTIVATIONS,
     decode_attention,
     flash_attention,
     gated_mlp,
     init_dense,
     init_norm,
+    mrope,
     ring_update,
     rms_norm,
     rope,
@@ -31,13 +39,25 @@ from repro_torch.models.layers import (
 __all__ = [
     "CACHE_UPDATES",
     "Attention",
+    "CrossAttention",
     "DenseBlock",
     "MLP",
+    "MoE",
+    "MoEBlock",
     "attention",
     "attention_decode",
+    "cross_attention",
     "dense_block",
     "dense_block_decode",
+    "encode_kv",
+    "init_cross_attention",
     "init_dense_block",
+    "init_moe_block",
+    "moe_block",
+    "moe_block_decode",
+    "moe_ffn",
+    "moe_route",
+    "recording_routes",
 ]
 
 #: the decode KV-cache write modes (``ModelConfig.cache_update``)
@@ -112,14 +132,13 @@ def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
 
 def _apply_rope(q, k, cfg: ModelConfig, positions):
     if cfg.mrope:
-        raise NotImplementedError(
-            "M-RoPE (the vlm family) is not ported yet: ROADMAP Queue 1")
+        return mrope(q, k, positions, cfg.mrope_sections, cfg.rope_theta)
     return rope(q, k, positions, cfg.rope_theta)
 
 
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions, *, causal=True):
     """Full-sequence attention (training / prefill shapes).  positions:
-    (B, S) int.  Returns ``(x + o, (k, v))``."""
+    (B, S) int, or (3, B, S) under M-RoPE.  Returns ``(x + o, (k, v))``."""
     h = rms_norm(x, p.norm, cfg.norm_eps)
     q, k, v = _project_qkv(p, h, cfg)
     q, k = _apply_rope(q, k, cfg, positions)
@@ -239,3 +258,208 @@ def dense_block_decode(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig, k_cache
     )
     x = _mlp_res(p.mlp, x, cfg)
     return x, (k_cache, v_cache)
+
+
+# ===========================================================================
+# cross-attention (encoder-decoder)
+# ===========================================================================
+
+class CrossAttention(Attention):
+    """A decoder layer's cross-attention: the attention sub-block's
+    parameters (the reference's ``init_cross_attention`` is its
+    ``_init_attn``); the biases are never applied."""
+
+
+def init_cross_attention(gen: torch.Generator, cfg: ModelConfig, dtype,
+                         device=None) -> CrossAttention:
+    p = CrossAttention(cfg, dtype, device if device is not None else gen.device)
+    p.reset(gen, cfg)
+    return p
+
+
+def cross_attention(p: CrossAttention, x: torch.Tensor, cfg: ModelConfig, enc_kv):
+    """Decoder cross-attention, non-causal; ``enc_kv = (k, v)``
+    precomputed from the encoder output (:func:`encode_kv`), each
+    ``(B, S_enc, KV, hd)``."""
+    h = rms_norm(x, p.norm, cfg.norm_eps)
+    B, S, D = x.shape
+    H, hd = cfg.num_heads, cfg.hd
+    q = (h @ p.wq).reshape(B, S, H, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, p.q_norm, cfg.norm_eps)
+    k, v = enc_kv
+    o = flash_attention(q, k, v, causal=False)
+    return x + o.reshape(B, S, -1) @ p.wo
+
+
+def encode_kv(p: CrossAttention, enc_out: torch.Tensor, cfg: ModelConfig):
+    """Cross-attention K/V from the encoder output (once per sequence;
+    every decode step reuses them): ``(B, S_enc, KV, hd)`` each."""
+    B, S, _ = enc_out.shape
+    KV, hd = cfg.num_kv_heads, cfg.hd
+    k = (enc_out @ p.wk).reshape(B, S, KV, hd)
+    v = (enc_out @ p.wv).reshape(B, S, KV, hd)
+    if cfg.qk_norm:
+        k = rms_norm(k, p.k_norm, cfg.norm_eps)
+    return k, v
+
+
+# ===========================================================================
+# MoE block (top-k, GShard-style grouped capacity dispatch)
+# ===========================================================================
+
+class MoE(nn.Module):
+    """The expert sub-block's parameters: ``norm``, the float32
+    ``router`` (D, E) (float32 in every model dtype, as the reference's),
+    and the experts' ``w_gate``/``w_in`` (E, D, F) and ``w_out`` (E, F, D)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        e = lambda *shape, dt=dtype: _param(torch.empty(shape, dtype=dt, device=device))  # noqa: E731
+        self.norm = e(D)
+        self.router = e(D, E, dt=torch.float32)
+        self.w_gate = e(E, D, Fd)
+        self.w_in = e(E, D, Fd)
+        self.w_out = e(E, Fd, D)
+
+    @torch.no_grad()
+    def reset(self, gen: torch.Generator, cfg: ModelConfig) -> None:
+        """Unit norm; the router, then each expert tensor drawn whole:
+        standard normal in float32 scaled by ``1/sqrt(d_in)`` (D for
+        ``w_gate``/``w_in``, F for ``w_out``)."""
+        D, Fd, E = cfg.d_model, cfg.d_ff, cfg.num_experts
+        dt, dev = self.w_in.dtype, self.w_in.device
+        self.norm.copy_(init_norm(D, dt, dev))
+        self.router.copy_(init_dense(gen, D, E, torch.float32, dev))
+        for w, din, dout in ((self.w_gate, D, Fd), (self.w_in, D, Fd), (self.w_out, Fd, D)):
+            draw = torch.randn((E, din, dout), generator=gen, dtype=torch.float32, device=dev)
+            w.copy_((draw * (1.0 / math.sqrt(din))).to(dt))
+
+
+class MoEBlock(nn.Module):
+    """One MoE layer: ``attn`` and ``moe``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.attn = Attention(cfg, dtype, device)
+        self.moe = MoE(cfg, dtype, device)
+
+    def reset(self, gen: torch.Generator, cfg: ModelConfig) -> None:
+        self.attn.reset(gen, cfg)
+        self.moe.reset(gen, cfg)
+
+
+def init_moe_block(gen: torch.Generator, cfg: ModelConfig, dtype, device=None) -> MoEBlock:
+    blk = MoEBlock(cfg, dtype, device if device is not None else gen.device)
+    blk.reset(gen, cfg)
+    return blk
+
+
+_ROUTES: Optional[List[Dict[str, torch.Tensor]]] = None
+
+
+@contextmanager
+def recording_routes() -> Iterator[List[Dict[str, torch.Tensor]]]:
+    """Collect the routing of every :func:`moe_route` call made inside
+    the block, in call order (a forward: one entry a layer; a decode
+    step: one a layer, step after step): each entry holds ``probs``
+    (B, n, gs, E), ``gate_idx`` (B, n, gs, K) and ``keep`` (B, n, gs, K,
+    E).  Nothing is recorded outside it."""
+    global _ROUTES
+    prev, _ROUTES = _ROUTES, []
+    try:
+        yield _ROUTES
+    finally:
+        _ROUTES = prev
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """``lax.top_k`` over the last axis: the ``k`` largest, ties broken
+    towards the lower index (a stable descending sort)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """GShard's grouped top-k routing with capacity for ``x`` (B, S, D).
+
+    Groups are (batch, seq-block) pairs of ``gs = min(moe_group_size,
+    S)`` tokens (``S`` must be a multiple of ``gs``, as the reference's
+    reshape demands); each expert takes at most ``cap = max(int(gs * K /
+    E * moe_capacity_factor), 1)`` of a group's (token, choice) pairs,
+    counted token-major then by choice, and the rest are dropped.
+    Everything is float32.  Returns ``xg`` (B, n, gs, D), ``gate_idx``
+    (B, n, gs, K), ``keep`` (B, n, gs, K, E), ``slot`` (B, n, gs, K)
+    int32, ``dispatch`` and ``combine`` (B, n, gs, E, cap; ``combine``
+    weighted by the gate values renormalized over the K choices),
+    ``cap`` and the load-balancing ``aux``."""
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    gs = min(cfg.moe_group_size, S)
+    if S % gs:
+        raise ValueError(f"MoE routing needs the sequence ({S}) to be a multiple of the "
+                         f"group size min(moe_group_size, S) = {gs}")
+    nsb = S // gs
+    xg = x.reshape(B, nsb, gs, D)
+    cap = max(int(gs * K / E * cfg.moe_capacity_factor), 1)
+
+    logits = torch.einsum("bnsd,de->bnse", xg.float(), p.router.float())
+    probs = torch.softmax(logits, dim=-1)
+    density = probs.mean(dim=2)                                  # (B, n, E)
+    top1 = F.one_hot(probs.argmax(dim=-1), E).float()
+    density_hard = top1.mean(dim=2)
+    aux = E * torch.mean(torch.sum(density * density_hard, dim=-1))
+
+    gate_vals, gate_idx = _top_k(probs, K)                        # (B, n, gs, K)
+    gate_vals = gate_vals / gate_vals.sum(dim=-1, keepdim=True)
+
+    onehot = F.one_hot(gate_idx, E).float()                       # (B, n, gs, K, E)
+    flat = onehot.reshape(B, nsb, gs * K, E)
+    pos = torch.cumsum(flat, dim=2) - flat
+    pos = pos.reshape(B, nsb, gs, K, E)
+    keep = (pos < cap).float() * onehot
+    slot = (pos * keep).sum(dim=-1).to(torch.int32)
+    slot_oh = F.one_hot(slot.long(), cap).float()
+    dispatch = torch.einsum("bnske,bnskc->bnsec", keep, slot_oh)
+    combine = torch.einsum("bnsk,bnske,bnskc->bnsec", gate_vals, keep, slot_oh)
+    if _ROUTES is not None:
+        _ROUTES.append({"probs": probs, "gate_idx": gate_idx, "keep": keep})
+    return {"xg": xg, "gate_idx": gate_idx, "keep": keep, "slot": slot, "dispatch": dispatch,
+            "combine": combine, "cap": cap, "aux": aux}
+
+
+def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
+    """The experts on :func:`moe_route`'s dispatch: each expert's gated
+    MLP over its ``cap`` slots of every group, combined back with the
+    gate weights (dropped tokens get zero).  The dispatch product is
+    float32, the expert products in the model's dtype.  Returns ``(y
+    (B, S, D), aux)``."""
+    B, S, D = x.shape
+    r = moe_route(p, x, cfg)
+    xin = torch.einsum("bnsec,bnsd->ebncd", r["dispatch"], r["xg"].float()).to(x.dtype)
+    act = _ACTIVATIONS[cfg.activation]
+    h = act(torch.einsum("ebncd,edf->ebncf", xin, p.w_gate)) * torch.einsum(
+        "ebncd,edf->ebncf", xin, p.w_in)
+    out = torch.einsum("ebncf,efd->ebncd", h, p.w_out)
+    y = torch.einsum("bnsec,ebncd->bnsd", r["combine"].to(x.dtype), out)
+    return y.reshape(B, S, D), r["aux"]
+
+
+def moe_block(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig, positions, *, causal=True):
+    """Returns ``(x, (aux, (k, v)))``."""
+    x, kv = attention(p.attn, x, cfg, positions, causal=causal)
+    h = rms_norm(x, p.moe.norm, cfg.norm_eps)
+    y, aux = moe_ffn(p.moe, h, cfg)
+    return x + y, (aux, kv)
+
+
+def moe_block_decode(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig, k_cache, v_cache, t,
+                     positions, kpos=None):
+    """One token: groups of one, so ``cap = 1`` and nothing drops."""
+    x, (k_cache, v_cache) = attention_decode(
+        p.attn, x, cfg, k_cache, v_cache, t, positions, kpos
+    )
+    h = rms_norm(x, p.moe.norm, cfg.norm_eps)
+    y, _ = moe_ffn(p.moe, h, cfg)
+    return x + y, (k_cache, v_cache)

@@ -1,4 +1,4 @@
-"""Core transformer layers of the dense family: RMSNorm, RoPE, chunked
+"""Core transformer layers: RMSNorm, RoPE and M-RoPE, chunked
 (flash-style) attention with GQA / sliding window, single-token decode
 attention against a KV cache, and the gated MLP.
 
@@ -30,6 +30,7 @@ __all__ = [
     "gated_mlp",
     "init_dense",
     "init_norm",
+    "mrope",
     "ring_update",
     "ring_update_stacked",
     "rms_norm",
@@ -94,6 +95,24 @@ def rope(q: torch.Tensor, k: torch.Tensor, positions: torch.Tensor,
          theta: float = 1e4) -> Tuple[torch.Tensor, torch.Tensor]:
     """Standard RoPE.  positions: (B, S) int."""
     ang = _rope_angles(positions, q.shape[-1], theta)
+    return _apply_angles(q, ang).to(q.dtype), _apply_angles(k, ang).to(k.dtype)
+
+
+def mrope(q: torch.Tensor, k: torch.Tensor, positions3: torch.Tensor,
+          sections: Tuple[int, int, int], theta: float = 1e4):
+    """Multimodal RoPE (Qwen2-VL): the head_dim/2 rotation pairs are split
+    into (t, h, w) sections, each rotated by its own position stream.
+    positions3: (3, B, S) int (equal streams for text tokens, spatial ids
+    for vision patches)."""
+    d = q.shape[-1]
+    assert sum(sections) == d // 2, (sections, d)
+    exps = -(torch.arange(0, d, 2, dtype=torch.float32, device=positions3.device) / d)
+    freqs = torch.pow(float(theta), exps)  # the full ladder; each section takes its slice
+    parts, lo = [], 0
+    for i, sec in enumerate(sections):
+        parts.append(positions3[i][..., None].float() * freqs[lo:lo + sec])
+        lo += sec
+    ang = torch.cat(parts, dim=-1)  # (B, S, d/2)
     return _apply_angles(q, ang).to(q.dtype), _apply_angles(k, ang).to(k.dtype)
 
 

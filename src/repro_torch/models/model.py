@@ -1,11 +1,14 @@
-"""Model assembly for the dense family: embedding, a loop over the layers,
-and the head, with ``forward`` (full sequence) and ``decode_step`` (one
-token against a KV cache).
+"""Model assembly for the attention families (``dense``, ``vlm``, ``moe``,
+``encdec``): embedding, a loop over the layers, and the head, with
+``forward`` (full sequence), ``prefill`` (full sequence to a serving
+cache and the last position's logits) and ``decode_step`` (one token
+against a KV cache), plus the encoder-decoder's ``encode`` and
+``make_cross_cache``.
 
-The port of the dense part of the reference's ``repro.models.model``.
-The reference stacks the layers on a leading L axis and scans them; here
-each layer is a module of its own, run in a Python loop, and the decode
-cache keeps the reference's stacked ``(L, B, S, KV, hd)`` layout.
+The port of the reference's ``repro.models.model``.  The reference
+stacks the layers on a leading L axis and scans them; here each layer is
+a module of its own, run in a Python loop, and the decode cache keeps
+the reference's stacked ``(L, B, S, KV, hd)`` layout.
 :func:`params_from_reference` and :func:`params_to_reference` are the one
 place the reference's parameter tree is mapped onto the port's
 parameters and back.  Training (:meth:`Model.trainable`) turns gradients
@@ -13,8 +16,12 @@ on; with ``cfg.remat`` each layer then runs under activation
 checkpointing, as the reference wraps its scan body in
 ``jax.checkpoint``.  Serving builds the model with gradients off.
 
-Other families (``moe``, ``ssm``, ``rwkv``, ``hybrid``, ``encdec``,
-``vlm``) and ``prefill`` are not ported yet (ROADMAP Queue 1).
+The ``vlm`` family prepends the frontend's patch embeddings and rotates
+by M-RoPE; ``moe`` swaps the gated MLP for GShard-dispatched experts;
+``encdec`` adds a bidirectional encoder stack and a cross-attention per
+decoder layer.  The recurrent families, ``rwkv`` and ``hybrid`` (and
+``ssm``, which no config uses), are not ported yet (ROADMAP Queue 1):
+:class:`Model` raises for them.
 """
 
 from __future__ import annotations
@@ -36,7 +43,18 @@ __all__ = ["PORTED_FAMILIES", "Model", "build_model", "params_from_reference",
            "params_to_reference", "reference_order"]
 
 #: the families whose blocks are ported
-PORTED_FAMILIES = ("dense",)
+PORTED_FAMILIES = ("dense", "vlm", "moe", "encdec")
+
+#: family -> (layer module, full-sequence block, decode block)
+_BLOCKS = {
+    "dense": (B.DenseBlock, B.dense_block, B.dense_block_decode),
+    "vlm": (B.DenseBlock, B.dense_block, B.dense_block_decode),
+    "encdec": (B.DenseBlock, B.dense_block, B.dense_block_decode),
+    "moe": (B.MoEBlock, B.moe_block, B.moe_block_decode),
+}
+
+#: the reference's subtrees whose leaves are stacked on a leading layer axis
+_STACKS = ("layers", "encoder.layers", "xattn")
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 _KV_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8}
@@ -50,6 +68,10 @@ def _kv_dtype(cfg: ModelConfig) -> torch.dtype:
     return _KV_DTYPES[cfg.kv_cache_dtype]
 
 
+def _stack_len(cfg: ModelConfig, stack: str) -> int:
+    return cfg.encoder_layers if stack == "encoder.layers" else cfg.num_layers
+
+
 class Embed(nn.Module):
     """The token embedding table ``vocab``: (V, D)."""
 
@@ -60,10 +82,22 @@ class Embed(nn.Module):
             requires_grad=False)
 
 
+class Encoder(nn.Module):
+    """The encoder-decoder's encoder: ``encoder_layers`` dense layers run
+    without a causal mask, and its ``final_norm``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.layers = nn.ModuleList(B.DenseBlock(cfg, dtype, device)
+                                    for _ in range(cfg.encoder_layers))
+        self.final_norm = nn.Parameter(torch.empty((cfg.d_model,), dtype=dtype, device=device),
+                                       requires_grad=False)
+
+
 class Model(nn.Module):
-    """A dense-family language model on one device.  Built with empty
-    parameters: :meth:`init` draws them from a seed, ``load_state_dict``
-    takes :func:`params_from_reference`'s."""
+    """A language model of an attention family on one device.  Built
+    with empty parameters: :meth:`init` draws them from a seed,
+    ``load_state_dict`` takes :func:`params_from_reference`'s."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
@@ -74,18 +108,23 @@ class Model(nn.Module):
         self.cfg = cfg
         dev = resolve_device(device)
         dt = _dtype(cfg)
+        layer_cls, self._block, self._block_decode = _BLOCKS[cfg.family]
         # the embedding scale rounded to the table's dtype first, as the
         # reference casts it (29.875 in bf16 at D = 896); a Python float,
         # so the multiply copies nothing to the device
         self._embed_scale = torch.tensor(math.sqrt(cfg.d_model), dtype=dt).item()
         self.embed = Embed(cfg, dt, dev)
-        self.layers = nn.ModuleList(B.DenseBlock(cfg, dt, dev) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(layer_cls(cfg, dt, dev) for _ in range(cfg.num_layers))
         self.final_norm = nn.Parameter(torch.empty((cfg.d_model,), dtype=dt, device=dev),
                                        requires_grad=False)
         if not cfg.tie_embeddings:
             self.lm_head = nn.Parameter(
                 torch.empty((cfg.d_model, cfg.vocab_size), dtype=dt, device=dev),
                 requires_grad=False)
+        if cfg.family == "encdec":
+            self.encoder = Encoder(cfg, dt, dev)
+            self.xattn = nn.ModuleList(B.CrossAttention(cfg, dt, dev)
+                                       for _ in range(cfg.num_layers))
 
     @property
     def device(self) -> torch.device:
@@ -106,8 +145,10 @@ class Model(nn.Module):
     def init(self, seed: int = 0) -> "Model":
         """Draw every parameter from ``torch.Generator(device).manual_seed(seed)``
         on the model's device, with the reference's distributions (scaled
-        normal projections, unit norms, zero biases) in the order embed,
-        layers, final norm, head.  Returns ``self``."""
+        normal projections and experts, a float32 router, unit norms, zero
+        biases) in the order embed, layers, final norm, head, then for
+        ``encdec`` the encoder's layers (its final norm is ones) and the
+        cross-attentions.  Returns ``self``."""
         cfg, dt, dev = self.cfg, self.final_norm.dtype, self.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         self.embed.vocab.copy_(init_dense(gen, cfg.vocab_size, cfg.d_model, dt, dev))
@@ -116,6 +157,12 @@ class Model(nn.Module):
         self.final_norm.copy_(init_norm(cfg.d_model, dt, dev))
         if not cfg.tie_embeddings:
             self.lm_head.copy_(init_dense(gen, cfg.d_model, cfg.vocab_size, dt, dev))
+        if cfg.family == "encdec":
+            for layer in self.encoder.layers:
+                layer.reset(gen, cfg)
+            self.encoder.final_norm.copy_(init_norm(cfg.d_model, dt, dev))
+            for xa in self.xattn:
+                xa.reset(gen, cfg)
         return self
 
     # ------------------------------------------------------------------
@@ -130,19 +177,60 @@ class Model(nn.Module):
         w = self.embed.vocab.T if self.cfg.tie_embeddings else self.lm_head
         return torch.matmul(x.float(), w.float())  # preferred_element_type=float32
 
+    def _with_patches(self, x: torch.Tensor, patch_embeds: torch.Tensor) -> torch.Tensor:
+        """The vision patches prepended to the token embeddings, cut back
+        to the tokens' length S (so at ``num_patches >= S`` no token is
+        left, as in the reference)."""
+        S = x.shape[1]
+        patches = patch_embeds.to(self.device, x.dtype)
+        return torch.cat([patches, x], dim=1)[:, :S]
+
+    def _positions(self, positions: Optional[torch.Tensor], Bsz: int, S: int) -> torch.Tensor:
+        """``arange(S)`` per row by default; a 2-D ``positions`` is
+        broadcast to M-RoPE's three streams."""
+        if positions is None:
+            positions = torch.arange(S, device=self.device).expand(Bsz, S)
+        positions = positions.to(self.device)
+        if self.cfg.mrope and positions.dim() == 2:
+            positions = positions.expand(3, *positions.shape)
+        return positions
+
     # ------------------------------------------------------------------
-    # layer stack (train / prefill direction)
+    # layer stacks (train / prefill direction)
     # ------------------------------------------------------------------
-    def _run_stack(self, x: torch.Tensor, positions, *, causal=True):
+    def _run_stack(self, layers, x: torch.Tensor, positions, *, causal=True,
+                   collect_kv=False):
+        """Run ``layers`` over ``x``; returns ``(x, aux, kvs)``, ``kvs`` the
+        per-layer ``(k, v)`` under ``collect_kv`` (else None)."""
+        cfg = self.cfg  # the encoder's layers are dense, as encdec's decoder's
+        remat = cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        kvs = [] if collect_kv else None
+        for layer in layers:
+            def body(h, layer=layer):
+                h, (a, kv) = self._block(layer, h, cfg, positions, causal=causal)
+                return h, a, kv
+
+            if remat:  # keep each layer's input; recompute the rest in backward
+                x, a, kv = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a, kv = body(x)
+            aux = aux + a
+            if collect_kv:
+                kvs.append(kv)
+        return x, aux, kvs
+
+    def _run_encdec_decoder(self, x, positions, enc):
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        for layer in self.layers:
-            def body(h, layer=layer):
-                h, (a, _) = B.dense_block(layer, h, cfg, positions, causal=causal)
+        for layer, xa in zip(self.layers, self.xattn):
+            def body(h, layer=layer, xa=xa):
+                h, (a, _) = B.dense_block(layer, h, cfg, positions)
+                h = B.cross_attention(xa, h, cfg, B.encode_kv(xa, enc, cfg))
                 return h, a
 
-            if remat:  # keep each layer's input; recompute the rest in backward
+            if remat:
                 x, a = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
             else:
                 x, a = body(x)
@@ -152,34 +240,88 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     # forward (training shapes; returns full logits)
     # ------------------------------------------------------------------
-    def forward(self, tokens: torch.Tensor,
-                positions: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``tokens``: (B, S); ``positions``: (B, S), ``arange(S)`` by
-        default.  Returns ``(logits (B, S, V) float32, aux)``."""
+    def forward(self, tokens: torch.Tensor, positions: Optional[torch.Tensor] = None, *,
+                patch_embeds: Optional[torch.Tensor] = None,
+                enc_embeds: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``tokens``: (B, S); ``positions``: (B, S) or, under M-RoPE,
+        (3, B, S), ``arange(S)`` by default; ``patch_embeds`` (vlm: B,
+        num_patches, D) and ``enc_embeds`` (encdec: B, S_enc, D) are the
+        frontend stubs' embeddings.  Returns ``(logits (B, S, V) float32,
+        aux)``, ``aux`` the MoE load-balancing loss summed over the layers
+        (0 for the other families)."""
+        cfg = self.cfg
         tokens = tokens.to(self.device)
         Bsz, S = tokens.shape
         x = self._embed(tokens)
-        if positions is None:
-            positions = torch.arange(S, device=self.device).expand(Bsz, S)
-        x, aux = self._run_stack(x, positions.to(self.device))
+        if cfg.family == "vlm":
+            if patch_embeds is None:
+                raise ValueError("the vlm family's forward needs patch_embeds")
+            x = self._with_patches(x, patch_embeds)
+        positions = self._positions(positions, Bsz, S)
+        if cfg.family == "encdec":
+            if enc_embeds is None:
+                raise ValueError("the encdec family's forward needs enc_embeds")
+            x, aux = self._run_encdec_decoder(x, positions, self.encode(enc_embeds))
+        else:
+            x, aux, _ = self._run_stack(self.layers, x, positions)
         return self._head(x), aux
+
+    # ------------------------------------------------------------------
+    # prefill: forward + the serving cache and last-position logits
+    # ------------------------------------------------------------------
+    def prefill(self, tokens: torch.Tensor, *,
+                patch_embeds: Optional[torch.Tensor] = None):
+        """The full sequence once, at positions ``arange(S)`` (as the
+        reference, which ignores a batch's ``positions`` here), with the
+        patches prepended for vlm when given.  Returns ``(logits (B, V)
+        float32 of the last position, {"k", "v"})``: every layer's roped
+        K and V, ``(L, B, S, KV, hd)`` in the KV dtype (no ``kpos``, as in
+        the reference).  The encoder-decoder has no prefill (the
+        reference raises)."""
+        cfg = self.cfg
+        if cfg.family not in ("dense", "vlm", "moe"):
+            raise NotImplementedError(
+                "prefill caches for recurrent/encdec families are built by their decode "
+                "drivers")
+        tokens = tokens.to(self.device)
+        Bsz, S = tokens.shape
+        x = self._embed(tokens)
+        if cfg.family == "vlm" and patch_embeds is not None:
+            x = self._with_patches(x, patch_embeds)
+        positions = self._positions(None, Bsz, S)
+        x, _, kvs = self._run_stack(self.layers, x, positions, collect_kv=True)
+        kvdt = _kv_dtype(cfg)
+        cache = {"k": torch.stack([k for k, _ in kvs]).to(kvdt),
+                 "v": torch.stack([v for _, v in kvs]).to(kvdt)}
+        return self._head(x[:, -1:, :])[:, 0], cache
 
     # ------------------------------------------------------------------
     # decode: one token, cache carried
     # ------------------------------------------------------------------
-    def init_cache(self, batch_size: int, max_len: int) -> Dict[str, torch.Tensor]:
+    def init_cache(self, batch_size: int, max_len: int,
+                   enc_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """The decode cache: ``k``/``v`` ``(L, B, S, KV, hd)`` in the KV
         dtype with ``S = min(max_len, sliding_window)``, and ``kpos``
-        ``(S,)``, the absolute position each slot holds (-1: empty)."""
+        ``(S,)``, the absolute position each slot holds (-1: empty); for
+        encdec also the cross-attention ``xk``/``xv`` ``(L, B, enc_len or
+        max_len, KV, hd)`` in the model's dtype, zero until
+        :meth:`make_cross_cache`'s are put there."""
         cfg = self.cfg
         L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
         S = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
         kvdt, dev = _kv_dtype(cfg), self.device
-        return {
+        cache = {
             "k": torch.zeros((L, batch_size, S, KV, hd), dtype=kvdt, device=dev),
             "v": torch.zeros((L, batch_size, S, KV, hd), dtype=kvdt, device=dev),
             "kpos": torch.full((S,), -1, dtype=torch.int32, device=dev),
         }
+        if cfg.family == "encdec":
+            se = enc_len or max_len
+            for key in ("xk", "xv"):
+                cache[key] = torch.zeros((L, batch_size, se, KV, hd), dtype=_dtype(cfg),
+                                         device=dev)
+        return cache
 
     def decode_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, t: int):
         """``tokens``: (B,) the current input token of each row; ``t``:
@@ -192,19 +334,22 @@ class Model(nn.Module):
         tokens = tokens.to(self.device)
         Bsz = tokens.shape[0]
         x = self._embed(tokens[:, None])
-        pos = torch.full((Bsz, 1), t, dtype=torch.long, device=self.device)
+        pos = self._positions(torch.full((Bsz, 1), t, dtype=torch.long, device=self.device),
+                              Bsz, 1)
         S = cache["k"].shape[2]
         slot = t % S
         at_slot = torch.arange(S, device=self.device) == slot
         kc_all, vc_all = cache["k"], cache["v"]
+        if cfg.family == "encdec":
+            return self._decode_encdec(cache, x, t, pos, at_slot)
         if cfg.cache_update == "deferred":
             # mask the stale slot row during attention; the new rows are
             # attended explicitly and written once for all layers after
             kpos_mask = torch.where(at_slot, -1, cache["kpos"])
             k_rows, v_rows = [], []
             for layer, kc, vc in zip(self.layers, kc_all, vc_all):
-                x, (k_new, v_new) = B.dense_block_decode(layer, x, cfg, kc, vc, t, pos,
-                                                         kpos_mask)
+                x, (k_new, v_new) = self._block_decode(layer, x, cfg, kc, vc, t, pos,
+                                                       kpos_mask)
                 k_rows.append(k_new)
                 v_rows.append(v_new)
             kpos = torch.where(at_slot, t, cache["kpos"]).to(torch.int32)
@@ -213,9 +358,44 @@ class Model(nn.Module):
         else:
             kpos = torch.where(at_slot, t, cache["kpos"]).to(torch.int32)
             for layer, kc, vc in zip(self.layers, kc_all, vc_all):
-                x, _ = B.dense_block_decode(layer, x, cfg, kc, vc, t, pos, kpos)
+                x, _ = self._block_decode(layer, x, cfg, kc, vc, t, pos, kpos)
         cache = {"k": kc_all, "v": vc_all, "kpos": kpos}
         return self._head(x)[:, 0], cache
+
+    def _decode_encdec(self, cache, x, t, pos, at_slot):
+        cfg = self.cfg
+        if cfg.cache_update == "deferred":
+            raise ValueError("the encdec decode step writes its cache per layer; "
+                             "cache_update='deferred' is not supported for it")
+        kpos = torch.where(at_slot, t, cache["kpos"]).to(torch.int32)
+        for layer, xa, kc, vc, xk, xv in zip(self.layers, self.xattn, cache["k"], cache["v"],
+                                             cache["xk"], cache["xv"]):
+            x, _ = B.dense_block_decode(layer, x, cfg, kc, vc, t, pos, kpos)
+            x = B.cross_attention(xa, x, cfg, (xk, xv))
+        cache = {"k": cache["k"], "v": cache["v"], "kpos": kpos, "xk": cache["xk"],
+                 "xv": cache["xv"]}
+        return self._head(x)[:, 0], cache
+
+    # ------------------------------------------------------------------
+    # encoder-decoder serving helpers
+    # ------------------------------------------------------------------
+    def encode(self, enc_embeds: torch.Tensor) -> torch.Tensor:
+        """Run the encoder once over the frontend stub's embeddings
+        ``(B, S_enc, D)`` (cast to the model's dtype), without a causal
+        mask, then its final norm."""
+        cfg = self.cfg
+        enc = enc_embeds.to(self.device, _dtype(cfg))
+        Bsz, Se = enc.shape[:2]
+        pos = torch.arange(Se, device=self.device).expand(Bsz, Se)
+        enc, _, _ = self._run_stack(self.encoder.layers, enc, pos, causal=False)
+        return rms_norm(enc, self.encoder.final_norm, cfg.norm_eps)
+
+    def make_cross_cache(self, enc_out: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Every decoder layer's cross-attention K/V from the encoder's
+        output, stacked: a ``(L, B, S_enc, KV, hd)`` pair (the cache's
+        ``xk``/``xv``, reused every decode step)."""
+        ks, vs = zip(*(B.encode_kv(xa, enc_out, self.cfg) for xa in self.xattn))
+        return torch.stack(ks), torch.stack(vs)
 
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
@@ -236,42 +416,54 @@ def _to_torch(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def params_from_reference(cfg: ModelConfig, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
-    """The reference's parameter tree (nested dicts of arrays, the layers
-    stacked on a leading L axis) as the port's parameters: a dict of CPU
-    tensors keyed by :class:`Model` parameter names, for
-    ``Model.load_state_dict``.  Values are copied bit for bit."""
+def _check_family(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(f"the {cfg.family!r} family is not ported yet: ROADMAP Queue 1")
-    out: Dict[str, torch.Tensor] = {"embed.vocab": _to_torch(params["embed"]["vocab"]),
-                                    "final_norm": _to_torch(params["final_norm"])}
-    if "lm_head" in params:
-        out["lm_head"] = _to_torch(params["lm_head"])
 
-    def walk(tree: Mapping[str, Any], prefix: str) -> None:
+
+def params_from_reference(cfg: ModelConfig, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+    """The reference's parameter tree (nested dicts of arrays; ``layers``
+    and ``xattn`` stacked on a leading ``num_layers`` axis,
+    ``encoder.layers`` on ``encoder_layers``) as the port's parameters: a
+    dict of CPU tensors keyed by :class:`Model` parameter names, for
+    ``Model.load_state_dict``.  Values are copied bit for bit, each in its
+    own dtype (the MoE router stays float32)."""
+    _check_family(cfg)
+    out: Dict[str, torch.Tensor] = {}
+
+    def walk(tree: Mapping[str, Any], path: str, stack: Optional[str]) -> None:
         for key, val in tree.items():
-            if isinstance(val, Mapping):
-                walk(val, f"{prefix}{key}.")
-                continue
-            stacked = _to_torch(val)
-            if stacked.shape[0] != cfg.num_layers:
-                raise ValueError(f"layers.{prefix}{key}: leading axis {stacked.shape[0]}, "
-                                 f"want {cfg.num_layers} layers")
-            for layer in range(cfg.num_layers):
-                out[f"layers.{layer}.{prefix}{key}"] = stacked[layer].clone()
+            name = f"{path}.{key}" if path else key
+            if stack is None and name in _STACKS:
+                walk(val, name, name)
+            elif isinstance(val, Mapping):
+                walk(val, name, stack)
+            elif stack is None:
+                out[name] = _to_torch(val)
+            else:
+                stacked, n = _to_torch(val), _stack_len(cfg, stack)
+                if stacked.shape[0] != n:
+                    raise ValueError(f"{name}: leading axis {stacked.shape[0]}, want {n} layers")
+                rest = name[len(stack) + 1:]
+                for layer in range(n):
+                    out[f"{stack}.{layer}.{rest}"] = stacked[layer].clone()
 
-    walk(params["layers"], "")
+    walk(params, "", None)
     return out
 
 
-def _reference_key(name: str) -> Tuple[str, int]:
-    """A port parameter name as ``(reference key, layer)``: a layer's
-    ``layers.<i>.<rest>`` is the stacked reference leaf ``layers.<rest>``
-    at index ``i``; any other name is its own key (layer 0)."""
-    parts = name.split(".")
-    if parts[0] == "layers" and len(parts) > 2 and parts[1].isdigit():
-        return ".".join(["layers"] + parts[2:]), int(parts[1])
-    return name, 0
+def _split_name(name: str) -> Tuple[str, Optional[str], int]:
+    """A port parameter name as ``(reference key, stack, layer)``: a
+    stacked subtree's ``<stack>.<i>.<rest>`` is the reference leaf
+    ``<stack>.<rest>`` at index ``i``; any other name is its own key
+    (no stack, layer 0)."""
+    for stack in _STACKS:
+        head = stack + "."
+        if name.startswith(head):
+            idx, _, rest = name[len(head):].partition(".")
+            if idx.isdigit() and rest:
+                return f"{stack}.{rest}", stack, int(idx)
+    return name, None, 0
 
 
 def reference_order(names: Iterable[str]) -> List[str]:
@@ -279,7 +471,7 @@ def reference_order(names: Iterable[str]) -> List[str]:
     stacked tree (dict keys sorted at every level), each stacked leaf's
     layers in turn: the byte order of the reference's flattened tree."""
     def key(name):
-        ref, layer = _reference_key(name)
+        ref, _, layer = _split_name(name)
         return tuple(ref.split(".")), layer
 
     return sorted(names, key=key)
@@ -288,16 +480,15 @@ def reference_order(names: Iterable[str]) -> List[str]:
 def params_to_reference(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
     """The inverse of :func:`params_from_reference`: tensors keyed by
     :class:`Model` parameter names (parameters, or anything shaped like
-    them, such as AdamW moments) as the reference's nested tree, the
-    layers stacked on a leading L axis.  Detached tensors on the inputs'
-    device."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet: ROADMAP Queue 1")
+    them, such as AdamW moments) as the reference's nested tree, each
+    stacked subtree's layers on a leading axis.  Detached tensors on the
+    inputs' device."""
+    _check_family(cfg)
     flat: Dict[str, Any] = {}
     for name, t in state_dict.items():
-        ref, layer = _reference_key(name)
-        if ref.startswith("layers."):
-            flat.setdefault(ref, [None] * cfg.num_layers)[layer] = t.detach()
+        ref, stack, layer = _split_name(name)
+        if stack is not None:
+            flat.setdefault(ref, [None] * _stack_len(cfg, stack))[layer] = t.detach()
         else:
             flat[ref] = t.detach()
     tree: Dict[str, Any] = {}

@@ -14,7 +14,13 @@ from repro_torch.train.elastic import (
 )
 from repro_torch.train.grad_wire import GRAD_WIRE_MODES, GradWire
 from repro_torch.train.optimizer import AdamWConfig, adamw_update, init_opt_state
-from repro_torch.train.train_step import make_grad_step, make_loss_fn, make_train_step
+from repro_torch.train.train_step import (
+    make_decode_step,
+    make_grad_step,
+    make_loss_fn,
+    make_prefill_step,
+    make_train_step,
+)
 
 __all__ = [
     "GRAD_WIRE_MODES",
@@ -27,8 +33,10 @@ __all__ = [
     "StragglerMonitor",
     "adamw_update",
     "init_opt_state",
+    "make_decode_step",
     "make_grad_step",
     "make_loss_fn",
+    "make_prefill_step",
     "make_train_step",
     "plan_remesh",
     "replan_on_remesh",

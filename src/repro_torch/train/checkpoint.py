@@ -17,7 +17,10 @@ package restores in the other.
 Leaves may be torch tensors (on any device) or numpy arrays; a restored
 tree holds CPU tensors.  A training checkpoint holds the reference's
 tree (:func:`train_state`): ``params.*`` in the reference's stacked
-layout (:func:`~repro_torch.models.model.params_to_reference`),
+layout (:func:`~repro_torch.models.model.params_to_reference`: ``layers``
+and ``xattn`` on ``num_layers``, ``encoder.layers`` on
+``encoder_layers``; each leaf in its own dtype, so the MoE router stays
+float32 in a bf16 checkpoint),
 ``opt.mu.*`` and ``opt.nu.*`` laid out the same way, and ``opt.step``;
 :func:`load_train_state` puts one back into a model.
 """

@@ -9,11 +9,13 @@ and the bias corrections ``b ** step`` and the schedule are float32
 tensors there, so a step reads nothing back to the host.
 
 Weight decay follows the rank a leaf has in the *reference's* tree,
-where every layer's leaves are stacked on a leading L axis: a
-``layers.*`` leaf is decayed whatever its per-layer rank (its norms and
-biases are 2-D there), any other leaf when it has two or more
-dimensions (so ``final_norm`` is not, ``embed.vocab`` and ``lm_head``
-are).  The same rule holds for a tree already in the stacked layout.
+where every layer's leaves are stacked on a leading axis: a leaf of a
+stacked subtree (``layers.*``, ``encoder.layers.*``, ``xattn.*``) is
+decayed whatever its per-layer rank (its norms and biases are 2-D
+there), any other leaf when it has two or more dimensions (so
+``final_norm`` and ``encoder.final_norm`` are not, ``embed.vocab`` and
+``lm_head`` are).  The same rule holds for a tree already in the
+stacked layout.
 
 ``adamw_update`` updates the parameters and moments in place (the
 reference donates their buffers to its jitted step) and returns them.
@@ -58,10 +60,14 @@ def _mdt(cfg: AdamWConfig) -> torch.dtype:
     return _MOMENT_DTYPES[cfg.moment_dtype]
 
 
+#: the name prefixes of the reference's stacked subtrees
+STACKED_PREFIXES = ("layers.", "encoder.layers.", "xattn.")
+
+
 def decays(name: str, p: torch.Tensor) -> bool:
     """Whether AdamW decays the leaf ``name``: its rank in the
     reference's stacked tree is at least 2."""
-    return name.startswith("layers.") or p.dim() >= 2
+    return name.startswith(STACKED_PREFIXES) or p.dim() >= 2
 
 
 def init_opt_state(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> Dict:

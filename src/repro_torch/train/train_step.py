@@ -8,8 +8,7 @@ run eagerly on the model's own parameters.  ``params`` is
 parameters, in the reference's tree order): gradients are taken with
 respect to exactly those tensors, and the update writes them in place,
 as the reference donates its parameter buffers.  A dict that is not
-the model's own parameters raises (:func:`check_params`).  ``make_prefill_step``
-waits for ``Model.prefill`` (ROADMAP Queue 1).
+the model's own parameters raises (:func:`check_params`).
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
 __all__ = ["AUX_WEIGHT", "check_params", "cross_entropy", "make_decode_step",
-           "make_grad_step", "make_loss_fn", "make_train_step"]
+           "make_grad_step", "make_loss_fn", "make_prefill_step", "make_train_step"]
 
 AUX_WEIGHT = 1e-2  # MoE load-balance loss weight
 
@@ -51,10 +50,14 @@ def check_params(model: Model, params: Dict[str, torch.Tensor]) -> None:
 def make_loss_fn(model: Model):
     """``loss_fn(params, batch) -> (loss, metrics)``: cross-entropy plus
     ``AUX_WEIGHT * aux`` of the model's forward on ``batch["tokens"]``
-    (``params`` are the model's own: see the module docstring)."""
+    with the batch's ``positions``, ``patch_embeds`` and ``enc_embeds``
+    where it has them (``params`` are the model's own: see the module
+    docstring)."""
     def loss_fn(params, batch):
         check_params(model, params)
-        logits, aux = model.forward(batch["tokens"], batch.get("positions"))
+        logits, aux = model.forward(batch["tokens"], batch.get("positions"),
+                                    patch_embeds=batch.get("patch_embeds"),
+                                    enc_embeds=batch.get("enc_embeds"))
         loss = cross_entropy(logits, batch["labels"]) + AUX_WEIGHT * aux
         return loss, {"xent": loss, "moe_aux": aux}
 
@@ -123,6 +126,15 @@ def make_train_step(model: Model, opt_cfg: AdamWConfig):
         return update_fn(params, opt_state, grads, loss, metrics)
 
     return train_step
+
+
+def make_prefill_step(model: Model):
+    """``prefill_step(batch) -> (last_logits, cache)``: :meth:`Model.prefill`
+    on ``batch["tokens"]`` (with its ``patch_embeds`` for vlm)."""
+    def prefill_step(batch: Dict[str, torch.Tensor]):
+        return model.prefill(batch["tokens"], patch_embeds=batch.get("patch_embeds"))
+
+    return prefill_step
 
 
 def make_decode_step(model: Model):

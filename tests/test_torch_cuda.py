@@ -854,3 +854,43 @@ def test_smoke_train_step_on_the_card_equals_the_cpu_step():
         assert m_gpu[k] == pytest.approx(m_cpu[k], rel=1e-4, abs=1e-4), k
     for k in p_cpu:
         torch.testing.assert_close(p_gpu[k], p_cpu[k], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-vl-2b", "mixtral-8x22b", "seamless-m4t-large-v2"])
+def test_smoke_families_on_the_card_equal_the_cpu(arch):
+    """The attention families' smoke configs at float32 from the same
+    weights on the card and on the CPU: ``forward`` (vlm with patches
+    and M-RoPE positions, encdec with audio embeddings), ``prefill``
+    (not encdec, whose reference has none) and 16 decode steps (encdec
+    against ``encode`` + ``make_cross_cache``) to 1e-3."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+    from repro_torch.models.frontends import random_frontend_batch
+
+    dev = _card()
+    cfg = smoke_config(arch).replace(dtype="float32", kv_cache_dtype="float32")
+    start = build_model(cfg, device="cpu").init(0).state_dict()
+    toks = torch.randint(0, cfg.vocab_size, (2, 32), generator=torch.Generator().manual_seed(1))
+    stub = random_frontend_batch(cfg, torch.Generator().manual_seed(2), 2, 32)
+    out = {}
+    for d in ("cpu", dev):
+        model = build_model(cfg, device=d)
+        model.load_state_dict(start)
+        kw = {k: v.to(d) for k, v in stub.items() if k != "positions"}
+        got = []
+        with torch.no_grad():
+            got.append(model.forward(toks.to(d), stub.get("positions"), **kw)[0])
+            if cfg.family != "encdec":
+                logits, cache = model.prefill(toks.to(d), patch_embeds=kw.get("patch_embeds"))
+                got += [logits, cache["k"], cache["v"]]
+            cache = model.init_cache(2, 32, enc_len=32)
+            if cfg.family == "encdec":
+                cache["xk"], cache["xv"] = model.make_cross_cache(model.encode(kw["enc_embeds"]))
+            for s in range(16):
+                lg, cache = model.decode_step(cache, toks[:, s].to(d), s)
+                got.append(lg)
+        assert all(g.device.type == torch.device(d).type for g in got)
+        out[str(d)] = [g.cpu() for g in got]
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-3)
