@@ -166,15 +166,22 @@ checkpoint with two resumes.  The ``[families]`` phase
 trains (two steps through ``train()``) qwen2-vl-2b and
 seamless-m4t-large-v2 whole and mixtral-8x22b at full width with its
 depth cut (8 of 56 layers; 1 for the train step), each held to its own
-``forward``, and prints a ``{"families": ...}`` line.
+``forward``, and prints a ``{"families": ...}`` line.  The
+``[recurrent]`` phase (:func:`phase_recurrent`) holds the chunked linear
+attention to its single steps at full head sizes and runs a train step
+past float32's ``exp`` range, serves zamba2-2.7b whole through the serve
+CLI (its startup smoother through the four kernels) and zamba2-2.7b and
+rwkv6-7b whole through ``ServeLoop``, holds decode to ``forward``, and
+trains zamba2-2.7b whole and rwkv6-7b at 16 of 32 layers; it prints a
+``{"recurrent": ...}`` line.
 
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
 ``{"dist": ...}`` line, a ``{"compress": ...}`` line, a ``{"tiered": ...}``
 line, an ``{"obs": ...}`` line, a ``{"smoother": ...}`` line, a
 ``{"serve": ...}`` line, a ``{"train": ...}`` line, a ``{"families": ...}``
-line, one JSON line ``{"kernels": [...]}`` (``launches``: the main
-path's loop plus the program, dist, compress, tiered, obs, smoother,
-serve, train and families phases),
+line, a ``{"recurrent": ...}`` line, one JSON line ``{"kernels": [...]}``
+(``launches``: the main path's loop plus the program, dist, compress,
+tiered, obs, smoother, serve, train, families and recurrent phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -2457,6 +2464,40 @@ def phase_serve(torch, dev, card, measured):
     return smoother_launches
 
 
+def recurrent_flops(cfg, B, S):
+    """The forward operations of a recurrent family's layers, from the
+    code's own shapes: ``(dense, attn, chunk)``.  ``dense`` the bf16
+    projections (Mamba2: ``in_proj`` and ``out_proj``; RWKV6: ``wr``,
+    ``wk``, ``wv``, ``wg``, ``wo``, ``cr``, the decay LoRA, ``ck`` and
+    ``cv``; the hybrid's shared block at each of its ``L / attn_every``
+    applications), ``attn`` the shared block's S x S products, and
+    ``chunk`` the float32 chunk products of the recurrence as the code
+    computes them: per chunk of C, the C x C intra-chunk matrix (Mamba2:
+    one ``q . k`` for all heads, as B/C are shared; RWKV6: one per
+    head), its product with v per head, and the state's dk x dv products
+    (into ``y`` and into the carried state) per token and head."""
+    from repro_torch.models import blocks, linear_attn
+
+    T, D, L = B * S, cfg.d_model, cfg.num_layers
+    attn = 0
+    if cfg.family == "rwkv":
+        H, hd = blocks._rwkv_dims(cfg)
+        C = S // max(S // linear_attn.VEC_CHUNK, 1)
+        dense = 2 * T * L * (6 * D * D + 2 * blocks.RWKV_LORA * D + 2 * D * cfg.d_ff)
+        chunk = 2 * T * L * H * (2 * C * hd + 2 * hd * hd)
+        return dense, attn, chunk
+    d_inner, H, ds, _ = blocks._mamba_dims(cfg)
+    hd = cfg.ssm_head_dim
+    C = S // max(S // linear_attn.SCALAR_CHUNK, 1)
+    dense = 2 * T * L * (D * (2 * d_inner + 2 * ds + H) + d_inner * D)
+    chunk = 2 * T * L * (C * ds + H * C * hd + 2 * H * ds * hd)
+    if cfg.family == "hybrid":
+        G, Ha, KV, ahd = L // cfg.attn_every, cfg.num_heads, cfg.num_kv_heads, cfg.hd
+        dense += 2 * T * G * (D * (Ha + 2 * KV) * ahd + Ha * ahd * D + 3 * D * cfg.d_ff)
+        attn = 2 * B * G * S * S * Ha * ahd
+    return dense, attn, chunk
+
+
 def train_bound(cfg, B, S, nparams=None):
     """The least time one fused train step of ``cfg`` could take on the
     card, from the code's own shapes: the GEMM operations with remat
@@ -2469,11 +2510,14 @@ def train_bound(cfg, B, S, nparams=None):
     MoE experts run over every capacity slot of a group (``E * cap / gs``
     slots a token, as the dispatch computes them); the encoder-decoder
     adds its encoder over ``enc_embeds`` of the batch's length and a
-    cross-attention a layer.  ``nparams`` defaults to the dense family's
-    count.  The head runs as a float32 GEMM (the port upcasts it), which
-    the card does at 67 TFLOP/s outside the tensor cores; the rest at the
-    bf16 dense rate.  Returns the operation counts, the bytes and the
-    bounds in ms."""
+    cross-attention a layer; the recurrent families count
+    :func:`recurrent_flops`, their float32 chunk products (forward,
+    recompute and two backward products each) at the float32 rate.
+    ``nparams`` defaults to the dense family's count (pass the module
+    count for the others).  The head runs as a float32 GEMM (the port
+    upcasts it), which the card does at 67 TFLOP/s outside the tensor
+    cores; the rest at the bf16 dense rate.  Returns the operation
+    counts, the bytes and the bounds in ms."""
     T, D, H, KV, hd, F, V, L = (B * S, cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.hd,
                                 cfg.d_ff, cfg.vocab_size, cfg.num_layers)
     proj = D * (H + 2 * KV) * hd + H * hd * D
@@ -2484,11 +2528,15 @@ def train_bound(cfg, B, S, nparams=None):
         mlp = mlp * cfg.num_experts * cap / gs
     dense = 2 * T * L * (proj + mlp)
     attn = 2 * B * L * S * S * H * hd                    # one S x S product
+    chunk = 0
     if cfg.family == "encdec":
         Le = cfg.encoder_layers
         dense += 2 * T * Le * (proj + mlp) + 2 * T * L * 2 * (D * H * hd + D * KV * hd)
         attn += 2 * B * Le * S * S * H * hd + 2 * B * L * S * S * H * hd
+    if cfg.family in ("ssm", "rwkv", "hybrid"):
+        dense, attn, chunk = recurrent_flops(cfg, B, S)
     layer_flops = 4 * dense + (2 + 2 + 5) * attn         # fwd, recompute, bwd (2x / 5 products)
+    chunk_flops = 4 * chunk                              # fwd, recompute, bwd (2 products each)
     head_flops = 3 * 2 * T * D * V
     if nparams is None:
         nparams = (V * D + D + L * (2 * D + D * (H + 2 * KV) * hd + (H + 2 * KV) * hd
@@ -2498,10 +2546,11 @@ def train_bound(cfg, B, S, nparams=None):
     opt_bytes = nparams * (2 + 2 + (4 if n_micro > 1 else 2) + 4 * mb)
     if n_micro > 1:  # each micro-batch's bf16 gradient written and read, the accumulator r/w
         opt_bytes += nparams * n_micro * (2 + 2 + 4 + 4)
-    ops_ms = (layer_flops + head_flops) / BF16_FLOPS * 1e3
-    ops_f32_head_ms = (layer_flops / BF16_FLOPS + head_flops / F32_FLOPS) * 1e3
+    ops_ms = ((layer_flops + head_flops) / BF16_FLOPS + chunk_flops / F32_FLOPS) * 1e3
+    ops_f32_head_ms = (layer_flops / BF16_FLOPS + (head_flops + chunk_flops) / F32_FLOPS) * 1e3
     bytes_ms = opt_bytes / HBM_BYTES_PER_S * 1e3
     return {"layer_gemm_tflop": layer_flops / 1e12, "head_tflop": head_flops / 1e12,
+            "chunk_f32_tflop": chunk_flops / 1e12,
             "params": nparams, "adamw_bytes": opt_bytes, "ops_bf16_ms": ops_ms,
             "ops_with_f32_head_ms": ops_f32_head_ms, "adamw_bytes_ms": bytes_ms,
             "bound_ms": max(ops_ms, bytes_ms), "bound_by": "operations" if ops_ms >= bytes_ms
@@ -3303,6 +3352,463 @@ def phase_families(torch, dev, card):
     return launches
 
 
+RECURRENT_ARCHS = ("zamba2-2.7b", "rwkv6-7b")  # [recurrent]: whole for serving
+RECURRENT_TRAIN_LAYERS = {"rwkv6-7b": 16}      # train depth (of 32): its parameters,
+#                              gradients and two float32 moments whole need about 90 GB
+RECURRENT_TRAIN = {"steps": 2, "seq_len": 256, "global_batch": 8}
+RECURRENT_CHECK = {"batch": 2, "seq": 128}      # chunk vs step checks: 2 Mamba2 chunks of 64,
+#                              4 RWKV6 chunks of 32
+RECURRENT_TOL = 1e-4           # float32: chunked vs single steps, and teacher-forced decode vs
+#                              forward, of the largest value
+BF16_DECODE_FACTOR = 1.5       # bf16 decode's distance from the float32 logits, at most this
+#                              times bf16 forward's: at random weights these deep stacks amplify
+#                              a rounding of their input 13-29x (measured on an H100 by
+#                              scripts/recurrent_bf16_sensitivity.py), so bf16 forward is
+#                              7-13% of max |logit| from float32 and SERVE_REL cannot hold
+#                              between the two bf16 paths
+RECURRENT_DT_BIAS = 3.0        # dt_bias for the large-decay step: softplus(3 + dt) ~ 3 a token
+OVERFLOW_LOG = 88.72           # ln(float32 max): exp overflows past it
+
+
+def _no_tf32(torch):
+    """Turn TF32 off for cuBLAS and cuDNN; returns a function restoring
+    the previous settings."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def restore():
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+    return restore
+
+
+def recurrent_numerics(torch, dev):
+    """On the card, float32 with TF32 off, at the full head sizes
+    (Mamba2: H = 80, dk = dv = 64, B/C shared across heads; RWKV6: H =
+    64, dk = dv = 64): each chunked form's ``y`` and final state, from a
+    carried ``state0``, against ``RECURRENT_CHECK["seq"]`` single steps
+    within ``RECURRENT_TOL`` of the largest value.  Then one train step
+    (``make_train_step``, AdamW) of a one-layer ``ssm`` model at
+    zamba2-2.7b's width in float32 with every ``dt_bias`` at
+    ``RECURRENT_DT_BIAS``, so a chunk's cumulative log decay passes
+    ``OVERFLOW_LOG`` (the reference's gradient is NaN there): the loss,
+    the gradient norm and every updated parameter must be finite."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import blocks, build_model, linear_attn as la
+    from repro_torch.models.layers import rms_norm
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    restore = _no_tf32(torch)
+    out = {"tf32": False}
+    try:
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        Bc, S = RECURRENT_CHECK["batch"], RECURRENT_CHECK["seq"]
+        rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)  # noqa: E731
+        un = lambda *shape: torch.rand(shape, generator=gen, device=dev)   # noqa: E731
+
+        def compare(name, chunked, steps):
+            worst = 0.0
+            for a, b in zip(chunked, steps):
+                worst = max(worst, float((a - b).abs().max()) / float(b.abs().max()))
+            out[name] = {"max_rel_err": worst, "tolerance_rel": RECURRENT_TOL}
+            if not worst <= RECURRENT_TOL:
+                fail(f"recurrent: {name}: chunked vs single steps {worst:.3e} > {RECURRENT_TOL}")
+
+        H, dk = 80, 64                      # Mamba2 at zamba2-2.7b: d_inner 5120 / 64
+        q, k = rn(Bc, S, dk), rn(Bc, S, dk) * 0.125
+        v, ld = rn(Bc, S, H, dk), -un(Bc, S, H)
+        s0 = rn(Bc, H, dk, dk)
+        y, st = la.chunked_scalar_decay(q, k, v, ld, s0)
+        ys, state = [], s0
+        for s in range(S):
+            yy, state = la.step_scalar_decay(q[:, s, None].expand(Bc, H, dk),
+                                             k[:, s, None].expand(Bc, H, dk), v[:, s],
+                                             ld[:, s], state)
+            ys.append(yy)
+        compare("mamba2_chunk_vs_steps", (y, st), (torch.stack(ys, 1), state))
+        H = 64                              # RWKV6 at rwkv6-7b: 4096 / 64
+        q, k, v = rn(Bc, S, H, dk), rn(Bc, S, H, dk) * 0.125, rn(Bc, S, H, dk)
+        ld, u, s0 = -un(Bc, S, H, dk) * 1.5, rn(H, dk) * 0.1, rn(Bc, H, dk, dk)
+        y, st = la.chunked_vector_decay(q, k, v, ld, u, s0)
+        ys, state = [], s0
+        for s in range(S):
+            yy, state = la.step_vector_decay(q[:, s], k[:, s], v[:, s], ld[:, s], u, state)
+            ys.append(yy)
+        compare("rwkv6_chunk_vs_steps", (y, st), (torch.stack(ys, 1), state))
+        del q, k, v, ld, u, s0, y, st, ys, state
+
+        # the large-decay train step
+        cfg = get_config("zamba2-2.7b").replace(family="ssm", num_layers=1, dtype="float32")
+        model = build_model(cfg, device=dev).init(SEED)
+        with torch.no_grad():
+            for layer in model.layers:
+                layer.ssm.dt_bias.fill_(RECURRENT_DT_BIAS)
+        Sb = 2 * la.SCALAR_CHUNK
+        batch = synthetic_batch(cfg, ShapeConfig("train", Sb, 2, "train"), 0, device=dev)
+        with torch.no_grad():           # the decay the step's chunks see, by the block's ops
+            ps = model.layers[0].ssm
+            h = rms_norm(model._embed(batch["tokens"]), ps.norm, cfg.norm_eps)
+            _, _, dt = blocks._mamba_inner(ps, h, cfg)
+            ldk = torch.exp(ps.A_log) * torch.nn.functional.softplus(dt.float() + ps.dt_bias)
+            cum = ldk.reshape(2, Sb // la.SCALAR_CHUNK, la.SCALAR_CHUNK, -1).sum(2).max()
+        params = model.trainable()
+        opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype, total_steps=10)
+        params, _, metrics = make_train_step(model, opt_cfg)(
+            params, init_opt_state(params, opt_cfg), batch)
+        finite = all(bool(torch.isfinite(p).all()) for p in params.values())
+        out["large_decay_step"] = {
+            "dt_bias": RECURRENT_DT_BIAS, "max_chunk_cumulative_log_decay": float(cum),
+            "overflow_at": OVERFLOW_LOG, "loss": float(metrics["loss"]),
+            "grad_norm": float(metrics["grad_norm"]), "params_finite": finite}
+        if not float(cum) > OVERFLOW_LOG:
+            fail(f"recurrent: the large-decay step's chunks reach {float(cum):.1f}, not past "
+                 f"{OVERFLOW_LOG}: it does not test the overflow")
+        if not (math.isfinite(float(metrics["loss"])) and math.isfinite(float(metrics["grad_norm"]))
+                and finite):
+            fail(f"recurrent: the large-decay train step is not finite: {out['large_decay_step']}")
+        del model, params, batch, metrics
+    finally:
+        restore()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def recurrent_decode_bound(cfg, model, cache):
+    """Bytes a decode step must move at least: every weight read once
+    (the hybrid's shared block once at each of its ``L / attn_every``
+    applications), the recurrent state read and written (``ssm``/``wkv``
+    float32, ``conv``/``shift_*`` in the model's dtype), the shared
+    block's K/V read.  Returns the bytes by part and the bound in ms."""
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    weights = nbytes(model.parameters())
+    shared = 0
+    if cfg.family == "hybrid":
+        shared = nbytes(model.shared.parameters()) * (cfg.num_layers // cfg.attn_every - 1)
+    state = nbytes(v for k, v in cache.items() if k not in ("shared_k", "shared_v", "kpos"))
+    kv = nbytes(v for k, v in cache.items() if k in ("shared_k", "shared_v"))
+    total = weights + shared + 2 * state + kv
+    return {"weight_bytes": weights, "shared_reuse_bytes": shared, "state_bytes": state,
+            "kv_bytes": kv, "bytes": total, "bound_ms": total / HBM_BYTES_PER_S * 1e3,
+            "weight_bound_ms": weights / HBM_BYTES_PER_S * 1e3}
+
+
+def train_state_bytes(torch, cfg):
+    """``(parameters, bytes)`` a train step of ``cfg`` holds at least
+    (the reason a depth is cut):
+    each parameter (model dtype), its gradient, the float32 accumulator
+    under micro-batches and the two moments; the parameters counted from
+    ``meta`` builds of one layer (and the hybrid's shared block)."""
+    from repro_torch.models import blocks, model as model_mod
+
+    count = lambda cls: sum(p.numel() for p in cls(cfg, torch.bfloat16,  # noqa: E731
+                                                   torch.device("meta")).parameters())
+    embed = cfg.vocab_size * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    n = cfg.num_layers * count(model_mod._BLOCKS[cfg.family][0]) + embed + cfg.d_model
+    if cfg.family == "hybrid":
+        n += count(blocks.DenseBlock)
+    mb = 4 if cfg.opt_moment_dtype == "float32" else 2
+    return n, n * (2 + 2 + (4 if cfg.microbatches > 1 else 0) + 2 * mb)
+
+
+def recurrent_run(torch, dev, card, arch, store):
+    """One model of the ``[recurrent]`` phase: for the hybrid the serve
+    CLI first (``launch.serve.main`` at full scale over ``store``: the
+    startup smoother and the loop); then a direct ``ServeLoop`` twice,
+    the teacher-forced checks, ``prefill`` raising, the decode timings,
+    and two train steps through ``train()``.  Returns the run's record
+    and the serve CLI's kernel launches."""
+    import contextlib
+    import gc
+    import io
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import launch_counts
+    from repro_torch.launch import serve as launch_serve
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.serve import ServeLoop, make_requests
+    from repro_torch.models import build_model
+
+    sync = torch.cuda.synchronize
+
+    def free():
+        gc.collect()
+        sync()
+        torch.cuda.empty_cache()
+
+    cfg = get_config(arch)
+    B, nreq, max_new, max_len = (SERVE_DEFAULTS[k] for k in ("batch", "requests", "max_new",
+                                                            "max_len"))
+    out = {"card": card, "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "d_ff": cfg.d_ff, "vocab": cfg.vocab_size,
+           "ssm_state": cfg.ssm_state, "ssm_head_dim": cfg.ssm_head_dim,
+           "attn_every": cfg.attn_every, "heads": cfg.num_heads, "dtype": cfg.dtype,
+           "batch": B, "requests": nreq, "max_new": max_new, "max_len": max_len,
+           "reduced": [], "config_param_count": cfg.param_count()}
+    t_model = time.perf_counter()
+    cli = {}
+    free()
+    if cfg.family == "hybrid":  # 1. the serve CLI at full scale, the startup smoother first
+        before = dict(launch_counts())
+        t0 = time.perf_counter()
+        text = io.StringIO()
+        with contextlib.redirect_stdout(text):
+            rc = launch_serve.main(["--arch", arch, "--scale", "full", "--comm-cache", store])
+        sync()
+        cli = {k: v - before.get(k, 0) for k, v in launch_counts().items()}
+        print(text.getvalue(), end="")
+        served = [ln for ln in text.getvalue().splitlines() if ln.startswith("served ")]
+        out["serve_cli"] = {"rc": rc, "s": time.perf_counter() - t0, "launches": cli,
+                            "served_line": served[0] if served else None}
+        if rc != 0 or not served or not served[0].startswith(f"served {nreq}/{nreq} requests"):
+            fail(f"recurrent: {arch}: the serve CLI: rc {rc}, {served}")
+        if not any(cli.values()):
+            fail(f"recurrent: {arch}: the serve CLI's startup smoother launched no kernel")
+        free()
+
+    # 2. a direct ServeLoop; its model carries the checks and the timings
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loop = ServeLoop(cfg, B, max_len, device=dev, seed=SEED)
+    sync()
+    out["init_s"] = time.perf_counter() - t0
+    model = loop.model
+    out["params"] = sum(p.numel() for p in model.parameters())
+    bound = recurrent_decode_bound(cfg, model, loop.cache)
+    steps = [0]
+    decode = loop._decode
+
+    def counting(*a):
+        steps[0] += 1
+        return decode(*a)
+
+    loop._decode = counting
+    t0 = time.perf_counter()
+    done = loop.run(make_requests(cfg, nreq, max_new))
+    sync()
+    run_s = time.perf_counter() - t0
+    out["max_memory_allocated_serve"] = torch.cuda.max_memory_allocated()
+    tokens = sum(len(v) for v in done.values())
+    if len(done) != nreq or any(len(v) != max_new for v in done.values()):
+        fail(f"recurrent: {arch}: {len(done)}/{nreq} requests served, lengths "
+             f"{sorted(len(v) for v in done.values())}")
+
+    # 3. teacher-forced: decode over FAMILY_TF_TOKENS drawn tokens against
+    #    forward, in bf16 and in a float32 copy of the same weights
+    S = FAMILY_TF_TOKENS
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen, device=dev)
+
+    def teacher_forced(m):
+        fwd, _ = m.forward(toks)
+        cache = m.init_cache(B, max_len)
+        dec = []
+        for t in range(S):
+            lg, cache = m.decode_step(cache, toks[:, t], t)
+            dec.append(lg)
+        dec = torch.stack(dec, 1)
+        if not (torch.isfinite(fwd).all() and torch.isfinite(dec).all()):
+            fail(f"recurrent: {arch}: non-finite logits in the teacher-forced pass")
+        return fwd, dec
+
+    with torch.inference_mode():
+        fwd, dec = teacher_forced(model)
+        m32 = build_model(cfg.replace(dtype="float32", kv_cache_dtype="float32"), device=dev)
+        m32.load_state_dict(model.state_dict())  # each bf16 value copied exactly to float32
+        fwd32, dec32 = teacher_forced(m32)
+        del m32
+        scale = float(fwd32.abs().max())
+        rel = lambda a, b: float((a - b).abs().max()) / scale  # noqa: E731
+        f32_rel, bf16_rel = rel(dec32, fwd32), rel(dec, fwd)
+        fwd_err, dec_err = rel(fwd, fwd32), rel(dec, dec32)
+        if f32_rel > RECURRENT_TOL:
+            fail(f"recurrent: {arch}: float32 decode differs from forward by {f32_rel:.3e} of "
+                 f"max |logit|, > {RECURRENT_TOL}")
+        if dec_err > BF16_DECODE_FACTOR * fwd_err:
+            fail(f"recurrent: {arch}: bf16 decode is {dec_err:.4f} of max |logit| from float32, "
+                 f"> {BF16_DECODE_FACTOR} x bf16 forward's {fwd_err:.4f}")
+        out.update(f32_decode_vs_forward_rel=f32_rel, decode_vs_forward_rel=bf16_rel,
+                   bf16_forward_vs_f32_rel=fwd_err, bf16_decode_vs_f32_rel=dec_err,
+                   forward_max_abs_logit=scale, tolerance_f32_rel=RECURRENT_TOL,
+                   bf16_decode_factor=BF16_DECODE_FACTOR,
+                   decode_vs_forward_argmax_agree=float((dec.argmax(-1) == fwd.argmax(-1))
+                                                        .float().mean()),
+                   bf16_forward_vs_f32_argmax_agree=float(
+                       (fwd.argmax(-1) == fwd32.argmax(-1)).float().mean()))
+        try:
+            model.prefill(toks)
+        except NotImplementedError:
+            out["prefill"] = "raises NotImplementedError, as the reference's"
+        else:
+            fail(f"recurrent: {arch}: prefill did not raise as the reference's")
+        del fwd, dec, fwd32, dec32
+
+        # 4. ms per decode step, synchronized each; one profiled window
+        cache = model.init_cache(B, max_len)
+        times = []
+        for t in range(SERVE_TIMED_STEPS):
+            sync()
+            t0 = time.perf_counter()
+            model.decode_step(cache, toks[:, t % S], t)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        profile = device_busy(torch, lambda: model.decode_step(cache, toks[:, 0],
+                                                               SERVE_TIMED_STEPS), iters=3)
+        del cache
+    out.update(served=len(done), tokens=tokens, decode_steps=steps[0], run_s=run_s,
+               tokens_per_s=tokens / run_s, ms_per_decode_step=statistics.median(times),
+               ms_per_decode_step_all=times, decode_bound=bound, decode_profile=profile,
+               max_memory_allocated_with_f32_copy=torch.cuda.max_memory_allocated(),
+               first_tokens={rid: done[rid][:8] for rid in sorted(done)[:3]})
+    del loop, model, decode, counting
+    free()
+
+    # the same tokens from a second loop, every logit finite
+    loop2 = ServeLoop(cfg, B, max_len, device=dev, seed=SEED)
+    finite = torch.ones((), dtype=torch.bool, device=dev)
+    decode2 = loop2.model.decode_step
+
+    def checked(*a):
+        nonlocal finite
+        logits, c = decode2(*a)
+        finite = finite & torch.isfinite(logits).all()
+        return logits, c
+
+    loop2._decode = checked
+    if loop2.run(make_requests(cfg, nreq, max_new)) != done:
+        fail(f"recurrent: {arch}: a second loop from the same seed gave other tokens")
+    if not bool(finite):
+        fail(f"recurrent: {arch}: a decode step returned a non-finite logit")
+    del loop2, decode2, checked
+    free()
+
+    # 5. two train steps through train(), remat on, float32 moments
+    St, Bt = RECURRENT_TRAIN["seq_len"], RECURRENT_TRAIN["global_batch"]
+    depth = RECURRENT_TRAIN_LAYERS.get(arch, cfg.num_layers)
+    tcfg = cfg.replace(num_layers=depth)
+    direct, label_free, excess = step0_logits(torch, dev, tcfg, St, Bt)
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recurrent_") as ckdir:
+        run = launch_train.train(tcfg, RECURRENT_TRAIN["steps"], St, Bt, ckdir, device=dev)
+    if depth < cfg.num_layers:
+        out["reduced"].append(
+            f"train step at {depth} of {cfg.num_layers} layers (full width): whole, the "
+            f"parameters, gradients, accumulator and float32 moments need "
+            f"{train_state_bytes(torch, cfg)[1] / 1e9:.1f} GB")
+    sync()
+    losses, step_ms = run["losses"], [x * 1e3 for x in run["step_s"]]
+    nparams = sum(p.numel() for p in run["params"].values())
+    peak_train = torch.cuda.max_memory_allocated()
+    del run
+    free()
+    expect = init_loss(tcfg)
+    if len(losses) != RECURRENT_TRAIN["steps"] or not all(math.isfinite(x) for x in losses):
+        fail(f"recurrent: {arch}: train losses {losses}")
+    if abs(losses[0] - direct) > STEP0_DIRECT_REL * abs(direct):
+        fail(f"recurrent: {arch}: train()'s step-0 loss {losses[0]:.6f} is not its forward's "
+             f"{direct:.6f}")
+    if abs(label_free - expect) > STEP0_LOSS_TOL:
+        fail(f"recurrent: {arch}: the step-0 logits' label-free loss {label_free:.4f} is not "
+             f"within {STEP0_LOSS_TOL} of {expect:.4f} (ln V + s2 / 2)")
+    out.update(train_layers=depth, train_params=nparams,
+               train_config_param_count=tcfg.param_count(), train_seq=St, train_batch=Bt,
+               microbatches=tcfg.microbatches, remat=tcfg.remat,
+               moment_dtype=tcfg.opt_moment_dtype, losses=losses, step0_expected=expect,
+               step0_direct=direct, step0_label_free=label_free,
+               step0_label_excess_logit=excess, ln_vocab=math.log(tcfg.vocab_size),
+               step_ms_all=step_ms, ms_per_train_step=step_ms[-1],
+               train_tokens_per_s=Bt * St / step_ms[-1] * 1e3,
+               train_bound=train_bound(tcfg, Bt, St, nparams),
+               max_memory_allocated_train=peak_train, phase_s=time.perf_counter() - t_model)
+    return out, cli
+
+
+def phase_recurrent(torch, dev, card, measured):
+    """The recurrent families at full width (weights drawn on the card
+    from seed 0), after the earlier phases' models are freed.
+
+    * :func:`recurrent_numerics`: the chunked forms against single steps
+      at the full head sizes, and a large-decay train step, float32 with
+      TF32 off.
+    * zamba2-2.7b (``hybrid``: 54 Mamba2 layers, d_inner 5120, 80 SSM
+      heads of 64, state 64; the shared attention block after every 6)
+      whole: the serve CLI (``launch.serve.main``, the startup smoother
+      through the four kernels over a temporary store seeded with the
+      ``[measure]`` tables), then :func:`recurrent_run`.
+    * rwkv6-7b (``rwkv``: 32 layers, D = 4096, 64 heads of 64, vocab
+      65,536) whole for serving; its train step at
+      ``RECURRENT_TRAIN_LAYERS`` layers (in ``reduced``).
+
+    Each model: ``ServeLoop`` at the serve defaults (batch 4, 8 requests
+    of 16 new tokens, max_len 128), all served, a second loop from the
+    same seed giving the same tokens with every logit finite;
+    ``FAMILY_TF_TOKENS`` teacher-forced tokens, decode against
+    ``forward`` in a float32 copy of the weights within ``RECURRENT_TOL``
+    of the largest logit, and in bf16 the decode no further from the
+    float32 logits than ``BF16_DECODE_FACTOR`` times the forward is;
+    ``prefill`` raising, as the reference's; ms per decode step (median of
+    ``SERVE_TIMED_STEPS``, synchronized) against
+    :func:`recurrent_decode_bound`, the device's idle share, tokens/s,
+    peak memory; ``train()`` for ``RECURRENT_TRAIN["steps"]`` steps
+    (remat, float32 moments) with the step-0 check of ``[families]`` and
+    ms per step against :func:`train_bound`.  Launch counts are zeroed
+    before the phase and read after; only the serve CLI's smoother
+    launches kernels.  Prints a ``{"recurrent": ...}`` line and returns
+    the launches."""
+    import tempfile
+
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.measure import ParamsStore
+
+    t_phase = time.perf_counter()
+    reset_launch_counts()
+    numerics = recurrent_numerics(torch, dev)
+    big = numerics["large_decay_step"]
+    print(f"[recurrent] float32 at full head sizes: Mamba2 chunk vs steps "
+          f"{numerics['mamba2_chunk_vs_steps']['max_rel_err']:.2e}, RWKV6 "
+          f"{numerics['rwkv6_chunk_vs_steps']['max_rel_err']:.2e} of the largest value (bound "
+          f"{RECURRENT_TOL}); large-decay step (chunk cumulative "
+          f"{big['max_chunk_cumulative_log_decay']:.1f} > {OVERFLOW_LOG}): loss "
+          f"{big['loss']:.4f}, grad norm {big['grad_norm']:.4f}, finite; {card}")
+    runs, cli = [], {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_recurrent_store_") as store:
+        ParamsStore(store, device=dev).save(measured)
+        for arch in RECURRENT_ARCHS:
+            r, launched = recurrent_run(torch, dev, card, arch, store)
+            runs.append(r)
+            for k, v in launched.items():
+                cli[k] = cli.get(k, 0) + v
+            b = r["decode_bound"]
+            print(f"[recurrent] {arch} ({r['params']:,} parameters in the modules, "
+                  f"param_count {r['config_param_count']:,}; {r['layers']} layers; reduced: "
+                  f"{r['reduced'] or 'none'}): {r['served']}/{r['requests']} served, "
+                  f"deterministic; decode vs forward {r['f32_decode_vs_forward_rel']:.2e} of max "
+                  f"|logit| in float32, {r['decode_vs_forward_rel']:.4f} in bf16 (bf16 forward "
+                  f"{r['bf16_forward_vs_f32_rel']:.4f}, decode {r['bf16_decode_vs_f32_rel']:.4f} "
+                  f"from float32); {r['ms_per_decode_step']:.2f} ms/decode step (bound "
+                  f"{b['bound_ms']:.3f}, weights alone {b['weight_bound_ms']:.3f}), device idle "
+                  f"{r['decode_profile']['idle_share']:.3f} ({r['decode_profile']['activities']} "
+                  f"activities in 3 steps), {r['tokens_per_s']:.1f} tok/s, peak "
+                  f"{r['max_memory_allocated_serve'] / 2**30:.2f} GiB; train "
+                  f"{r['train_layers']} layers seq {r['train_seq']} x {r['train_batch']}: losses "
+                  f"{['%.4f' % x for x in r['losses']]} (label-free {r['step0_label_free']:.4f} "
+                  f"against {r['step0_expected']:.4f}), {r['ms_per_train_step']:.1f} ms/step "
+                  f"(bound {r['train_bound']['bound_ms']:.2f} by "
+                  f"{r['train_bound']['bound_by']}), peak "
+                  f"{r['max_memory_allocated_train'] / 2**30:.2f} GiB; {r['phase_s']:.1f} s; "
+                  f"{card}")
+    launches = dict(launch_counts())
+    if launches != cli:
+        fail(f"recurrent: kernels launched outside the serve CLI's smoother: {launches} "
+             f"against {cli}")
+    out = {"card": card, "numerics": numerics, "models": runs, "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"recurrent": out}))
+    return launches
 
 
 def plan_launches(plan, comm):
@@ -3559,6 +4065,7 @@ def main() -> int:
     serve = phase_serve(torch, dev, card, measured)
     train = phase_train(torch, dev, card, measured)
     families = phase_families(torch, dev, card)
+    recurrent = phase_recurrent(torch, dev, card, measured)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -3568,13 +4075,14 @@ def main() -> int:
             "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
             "launches": (counts[kernel] + program[kernel] + dist[kernel] + compress[kernel]
                          + tiered[kernel] + obs[kernel] + smoother[kernel] + serve[kernel]
-                         + train[kernel] + families[kernel]),
+                         + train[kernel] + families[kernel] + recurrent[kernel]),
             "max_abs_err": check.err[kernel],
             "launches_main_loop": counts[kernel], "launches_program": program[kernel],
             "launches_dist": dist[kernel], "launches_compress": compress[kernel],
             "launches_tiered": tiered[kernel], "launches_obs": obs[kernel],
             "launches_smoother": smoother[kernel], "launches_serve": serve[kernel],
             "launches_train": train[kernel], "launches_families": families[kernel],
+            "launches_recurrent": recurrent[kernel],
             "launches_calibration": measure["calibration_launches"][kernel],
             "launches_measured_exchanges": measure["exchange_launches"][kernel],
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),

@@ -1,6 +1,6 @@
-"""Batched serving driver for the attention families (dense, vlm, moe,
-encdec): a decode loop over a request queue with slot-based continuous
-batching and greedy sampling.
+"""Batched serving driver for every family (dense, vlm, moe, encdec,
+ssm, rwkv, hybrid): a decode loop over a request queue with slot-based
+continuous batching and greedy sampling.
 
 The port of the reference's ``repro.launch.serve``::
 
@@ -11,7 +11,8 @@ Slots are refilled from the queue as sequences finish; every slot is fed
 its next prompt token (prefill by decode) or its last generated token,
 all at the loop's one global position ``t``, as in the reference (a
 request admitted into a freed slot therefore also sees the K/V rows its
-predecessor left in the slot's cache).  The loop is family-agnostic,
+predecessor left in the slot's cache, and continues from its recurrent
+state: ``conv``/``ssm``, ``wkv``, ``shift_*``).  The loop is family-agnostic,
 as the reference's: a vlm serves text without patches, and an
 encoder-decoder serves against the zero cross-attention K/V of its fresh
 cache, since the reference's loop never calls ``encode``.  The decode

@@ -1,13 +1,13 @@
-"""Per-layer blocks of the attention families: GQA attention (bias,
-qk-norm, sliding window, RoPE or M-RoPE), the gated-MLP residual, the
-top-k mixture of experts with GShard's grouped capacity dispatch, and
-the encoder-decoder cross-attention, full-sequence and single-token
-decode.
+"""Per-layer blocks: GQA attention (bias, qk-norm, sliding window, RoPE
+or M-RoPE), the gated-MLP residual, the top-k mixture of experts with
+GShard's grouped capacity dispatch, the encoder-decoder cross-attention,
+and the recurrent blocks, Mamba2 (SSD, a scalar decay per head) and
+RWKV6 (a data-dependent decay per channel), full-sequence and
+single-token decode.
 
-The port of the attention part of the reference's ``repro.models.blocks``
-(the Mamba2 and RWKV6 blocks are not ported yet: ROADMAP Queue 1).
-Parameters live in :class:`torch.nn.Module` s whose attribute names are
-the reference's dict keys (``attn.wq``, ``mlp.w_gate``, ...); the blocks
+The port of the reference's ``repro.models.blocks``.  Parameters live
+in :class:`torch.nn.Module` s whose attribute names are the reference's
+dict keys (``attn.wq``, ``mlp.w_gate``, ...); the blocks
 themselves are plain functions ``block(p, x, ...)`` over those modules,
 as the reference's are over dicts.
 """
@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import linear_attn as la
 from repro_torch.models.layers import (
     _ACTIVATIONS,
     decode_attention,
@@ -44,6 +45,10 @@ __all__ = [
     "MLP",
     "MoE",
     "MoEBlock",
+    "Mamba2",
+    "Mamba2Block",
+    "RWKV6",
+    "RWKV6Block",
     "attention",
     "attention_decode",
     "cross_attention",
@@ -52,12 +57,18 @@ __all__ = [
     "encode_kv",
     "init_cross_attention",
     "init_dense_block",
+    "init_mamba2_block",
     "init_moe_block",
+    "init_rwkv6_block",
+    "mamba2_block",
+    "mamba2_block_decode",
     "moe_block",
     "moe_block_decode",
     "moe_ffn",
     "moe_route",
     "recording_routes",
+    "rwkv6_block",
+    "rwkv6_block_decode",
 ]
 
 #: the decode KV-cache write modes (``ModelConfig.cache_update``)
@@ -463,3 +474,313 @@ def moe_block_decode(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig, k_cache, v_
     h = rms_norm(x, p.moe.norm, cfg.norm_eps)
     y, _ = moe_ffn(p.moe, h, cfg)
     return x + y, (k_cache, v_cache)
+
+
+# ===========================================================================
+# Mamba2 block (SSD with a scalar decay per head)
+# ===========================================================================
+
+def _mamba_dims(cfg: ModelConfig):
+    d_inner = 2 * cfg.d_model
+    H = d_inner // cfg.ssm_head_dim
+    ds = cfg.ssm_state
+    conv_ch = d_inner + 2 * ds
+    return d_inner, H, ds, conv_ch
+
+
+class Mamba2(nn.Module):
+    """The Mamba2 sub-block's parameters: ``norm``, ``in_proj`` (D, 2
+    d_inner + 2 ssm_state + H: z, xBC, dt), the depthwise causal conv's
+    ``conv_w`` (width, conv_ch) and ``conv_bias``, ``A_log``, ``dt_bias``
+    and ``skip_D`` (H; float32 in every model dtype, as the reference's),
+    ``out_norm`` (d_inner) and ``out_proj`` (d_inner, D)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d_inner, H, ds, conv_ch = _mamba_dims(cfg)
+        D = cfg.d_model
+        e = lambda *shape, dt=dtype: _param(torch.empty(shape, dtype=dt, device=device))  # noqa: E731
+        self.norm = e(D)
+        self.in_proj = e(D, 2 * d_inner + 2 * ds + H)
+        self.conv_w = e(cfg.ssm_conv_width, conv_ch)
+        self.conv_bias = e(conv_ch)
+        self.A_log = e(H, dt=torch.float32)
+        self.dt_bias = e(H, dt=torch.float32)
+        self.skip_D = e(H, dt=torch.float32)
+        self.out_norm = e(d_inner)
+        self.out_proj = e(d_inner, D)
+
+    @torch.no_grad()
+    def reset(self, gen: torch.Generator, cfg: ModelConfig) -> None:
+        """The reference's distributions, drawn in the order in_proj,
+        conv_w, out_proj: unit norms, ``conv_w`` a float32 normal times
+        0.2, a zero ``conv_bias``, ``A_log = 0`` (A = -1), ``dt_bias = 0``,
+        ``skip_D = 1``."""
+        d_inner, H, ds, conv_ch = _mamba_dims(cfg)
+        D = cfg.d_model
+        dt, dev = self.in_proj.dtype, self.in_proj.device
+        self.norm.copy_(init_norm(D, dt, dev))
+        self.in_proj.copy_(init_dense(gen, D, 2 * d_inner + 2 * ds + H, dt, dev))
+        conv = torch.randn((cfg.ssm_conv_width, conv_ch), generator=gen, dtype=torch.float32,
+                           device=dev)
+        self.conv_w.copy_((conv * 0.2).to(dt))
+        self.conv_bias.zero_()
+        self.A_log.zero_()
+        self.dt_bias.zero_()
+        self.skip_D.fill_(1)
+        self.out_norm.copy_(init_norm(d_inner, dt, dev))
+        self.out_proj.copy_(init_dense(gen, d_inner, D, dt, dev))
+
+
+class Mamba2Block(nn.Module):
+    """One Mamba2 layer: ``ssm``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.ssm = Mamba2(cfg, dtype, device)
+
+    def reset(self, gen: torch.Generator, cfg: ModelConfig) -> None:
+        self.ssm.reset(gen, cfg)
+
+
+def init_mamba2_block(gen: torch.Generator, cfg: ModelConfig, dtype, device=None) -> Mamba2Block:
+    blk = Mamba2Block(cfg, dtype, device if device is not None else gen.device)
+    blk.reset(gen, cfg)
+    return blk
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv1d.  x: (B, S, C); w: (width, C); b: (C,).
+    ``width`` shifted multiply-adds in float32, rounded to ``x``'s dtype
+    once, then the bias added in it (the reference's conv in ``x``'s
+    dtype, then ``+ b``)."""
+    width = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x.float(), (0, 0, width - 1, 0))          # width - 1 zeros before
+    wf = w.float()
+    out = xp[:, :S] * wf[0]
+    for j in range(1, width):
+        out = out + xp[:, j:j + S] * wf[j]
+    return out.to(x.dtype) + b.to(x.dtype)
+
+
+def _mamba_inner(p: Mamba2, h: torch.Tensor, cfg: ModelConfig):
+    """The input projection split into ``(z, xBC, dt)``.  h: (B, S, D)."""
+    d_inner, H, ds, conv_ch = _mamba_dims(cfg)
+    proj = h @ p.in_proj
+    return torch.split(proj, [d_inner, conv_ch, H], dim=-1)
+
+
+def mamba2_block(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig, positions=None):
+    """Returns ``(x, (aux, None))``: aux is the reference's float32 zero."""
+    ps = p.ssm
+    d_inner, H, ds, conv_ch = _mamba_dims(cfg)
+    B, S, D = x.shape
+    h = rms_norm(x, ps.norm, cfg.norm_eps)
+    z, xBC, dt = _mamba_inner(ps, h, cfg)
+    xBC = F.silu(_causal_conv(xBC, ps.conv_w, ps.conv_bias))
+    xc, B_, C_ = torch.split(xBC, [d_inner, ds, ds], dim=-1)
+    v = xc.reshape(B, S, H, cfg.ssm_head_dim)
+    dtp = F.softplus(dt.float() + ps.dt_bias)                            # (B, S, H)
+    log_decay = -torch.exp(ps.A_log) * dtp
+    # B_/C_ are shared across heads (ngroups = 1): passed 3-D
+    y, _ = la.chunked_scalar_decay(C_, B_, v * dtp[..., None].to(v.dtype), log_decay)
+    y = y + ps.skip_D.to(v.dtype)[None, None, :, None] * v
+    y = y.reshape(B, S, d_inner)
+    y = rms_norm(y * F.silu(z), ps.out_norm, cfg.norm_eps)
+    return x + y @ ps.out_proj, (torch.zeros((), dtype=torch.float32, device=x.device), None)
+
+
+def mamba2_block_decode(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig, conv_state,
+                        ssm_state):
+    """x: (B, 1, D); conv_state: (B, width - 1, conv_ch) in the model's
+    dtype; ssm_state: (B, H, ssm_state, head_dim) float32.  The conv runs
+    in float32 and is cast back after ``silu``, as the reference's.
+    Returns ``(x, (conv_state, ssm_state))``, both new tensors."""
+    ps = p.ssm
+    d_inner, H, ds, conv_ch = _mamba_dims(cfg)
+    B = x.shape[0]
+    h = rms_norm(x, ps.norm, cfg.norm_eps)
+    z, xBC, dt = _mamba_inner(ps, h, cfg)
+    window = torch.cat([conv_state, xBC], dim=1)                        # (B, width, ch)
+    conv = torch.einsum("bwc,wc->bc", window.float(), ps.conv_w.float()) + ps.conv_bias.float()
+    xBC1 = F.silu(conv).to(x.dtype)
+    xc, B_, C_ = torch.split(xBC1, [d_inner, ds, ds], dim=-1)
+    v = xc.reshape(B, H, cfg.ssm_head_dim)
+    dtp = F.softplus(dt[:, 0].float() + ps.dt_bias)                      # (B, H)
+    log_decay = -torch.exp(ps.A_log) * dtp
+    k = B_[:, None, :].expand(B, H, ds)
+    q = C_[:, None, :].expand(B, H, ds)
+    y, ssm_state = la.step_scalar_decay(q, k, v * dtp[..., None].to(v.dtype), log_decay,
+                                        ssm_state)
+    y = y + ps.skip_D.to(v.dtype)[None, :, None] * v
+    y = y.reshape(B, 1, d_inner)
+    y = rms_norm(y * F.silu(z), ps.out_norm, cfg.norm_eps)
+    return x + y @ ps.out_proj, (window[:, 1:], ssm_state)
+
+
+# ===========================================================================
+# RWKV6 block (Finch: a data-dependent decay per channel)
+# ===========================================================================
+
+#: the rank of RWKV6's decay LoRA
+RWKV_LORA = 64
+_RWKV_MU = ("mu_r", "mu_k", "mu_v", "mu_g", "mu_w", "mu_ck", "mu_cr")
+
+
+def _rwkv_dims(cfg: ModelConfig):
+    hd = cfg.ssm_head_dim
+    return cfg.d_model // hd, hd
+
+
+class RWKV6(nn.Module):
+    """The RWKV6 layer's parameters: the norms ``norm_t``, ``norm_c`` and
+    ``ln_x``; the bonus ``u`` (H, head_dim) and the decay base ``w0``
+    (D), float32 in every model dtype; the time mix's ``wr``, ``wk``,
+    ``wv``, ``wg``, ``wo`` (D, D) and decay LoRA ``w_lora_a`` (D, 64),
+    ``w_lora_b`` (64, D); the channel mix's ``ck`` (D, F), ``cv`` (F, D),
+    ``cr`` (D, D); and the token-shift mixes ``mu_*`` (D)."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        D, Fd = cfg.d_model, cfg.d_ff
+        H, hd = _rwkv_dims(cfg)
+        e = lambda *shape, dt=dtype: _param(torch.empty(shape, dtype=dt, device=device))  # noqa: E731
+        self.norm_t = e(D)
+        self.norm_c = e(D)
+        self.ln_x = e(D)
+        self.u = e(H, hd, dt=torch.float32)
+        self.w0 = e(D, dt=torch.float32)
+        for name in ("wr", "wk", "wv", "wg", "wo"):
+            setattr(self, name, e(D, D))
+        self.w_lora_a = e(D, RWKV_LORA)
+        self.w_lora_b = e(RWKV_LORA, D)
+        self.ck = e(D, Fd)
+        self.cv = e(Fd, D)
+        self.cr = e(D, D)
+        for name in _RWKV_MU:
+            setattr(self, name, e(D))
+
+    @torch.no_grad()
+    def reset(self, gen: torch.Generator, cfg: ModelConfig) -> None:
+        """The reference's distributions, drawn in the order u, wr, wk,
+        wv, wg, wo, w_lora_a, w_lora_b, ck, cv, cr: unit norms, ``u`` a
+        float32 normal times 0.1, ``w0 = -2`` (w = exp(-exp(-2)), about
+        0.87), scaled-normal projections, ``w_lora_b`` a normal times
+        0.01, every ``mu_*`` 0.5."""
+        D, Fd = cfg.d_model, cfg.d_ff
+        H, hd = _rwkv_dims(cfg)
+        dt, dev = self.wr.dtype, self.wr.device
+        for name in ("norm_t", "norm_c", "ln_x"):
+            getattr(self, name).copy_(init_norm(D, dt, dev))
+        self.u.copy_(torch.randn((H, hd), generator=gen, dtype=torch.float32, device=dev) * 0.1)
+        self.w0.fill_(-2.0)
+        for name in ("wr", "wk", "wv", "wg", "wo"):
+            getattr(self, name).copy_(init_dense(gen, D, D, dt, dev))
+        self.w_lora_a.copy_(init_dense(gen, D, RWKV_LORA, dt, dev))
+        lora_b = torch.randn((RWKV_LORA, D), generator=gen, dtype=torch.float32, device=dev)
+        self.w_lora_b.copy_((lora_b * 0.01).to(dt))
+        self.ck.copy_(init_dense(gen, D, Fd, dt, dev))
+        self.cv.copy_(init_dense(gen, Fd, D, dt, dev))
+        self.cr.copy_(init_dense(gen, D, D, dt, dev))
+        for name in _RWKV_MU:
+            getattr(self, name).fill_(0.5)
+
+
+class RWKV6Block(nn.Module):
+    """One RWKV6 layer: ``rwkv``."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self.rwkv = RWKV6(cfg, dtype, device)
+
+    def reset(self, gen: torch.Generator, cfg: ModelConfig) -> None:
+        self.rwkv.reset(gen, cfg)
+
+
+def init_rwkv6_block(gen: torch.Generator, cfg: ModelConfig, dtype, device=None) -> RWKV6Block:
+    blk = RWKV6Block(cfg, dtype, device if device is not None else gen.device)
+    blk.reset(gen, cfg)
+    return blk
+
+
+def _shift(x: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
+    """Token shift: the previous token's features.  x: (B, S, D); last:
+    (B, D) from the previous segment (zeros at the sequence's start)."""
+    return torch.cat([last[:, None, :], x[:, :-1, :]], dim=1)
+
+
+def _log_decay(pr: RWKV6, mixed_w: torch.Tensor) -> torch.Tensor:
+    """``-exp(w0 + lora(x))`` in float32: the LoRA's output is cast to
+    float32 before ``w0`` is added, as the reference's."""
+    return -torch.exp(pr.w0 + (torch.tanh(mixed_w @ pr.w_lora_a) @ pr.w_lora_b).float())
+
+
+def _channel_mix(pr: RWKV6, h2: torch.Tensor, h2x: torch.Tensor) -> torch.Tensor:
+    kk = h2 + (h2x - h2) * pr.mu_ck
+    rr = h2 + (h2x - h2) * pr.mu_cr
+    kk = torch.square(F.relu(kk @ pr.ck))
+    return torch.sigmoid(rr @ pr.cr) * (kk @ pr.cv)
+
+
+def rwkv6_block(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig, positions=None,
+                shift_t: Optional[torch.Tensor] = None, shift_c: Optional[torch.Tensor] = None):
+    """Returns ``(x, (aux, (shift_t, shift_c)))``: the last position's
+    normed inputs to the time and channel mixes."""
+    pr = p.rwkv
+    B, S, D = x.shape
+    H, hd = _rwkv_dims(cfg)
+    if shift_t is None:
+        shift_t = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+    if shift_c is None:
+        shift_c = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+
+    # time mix
+    h = rms_norm(x, pr.norm_t, cfg.norm_eps)
+    hx = _shift(h, shift_t)
+
+    def mixed(mu):
+        return h + (hx - h) * mu
+
+    r = (mixed(pr.mu_r) @ pr.wr).reshape(B, S, H, hd)
+    k = (mixed(pr.mu_k) @ pr.wk).reshape(B, S, H, hd)
+    v = (mixed(pr.mu_v) @ pr.wv).reshape(B, S, H, hd)
+    g = mixed(pr.mu_g) @ pr.wg
+    log_decay = _log_decay(pr, mixed(pr.mu_w)).reshape(B, S, H, hd)
+    y, _ = la.chunked_vector_decay(r, k, v, log_decay, pr.u)
+    y = rms_norm(y.reshape(B, S, D), pr.ln_x, cfg.norm_eps)
+    x = x + (y * F.silu(g)) @ pr.wo
+
+    # channel mix
+    h2 = rms_norm(x, pr.norm_c, cfg.norm_eps)
+    x = x + _channel_mix(pr, h2, _shift(h2, shift_c))
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, (zero, (h[:, -1, :], h2[:, -1, :]))
+
+
+def rwkv6_block_decode(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig, shift_t, shift_c,
+                       wkv_state):
+    """x: (B, 1, D); shift_t / shift_c: (B, D); wkv_state: (B, H, hd, hd)
+    float32.  Returns ``(x, (shift_t, shift_c, wkv_state))``, new
+    tensors."""
+    pr = p.rwkv
+    B, _, D = x.shape
+    H, hd = _rwkv_dims(cfg)
+
+    h = rms_norm(x, pr.norm_t, cfg.norm_eps)[:, 0]                     # (B, D)
+
+    def mixed(mu):
+        return h + (shift_t - h) * mu
+
+    r = (mixed(pr.mu_r) @ pr.wr).reshape(B, H, hd)
+    k = (mixed(pr.mu_k) @ pr.wk).reshape(B, H, hd)
+    v = (mixed(pr.mu_v) @ pr.wv).reshape(B, H, hd)
+    g = mixed(pr.mu_g) @ pr.wg
+    log_decay = _log_decay(pr, mixed(pr.mu_w)).reshape(B, H, hd)
+    y, wkv_state = la.step_vector_decay(r, k, v, log_decay, pr.u, wkv_state)
+    y = rms_norm(y.reshape(B, D), pr.ln_x, cfg.norm_eps)
+    x = x + ((y * F.silu(g)) @ pr.wo)[:, None, :]
+
+    h2 = rms_norm(x, pr.norm_c, cfg.norm_eps)[:, 0]
+    x = x + _channel_mix(pr, h2, shift_c)[:, None, :]
+    return x, (h, h2, wkv_state)

@@ -1,31 +1,36 @@
-"""Model assembly for the attention families (``dense``, ``vlm``, ``moe``,
-``encdec``): embedding, a loop over the layers, and the head, with
-``forward`` (full sequence), ``prefill`` (full sequence to a serving
-cache and the last position's logits) and ``decode_step`` (one token
-against a KV cache), plus the encoder-decoder's ``encode`` and
-``make_cross_cache``.
+"""Model assembly for every family (``dense``, ``vlm``, ``moe``,
+``encdec``, and the recurrent ``ssm``, ``rwkv`` and ``hybrid``):
+embedding, a loop over the layers, and the head, with ``forward`` (full
+sequence), ``prefill`` (full sequence to a serving cache and the last
+position's logits; the attention families only, as in the reference)
+and ``decode_step`` (one token against the family's cache), plus the
+encoder-decoder's ``encode`` and ``make_cross_cache``.
 
 The port of the reference's ``repro.models.model``.  The reference
 stacks the layers on a leading L axis and scans them; here each layer is
 a module of its own, run in a Python loop, and the decode cache keeps
-the reference's stacked ``(L, B, S, KV, hd)`` layout.
+the reference's stacked layouts (``(L, B, S, KV, hd)`` K/V; the
+recurrent families' ``conv``/``ssm``, ``shift_t``/``shift_c``/``wkv``).
 :func:`params_from_reference` and :func:`params_to_reference` are the one
 place the reference's parameter tree is mapped onto the port's
 parameters and back.  Training (:meth:`Model.trainable`) turns gradients
 on; with ``cfg.remat`` each layer then runs under activation
 checkpointing, as the reference wraps its scan body in
-``jax.checkpoint``.  Serving builds the model with gradients off.
+``jax.checkpoint`` (the hybrid checkpoints a group: ``attn_every``
+Mamba2 layers and the shared block).  Serving builds the model with
+gradients off.
 
 The ``vlm`` family prepends the frontend's patch embeddings and rotates
 by M-RoPE; ``moe`` swaps the gated MLP for GShard-dispatched experts;
 ``encdec`` adds a bidirectional encoder stack and a cross-attention per
-decoder layer.  The recurrent families, ``rwkv`` and ``hybrid`` (and
-``ssm``, which no config uses), are not ported yet (ROADMAP Queue 1):
-:class:`Model` raises for them.
+decoder layer.  ``ssm`` stacks Mamba2 layers, ``rwkv`` RWKV6 layers, and
+``hybrid`` (Zamba2) Mamba2 layers with one ``shared`` attention block,
+not stacked, applied after every ``attn_every`` of them.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
 
@@ -43,7 +48,7 @@ __all__ = ["PORTED_FAMILIES", "Model", "build_model", "params_from_reference",
            "params_to_reference", "reference_order"]
 
 #: the families whose blocks are ported
-PORTED_FAMILIES = ("dense", "vlm", "moe", "encdec")
+PORTED_FAMILIES = ("dense", "vlm", "moe", "encdec", "ssm", "rwkv", "hybrid")
 
 #: family -> (layer module, full-sequence block, decode block)
 _BLOCKS = {
@@ -51,7 +56,13 @@ _BLOCKS = {
     "vlm": (B.DenseBlock, B.dense_block, B.dense_block_decode),
     "encdec": (B.DenseBlock, B.dense_block, B.dense_block_decode),
     "moe": (B.MoEBlock, B.moe_block, B.moe_block_decode),
+    "ssm": (B.Mamba2Block, B.mamba2_block, B.mamba2_block_decode),
+    "rwkv": (B.RWKV6Block, B.rwkv6_block, B.rwkv6_block_decode),
+    "hybrid": (B.Mamba2Block, B.mamba2_block, B.mamba2_block_decode),
 }
+
+#: the families whose layers take the attention blocks' ``causal`` flag
+_ATTENTION = ("dense", "vlm", "moe", "encdec")
 
 #: the reference's subtrees whose leaves are stacked on a leading layer axis
 _STACKS = ("layers", "encoder.layers", "xattn")
@@ -95,16 +106,19 @@ class Encoder(nn.Module):
 
 
 class Model(nn.Module):
-    """A language model of an attention family on one device.  Built
-    with empty parameters: :meth:`init` draws them from a seed,
-    ``load_state_dict`` takes :func:`params_from_reference`'s."""
+    """A language model of any family on one device.  Built with empty
+    parameters: :meth:`init` draws them from a seed, ``load_state_dict``
+    takes :func:`params_from_reference`'s."""
 
     def __init__(self, cfg: ModelConfig, device="cuda"):
         super().__init__()
         if cfg.family not in PORTED_FAMILIES:
-            raise NotImplementedError(
-                f"the {cfg.family!r} family ({cfg.name}) is not ported yet: ROADMAP Queue 1 "
-                f"lists it; ported: {PORTED_FAMILIES}")
+            raise ValueError(f"unknown family {cfg.family!r}; expected one of {PORTED_FAMILIES}")
+        if cfg.family == "hybrid" and (cfg.attn_every < 1 or cfg.num_layers % cfg.attn_every):
+            raise ValueError(
+                f"a hybrid applies its shared block after every attn_every Mamba2 layers, so "
+                f"num_layers ({cfg.num_layers}) must be a positive multiple of attn_every "
+                f"({cfg.attn_every})")
         self.cfg = cfg
         dev = resolve_device(device)
         dt = _dtype(cfg)
@@ -125,6 +139,8 @@ class Model(nn.Module):
             self.encoder = Encoder(cfg, dt, dev)
             self.xattn = nn.ModuleList(B.CrossAttention(cfg, dt, dev)
                                        for _ in range(cfg.num_layers))
+        if cfg.family == "hybrid":
+            self.shared = B.DenseBlock(cfg, dt, dev)
 
     @property
     def device(self) -> torch.device:
@@ -146,9 +162,11 @@ class Model(nn.Module):
         """Draw every parameter from ``torch.Generator(device).manual_seed(seed)``
         on the model's device, with the reference's distributions (scaled
         normal projections and experts, a float32 router, unit norms, zero
-        biases) in the order embed, layers, final norm, head, then for
-        ``encdec`` the encoder's layers (its final norm is ones) and the
-        cross-attentions.  Returns ``self``."""
+        biases; the recurrent blocks' own, :class:`~repro_torch.models.blocks.Mamba2`
+        and :class:`~repro_torch.models.blocks.RWKV6`) in the order embed,
+        layers, final norm, head, then for ``encdec`` the encoder's layers
+        (its final norm is ones) and the cross-attentions, for ``hybrid``
+        the shared block.  Returns ``self``."""
         cfg, dt, dev = self.cfg, self.final_norm.dtype, self.device
         gen = torch.Generator(device=dev).manual_seed(int(seed))
         self.embed.vocab.copy_(init_dense(gen, cfg.vocab_size, cfg.d_model, dt, dev))
@@ -163,6 +181,8 @@ class Model(nn.Module):
             self.encoder.final_norm.copy_(init_norm(cfg.d_model, dt, dev))
             for xa in self.xattn:
                 xa.reset(gen, cfg)
+        if cfg.family == "hybrid":
+            self.shared.reset(gen, cfg)
         return self
 
     # ------------------------------------------------------------------
@@ -206,9 +226,11 @@ class Model(nn.Module):
         remat = cfg.remat and torch.is_grad_enabled()
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         kvs = [] if collect_kv else None
+        block = (functools.partial(self._block, causal=causal) if cfg.family in _ATTENTION
+                 else self._block)
         for layer in layers:
             def body(h, layer=layer):
-                h, (a, kv) = self._block(layer, h, cfg, positions, causal=causal)
+                h, (a, kv) = block(layer, h, cfg, positions)
                 return h, a, kv
 
             if remat:  # keep each layer's input; recompute the rest in backward
@@ -219,6 +241,30 @@ class Model(nn.Module):
             if collect_kv:
                 kvs.append(kv)
         return x, aux, kvs
+
+    def _run_hybrid(self, x, positions):
+        """Zamba2: groups of ``attn_every`` Mamba2 layers, each followed by
+        the one shared attention block; under remat a group is one
+        checkpoint, as the reference checkpoints its group body."""
+        cfg = self.cfg
+        k = cfg.attn_every
+        remat = cfg.remat and torch.is_grad_enabled()
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(cfg.num_layers // k):
+            def group(h, group_layers=self.layers[g * k:(g + 1) * k]):
+                a = torch.zeros((), dtype=torch.float32, device=h.device)
+                for layer in group_layers:
+                    h, (al, _) = B.mamba2_block(layer, h, cfg)
+                    a = a + al
+                h, (al, _) = B.dense_block(self.shared, h, cfg, positions)
+                return h, a + al
+
+            if remat:
+                x, a = checkpoint(group, x, use_reentrant=False, preserve_rng_state=False)
+            else:
+                x, a = group(x)
+            aux = aux + a
+        return x, aux
 
     def _run_encdec_decoder(self, x, positions, enc):
         cfg = self.cfg
@@ -263,6 +309,8 @@ class Model(nn.Module):
             if enc_embeds is None:
                 raise ValueError("the encdec family's forward needs enc_embeds")
             x, aux = self._run_encdec_decoder(x, positions, self.encode(enc_embeds))
+        elif cfg.family == "hybrid":
+            x, aux = self._run_hybrid(x, positions)
         else:
             x, aux, _ = self._run_stack(self.layers, x, positions)
         return self._head(x), aux
@@ -301,47 +349,84 @@ class Model(nn.Module):
     # ------------------------------------------------------------------
     def init_cache(self, batch_size: int, max_len: int,
                    enc_len: Optional[int] = None) -> Dict[str, torch.Tensor]:
-        """The decode cache: ``k``/``v`` ``(L, B, S, KV, hd)`` in the KV
+        """The decode cache, by family (the reference's layouts).  The
+        attention families: ``k``/``v`` ``(L, B, S, KV, hd)`` in the KV
         dtype with ``S = min(max_len, sliding_window)``, and ``kpos``
         ``(S,)``, the absolute position each slot holds (-1: empty); for
         encdec also the cross-attention ``xk``/``xv`` ``(L, B, enc_len or
         max_len, KV, hd)`` in the model's dtype, zero until
-        :meth:`make_cross_cache`'s are put there."""
+        :meth:`make_cross_cache`'s are put there.  ``ssm``: the Mamba2
+        layers' ``conv`` ``(L, B, width - 1, conv_ch)`` in the model's
+        dtype and ``ssm`` ``(L, B, H, ssm_state, head_dim)`` float32;
+        ``hybrid`` adds the shared block's ``shared_k``/``shared_v``
+        ``(L / attn_every, B, S, KV, hd)`` and ``kpos``.  ``rwkv``:
+        ``shift_t``/``shift_c`` ``(L, B, D)`` in the model's dtype and
+        ``wkv`` ``(L, B, H, head_dim, head_dim)`` float32.  All zeros."""
         cfg = self.cfg
         L, KV, hd = cfg.num_layers, cfg.num_kv_heads, cfg.hd
         S = min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
-        kvdt, dev = _kv_dtype(cfg), self.device
+        kvdt, dt, dev = _kv_dtype(cfg), _dtype(cfg), self.device
+        zeros = functools.partial(torch.zeros, device=dev)
+        if cfg.family == "ssm":
+            return self._mamba_cache(L, batch_size)
+        if cfg.family == "rwkv":
+            H, hd2 = cfg.d_model // cfg.ssm_head_dim, cfg.ssm_head_dim
+            return {"shift_t": zeros((L, batch_size, cfg.d_model), dtype=dt),
+                    "shift_c": zeros((L, batch_size, cfg.d_model), dtype=dt),
+                    "wkv": zeros((L, batch_size, H, hd2, hd2), dtype=torch.float32)}
+        if cfg.family == "hybrid":
+            groups = L // cfg.attn_every
+            cache = self._mamba_cache(L, batch_size)
+            cache["shared_k"] = zeros((groups, batch_size, S, KV, hd), dtype=kvdt)
+            cache["shared_v"] = zeros((groups, batch_size, S, KV, hd), dtype=kvdt)
+            cache["kpos"] = torch.full((S,), -1, dtype=torch.int32, device=dev)
+            return cache
         cache = {
-            "k": torch.zeros((L, batch_size, S, KV, hd), dtype=kvdt, device=dev),
-            "v": torch.zeros((L, batch_size, S, KV, hd), dtype=kvdt, device=dev),
+            "k": zeros((L, batch_size, S, KV, hd), dtype=kvdt),
+            "v": zeros((L, batch_size, S, KV, hd), dtype=kvdt),
             "kpos": torch.full((S,), -1, dtype=torch.int32, device=dev),
         }
         if cfg.family == "encdec":
             se = enc_len or max_len
             for key in ("xk", "xv"):
-                cache[key] = torch.zeros((L, batch_size, se, KV, hd), dtype=_dtype(cfg),
-                                         device=dev)
+                cache[key] = zeros((L, batch_size, se, KV, hd), dtype=dt)
         return cache
+
+    def _mamba_cache(self, L: int, batch_size: int) -> Dict[str, torch.Tensor]:
+        cfg = self.cfg
+        d_inner, H, ds, conv_ch = B._mamba_dims(cfg)
+        return {
+            "conv": torch.zeros((L, batch_size, cfg.ssm_conv_width - 1, conv_ch),
+                                dtype=_dtype(cfg), device=self.device),
+            "ssm": torch.zeros((L, batch_size, H, ds, cfg.ssm_head_dim), dtype=torch.float32,
+                               device=self.device),
+        }
 
     def decode_step(self, cache: Dict[str, torch.Tensor], tokens: torch.Tensor, t: int):
         """``tokens``: (B,) the current input token of each row; ``t``:
         the position (one for the whole batch, as in the reference).
-        Returns ``(logits (B, V) float32, cache)``: the cache's ``k``/``v``
-        are written in place (one row each under ``dus``/``ring``/
-        ``deferred``) and ``kpos`` is replaced."""
+        Returns ``(logits (B, V) float32, cache)``: the cache's tensors are
+        written in place (K/V one row each under ``dus``/``ring``/
+        ``deferred``; the recurrent states whole) and ``kpos`` is
+        replaced."""
         cfg = self.cfg
         t = int(t)
         tokens = tokens.to(self.device)
         Bsz = tokens.shape[0]
         x = self._embed(tokens[:, None])
+        if cfg.family in ("ssm", "rwkv"):
+            return self._decode_recurrent(cache, x)
         pos = self._positions(torch.full((Bsz, 1), t, dtype=torch.long, device=self.device),
                               Bsz, 1)
-        S = cache["k"].shape[2]
+        kc_all = cache["shared_k" if cfg.family == "hybrid" else "k"]
+        S = kc_all.shape[2]
         slot = t % S
         at_slot = torch.arange(S, device=self.device) == slot
-        kc_all, vc_all = cache["k"], cache["v"]
+        if cfg.family == "hybrid":
+            return self._decode_hybrid(cache, x, t, pos, at_slot)
         if cfg.family == "encdec":
             return self._decode_encdec(cache, x, t, pos, at_slot)
+        vc_all = cache["v"]
         if cfg.cache_update == "deferred":
             # mask the stale slot row during attention; the new rows are
             # attended explicitly and written once for all layers after
@@ -360,6 +445,40 @@ class Model(nn.Module):
             for layer, kc, vc in zip(self.layers, kc_all, vc_all):
                 x, _ = self._block_decode(layer, x, cfg, kc, vc, t, pos, kpos)
         cache = {"k": kc_all, "v": vc_all, "kpos": kpos}
+        return self._head(x)[:, 0], cache
+
+    def _decode_recurrent(self, cache, x):
+        """``ssm`` and ``rwkv``: each layer's single-step update, its state
+        written back into the cache's slice."""
+        cfg = self.cfg
+        keys = ("conv", "ssm") if cfg.family == "ssm" else ("shift_t", "shift_c", "wkv")
+        for i, layer in enumerate(self.layers):
+            x, new = self._block_decode(layer, x, cfg, *(cache[key][i] for key in keys))
+            for key, val in zip(keys, new):
+                cache[key][i].copy_(val)
+        return self._head(x)[:, 0], {key: cache[key] for key in keys}
+
+    def _decode_hybrid(self, cache, x, t, pos, at_slot):
+        """Zamba2: each group's ``attn_every`` Mamba2 steps, then the shared
+        block against the group's own K/V (``shared_k``/``shared_v``
+        ``[g]``), all written in place.  ``cache_update="deferred"``
+        raises: the shared block's decode would return new rows, which the
+        reference then stacks as the cache."""
+        cfg = self.cfg
+        if cfg.cache_update == "deferred":
+            raise ValueError("the hybrid decode step writes the shared block's cache per group; "
+                             "cache_update='deferred' is not supported for it")
+        k = cfg.attn_every
+        kpos = torch.where(at_slot, t, cache["kpos"]).to(torch.int32)
+        conv, ssm = cache["conv"], cache["ssm"]
+        for g, (kc, vc) in enumerate(zip(cache["shared_k"], cache["shared_v"])):
+            for i in range(g * k, (g + 1) * k):
+                x, (c, s) = B.mamba2_block_decode(self.layers[i], x, cfg, conv[i], ssm[i])
+                conv[i].copy_(c)
+                ssm[i].copy_(s)
+            x, _ = B.dense_block_decode(self.shared, x, cfg, kc, vc, t, pos, kpos)
+        cache = {"conv": conv, "ssm": ssm, "shared_k": cache["shared_k"],
+                 "shared_v": cache["shared_v"], "kpos": kpos}
         return self._head(x)[:, 0], cache
 
     def _decode_encdec(self, cache, x, t, pos, at_slot):
@@ -416,19 +535,15 @@ def _to_torch(a: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(arr, copy=True))
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(f"the {cfg.family!r} family is not ported yet: ROADMAP Queue 1")
-
-
 def params_from_reference(cfg: ModelConfig, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """The reference's parameter tree (nested dicts of arrays; ``layers``
-    and ``xattn`` stacked on a leading ``num_layers`` axis,
-    ``encoder.layers`` on ``encoder_layers``) as the port's parameters: a
-    dict of CPU tensors keyed by :class:`Model` parameter names, for
-    ``Model.load_state_dict``.  Values are copied bit for bit, each in its
-    own dtype (the MoE router stays float32)."""
-    _check_family(cfg)
+    (``attn``/``mlp``/``moe``, ``ssm`` or ``rwkv``) and ``xattn`` stacked
+    on a leading ``num_layers`` axis, ``encoder.layers`` on
+    ``encoder_layers``; the hybrid's ``shared`` block not stacked) as the
+    port's parameters: a dict of CPU tensors keyed by :class:`Model`
+    parameter names, for ``Model.load_state_dict``.  Values are copied bit
+    for bit, each in its own dtype (the MoE router, Mamba2's ``A_log``,
+    ``dt_bias``, ``skip_D`` and RWKV6's ``u``, ``w0`` stay float32)."""
     out: Dict[str, torch.Tensor] = {}
 
     def walk(tree: Mapping[str, Any], path: str, stack: Optional[str]) -> None:
@@ -483,7 +598,6 @@ def params_to_reference(cfg: ModelConfig, state_dict: Mapping[str, torch.Tensor]
     them, such as AdamW moments) as the reference's nested tree, each
     stacked subtree's layers on a leading axis.  Detached tensors on the
     inputs' device."""
-    _check_family(cfg)
     flat: Dict[str, Any] = {}
     for name, t in state_dict.items():
         ref, stack, layer = _split_name(name)

@@ -894,3 +894,122 @@ def test_smoke_families_on_the_card_equal_the_cpu(arch):
         out[str(d)] = [g.cpu() for g in got]
     for a, b in zip(out["cpu"], out[str(dev)]):
         torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture
+def no_tf32():
+    """Float32 comparisons on the card with TF32 off (cuDNN's float32
+    defaults to it)."""
+    prev = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["scalar", "vector"])
+def test_chunked_recurrence_on_the_card_equals_its_steps(form, no_tf32):
+    """At the full head sizes (Mamba2 at zamba2-2.7b: 80 heads, dk = dv =
+    64, B/C shared; RWKV6 at rwkv6-7b: 64 heads of 64), float32 from a
+    carried state: the chunked form against 128 single steps, and the
+    card against the CPU, each within 1e-4 of the largest value."""
+    from repro_torch.models import linear_attn as la
+
+    dev = _card()
+    g = torch.Generator().manual_seed(0)
+    B, S, dk = 2, 128, 64
+    if form == "scalar":
+        H = 80
+        args = [torch.randn(B, S, dk, generator=g), torch.randn(B, S, dk, generator=g) / 8,
+                torch.randn(B, S, H, dk, generator=g), -torch.rand(B, S, H, generator=g)]
+    else:
+        H = 64
+        args = [torch.randn(B, S, H, dk, generator=g), torch.randn(B, S, H, dk, generator=g) / 8,
+                torch.randn(B, S, H, dk, generator=g), -1.5 * torch.rand(B, S, H, dk, generator=g),
+                torch.randn(H, dk, generator=g) / 10]
+    s0 = torch.randn(B, H, dk, dk, generator=g)
+    fn = la.chunked_scalar_decay if form == "scalar" else la.chunked_vector_decay
+    cpu = fn(*args, s0)
+    x = [a.to(dev) for a in args]
+    got = fn(*x, s0.to(dev))
+    state, ys = s0.to(dev), []
+    for s in range(S):
+        if form == "scalar":
+            y, state = la.step_scalar_decay(x[0][:, s, None].expand(B, H, dk),
+                                            x[1][:, s, None].expand(B, H, dk), x[2][:, s],
+                                            x[3][:, s], state)
+        else:
+            y, state = la.step_vector_decay(x[0][:, s], x[1][:, s], x[2][:, s], x[3][:, s], x[4],
+                                            state)
+        ys.append(y)
+    for a, b, c in zip(got, (torch.stack(ys, 1), state), cpu):
+        scale = float(b.abs().max())
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * scale)
+        torch.testing.assert_close(a.cpu(), c, rtol=0, atol=1e-4 * scale)
+
+
+@pytest.mark.cuda
+def test_large_decay_gradient_on_the_card_is_finite(no_tf32):
+    """One chunk of 64 at a log decay of -1.5 a step (cumulative 96, past
+    float32's exp range): the scalar form's gradients are finite on the
+    card and equal the CPU's; so is a train step of a one-layer ``ssm``
+    model at zamba2-2.7b's width with ``dt_bias`` at 3."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.data import synthetic_batch
+    from repro_torch.models import build_model, linear_attn as la
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    dev = _card()
+    g = torch.Generator().manual_seed(1)
+    inputs = [torch.randn(1, 64, 2, 4, generator=g), torch.randn(1, 64, 2, 4, generator=g),
+              torch.randn(1, 64, 2, 4, generator=g), torch.full((1, 64, 2), -1.5)]
+    w = torch.randn(1, 64, 2, 4, generator=g)
+    grads = []
+    for d in ("cpu", dev):
+        xs = [a.to(d).requires_grad_(True) for a in inputs]
+        y, st = la.chunked_scalar_decay(*xs)
+        grads.append(torch.autograd.grad((y * w.to(d)).sum() + st.sum(), xs))
+    for a, b in zip(*grads):
+        assert torch.isfinite(b).all()
+        torch.testing.assert_close(b.cpu(), a, rtol=1e-4, atol=1e-4)
+    cfg = get_config("zamba2-2.7b").replace(family="ssm", num_layers=1, dtype="float32")
+    model = build_model(cfg, device=dev).init(0)
+    with torch.no_grad():
+        model.layers[0].ssm.dt_bias.fill_(3.0)
+    params = model.trainable()
+    opt_cfg = AdamWConfig(total_steps=10)
+    batch = synthetic_batch(cfg, ShapeConfig("train", 128, 2, "train"), 0, device=dev)
+    params, _, metrics = make_train_step(model, opt_cfg)(params, init_opt_state(params, opt_cfg),
+                                                         batch)
+    assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    assert all(torch.isfinite(p).all() for p in params.values())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,family", [("zamba2-2.7b", "hybrid"), ("rwkv6-7b", "rwkv"),
+                                         ("zamba2-2.7b", "ssm")])
+def test_smoke_recurrent_on_the_card_equal_the_cpu(arch, family, no_tf32):
+    """The recurrent smoke configs at float32 from the same weights on the
+    card and on the CPU: ``forward`` over 128 tokens and 16 decode steps
+    to 1e-3."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import build_model
+
+    dev = _card()
+    cfg = smoke_config(arch).replace(family=family, dtype="float32", kv_cache_dtype="float32")
+    start = build_model(cfg, device="cpu").init(0).state_dict()
+    toks = torch.randint(0, cfg.vocab_size, (2, 128), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for d in ("cpu", dev):
+        model = build_model(cfg, device=d)
+        model.load_state_dict(start)
+        with torch.no_grad():
+            got = [model.forward(toks.to(d))[0]]
+            cache = model.init_cache(2, 32)
+            for s in range(16):
+                lg, cache = model.decode_step(cache, toks[:, s].to(d), s)
+                got.append(lg)
+        out[str(d)] = [g.cpu() for g in got]
+    for a, b in zip(out["cpu"], out[str(dev)]):
+        torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-3)

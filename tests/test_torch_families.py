@@ -608,7 +608,7 @@ def test_parameter_round_trip_and_order(arch):
 
 
 def test_seeded_init_and_ported_families():
-    assert PORTED_FAMILIES == ("dense", "vlm", "moe", "encdec")
+    assert PORTED_FAMILIES == ("dense", "vlm", "moe", "encdec", "ssm", "rwkv", "hybrid")
     for arch in ARCHS:
         cfg = smoke_config(arch)
         a = build_model(cfg, device=CPU).init(seed=7).state_dict()

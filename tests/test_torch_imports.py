@@ -107,7 +107,8 @@ def test_no_module_imports_jax_or_the_reference():
     assert lines["SERVING"] == str(sorted(
         ["repro_torch.configs", "repro_torch.configs.base", "repro_torch.configs.registry",
          "repro_torch.models", "repro_torch.models.blocks", "repro_torch.models.frontends",
-         "repro_torch.models.layers", "repro_torch.models.model"] + [f"repro_torch.configs.{m}" for m in arch_modules]))
+         "repro_torch.models.layers", "repro_torch.models.linear_attn",
+         "repro_torch.models.model"] + [f"repro_torch.configs.{m}" for m in arch_modules]))
     assert lines["TRAIN"] == str([
         "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.train.checkpoint",
         "repro_torch.train.elastic", "repro_torch.train.grad_wire",
