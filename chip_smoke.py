@@ -3834,6 +3834,198 @@ def plan_launches(plan, comm):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: training on a device mesh
+# ---------------------------------------------------------------------------
+
+MESH_STEPS = 2             # [mesh]: steps of train() with the mesh and without it
+MESH_REL = 1e-3            # [mesh]: mesh vs no mesh, losses and grad norms (bf16 model)
+MESH_WORLDS = ((256, False), (512, True))  # [mesh] planning: fake worlds, multi-pod
+MESH_CHILD_TIMEOUT_S = 600
+
+
+def phase_mesh(torch, dev, card):
+    """Training on a device mesh, at the full width of qwen2-0.5b (bf16,
+    remat on, float32 moments, seq 256 x batch 8, as ``[train]``).  Two
+    child processes, each started after this process has emptied its
+    allocator's cache:
+
+    1. A world of one through NCCL (a ``file://`` store) with the (1, 1)
+       ``("data", "model")`` mesh of ``make_test_mesh``: ``MESH_STEPS``
+       steps of ``train()`` without the mesh and with it, in turns
+       (plain, mesh, mesh, plain), each from ``Model.init`` (seed 0):
+       losses and grad norms must agree within ``MESH_REL`` (and whether
+       they are bit-equal is printed); ms per step (the host clock around
+       each step, which ends in a host read of its metrics), each run's
+       ``max_memory_allocated``.  The first plain run saves its final
+       state (the 4.94 GB checkpoint); it is restored with
+       ``shardings=train_state_shardings(model, mesh)`` onto the mesh
+       (seconds), and every leaf must be ``torch.equal`` to the same
+       checkpoint restored on the host.
+    2. Planning at production size under a fake process group of 256,
+       then 512: ``make_production_mesh`` must give (16, 16) and (2, 16,
+       16); for every registry config at full width (built on ``meta``)
+       the reference's rules give each leaf's spec: the count of sharded
+       leaves and the parameter bytes one device holds, from the shapes.
+    Returns the phase's record."""
+    import tempfile
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"card": card, "arch": TRAIN_ARCH, "steps": MESH_STEPS}
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as root:
+        train = _mesh_child("train", root)
+        plan = _mesh_child("plan", root)
+    out["phase_s"] = time.perf_counter() - t0
+    plain, meshed = train["runs"]["plain"], train["runs"]["mesh"]
+    for key in ("losses", "grad_norms"):
+        for a, b in zip(plain[0][key], meshed[0][key]):
+            if not (math.isfinite(a) and math.isfinite(b)) or abs(a - b) > MESH_REL * abs(a):
+                fail(f"[mesh] {key}: {plain[0][key]} without the mesh, {meshed[0][key]} on it")
+        for runs in (plain, meshed):
+            if runs[0][key] != runs[1][key]:
+                fail(f"[mesh] {key} differ between two equal runs: {runs[0][key]}, "
+                     f"{runs[1][key]}")
+    out["bit_equal"] = {k: plain[0][k] == meshed[0][k] for k in ("losses", "grad_norms")}
+    out["losses"] = {"plain": plain[0]["losses"], "mesh": meshed[0]["losses"]}
+    out["grad_norms"] = {"plain": plain[0]["grad_norms"], "mesh": meshed[0]["grad_norms"]}
+    out["step_ms"] = {k: [r["step_ms"] for r in v] for k, v in train["runs"].items()}
+    out["max_memory_allocated"] = {k: [r["max_memory_allocated"] for r in v]
+                                   for k, v in train["runs"].items()}
+    out["placements"] = train["placements"]
+    out["restore"] = train["restore"]
+    out["plan"] = plan
+    print(f"[mesh] qwen2-0.5b on the (1, 1) mesh vs none: losses {out['losses']}, bit-equal "
+          f"{out['bit_equal']}; ms/step {out['step_ms']}; restore onto the mesh "
+          f"{train['restore']['seconds']:.2f} s ({train['restore']['bytes']} bytes, "
+          f"{train['restore']['leaves']} leaves equal)")
+    for world, rec in plan.items():
+        for arch, c in rec["configs"].items():
+            print(f"[mesh] {rec['mesh']}: {arch}: {c['sharded_leaves']}/{c['leaves']} leaves "
+                  f"sharded, {c['bytes_per_device']} of {c['param_bytes']} parameter bytes a "
+                  f"device")
+    print(json.dumps({"mesh": out}))
+    return out
+
+
+def _mesh_child(what: str, root: str) -> dict:
+    """Run ``chip_smoke.py --mesh-child WHAT ROOT``; returns what it wrote."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--mesh-child", what, root],
+                          capture_output=True, text=True, timeout=MESH_CHILD_TIMEOUT_S)
+    if proc.returncode != 0:
+        fail(f"[mesh] the {what} child failed (rc={proc.returncode}):\n{proc.stdout[-4000:]}\n"
+             f"{proc.stderr[-4000:]}")
+    with open(os.path.join(root, f"{what}.json")) as f:
+        return json.load(f)
+
+
+def mesh_child(what: str, root: str) -> None:
+    """A ``[mesh]`` child process: ``train`` on the card, ``plan`` on the
+    host under a fake process group.  Writes ``ROOT/WHAT.json``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    out = mesh_child_train(root) if what == "train" else mesh_child_plan()
+    with open(os.path.join(root, f"{what}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def mesh_child_train(root: str) -> dict:
+    import torch
+
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.procgroup import destroy_process_group, init_process_group
+    from repro_torch.models import build_model
+    from repro_torch.train import checkpoint as ckpt
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_process_group("nccl", store_path=os.path.join(root, "store"), rank=0, world_size=1)
+    try:
+        mesh = make_test_mesh(data=1, model=1, device_type="cuda")
+        cfg = launch_train.resolve_config(TRAIN_ARCH, "full")
+        S, B = TRAIN_DEFAULTS["seq_len"], TRAIN_DEFAULTS["global_batch"]
+        runs, placements = {"plain": [], "mesh": []}, None
+        for i, label in enumerate(("plain", "mesh", "mesh", "plain")):
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            run = launch_train.train(
+                cfg, MESH_STEPS, S, B, os.path.join(root, f"ckpt{i}"),
+                ckpt_every=MESH_STEPS if i == 0 else 10 * MESH_STEPS, device=dev,
+                mesh=mesh if label == "mesh" else None, log_every=100)
+            torch.cuda.synchronize()
+            runs[label].append({"losses": run["losses"], "grad_norms": run["grad_norms"],
+                                "step_ms": [s * 1e3 for s in run["step_s"]],
+                                "max_memory_allocated": torch.cuda.max_memory_allocated()})
+            if label == "mesh" and placements is None:
+                p = run["params"]["layers.0.attn.wq"]
+                if not hasattr(p, "placements"):
+                    raise SystemExit("[mesh] train(mesh=...) left a plain parameter")
+                placements = {"mesh": [list(mesh.mesh_dim_names), list(mesh.shape)],
+                              "layers.0.attn.wq": [repr(x) for x in p.placements],
+                              "embed.vocab": [repr(x) for x in
+                                              run["params"]["embed.vocab"].placements]}
+            del run
+        # the plain run's checkpoint onto the mesh
+        torch.cuda.empty_cache()
+        shardings = ckpt.train_state_shardings(build_model(cfg, device="meta"), mesh)
+        src = os.path.join(root, "ckpt0")
+        t0 = time.perf_counter()
+        step, placed = ckpt.restore_checkpoint(src, shardings=shardings)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        _, host = ckpt.restore_checkpoint(src, step=step)
+        placed, host = ckpt._flatten(placed), ckpt._flatten(host)
+        nbytes = 0
+        for k, want in host.items():
+            got = full_tensor(placed[k]).cpu()
+            if got.dtype != want.dtype or not torch.equal(got, want):
+                raise SystemExit(f"[mesh] restored leaf {k} differs from the checkpoint")
+            nbytes += want.numel() * want.element_size()
+        return {"runs": runs, "placements": placements,
+                "restore": {"step": step, "seconds": seconds, "bytes": nbytes,
+                            "leaves": len(host)}}
+    finally:
+        destroy_process_group()
+
+
+def mesh_child_plan() -> dict:
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.configs.registry import ARCH_IDS, get_config
+    from repro_torch.distributed.sharding import DEFAULT_RULES, mesh_axes, param_specs
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.models import build_model
+
+    out = {}
+    for world, multi_pod in MESH_WORLDS:
+        dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+        mesh = make_production_mesh(multi_pod=multi_pod, device_type="cpu")
+        names, sizes = mesh_axes(mesh)
+        want = (2, 16, 16) if multi_pod else (16, 16)
+        if tuple(mesh.shape) != want:
+            raise SystemExit(f"[mesh] make_production_mesh gave {tuple(mesh.shape)}, want {want}")
+        configs = {}
+        for arch in ARCH_IDS:
+            model = build_model(get_config(arch), device="meta")
+            specs = param_specs(model, DEFAULT_RULES, mesh)
+            total = per_device = sharded = 0
+            for name, p in model.named_parameters():
+                ways = math.prod(sizes[a] for e in specs[name] if e is not None
+                                 for a in ((e,) if isinstance(e, str) else e))
+                total += p.numel() * p.element_size()
+                per_device += p.numel() * p.element_size() // ways
+                sharded += ways > 1
+            configs[arch] = {"leaves": len(specs), "sharded_leaves": sharded,
+                             "param_bytes": total, "bytes_per_device": per_device}
+        out[str(world)] = {"mesh": [list(names), list(mesh.shape)], "configs": configs}
+        dist.destroy_process_group()
+    return out
+
+
 def main_path_shapes(spec, dev):
     """Every distinct (kernel, lanes, rows, planes) among the 52 region
     launches of one ``tempi`` exchange: its geometry, the first region
@@ -4066,6 +4258,7 @@ def main() -> int:
     train = phase_train(torch, dev, card, measured)
     families = phase_families(torch, dev, card)
     recurrent = phase_recurrent(torch, dev, card, measured)
+    mesh = phase_mesh(torch, dev, card)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -4106,6 +4299,7 @@ def main() -> int:
         print(json.dumps({"program_shape": r, "card": card}))
     print(json.dumps({"timer_floor": floor, "card": card}))
     print(json.dumps({"dma_tile_sweep": sweep, "card": card}))
+    timings["mesh_s"] = mesh["phase_s"]
     timings["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"timings": timings, "card": card}))
     print(json.dumps({"kernels": kernels}))
@@ -4116,4 +4310,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:
+        mesh_child(*sys.argv[2:4])
+        sys.exit(0)
     sys.exit(main())

@@ -17,6 +17,7 @@ from repro_torch.comm.api import (
     StrategyRegistry,
     as_communicator,
     default_registry,
+    plan_neighbor_alltoallv,
     policy_for_mode,
     register_strategy,
     resolve_strategy,
@@ -45,9 +46,11 @@ from repro_torch.comm.scale import ScaleEstimate, ScalePlan, build_scale_plan, s
 from repro_torch.comm.topology import LINK_CLASSES, Topology, classify_and_coalesce
 from repro_torch.comm.transport import LocalMeshTransport
 from repro_torch.comm.wireplan import (
+    WIRE_COLLECTIVES,
     WIRE_SCHEDULES,
     WireGroup,
     WirePlan,
+    collective_payload_bytes,
     plan_wire,
     reschedule,
 )
@@ -92,13 +95,16 @@ __all__ = [
     "StrategyRegistry",
     "SystemParams",
     "Topology",
+    "WIRE_COLLECTIVES",
     "WIRE_SCHEDULES",
     "WireGroup",
     "WirePlan",
     "as_communicator",
     "build_scale_plan",
     "classify_and_coalesce",
+    "collective_payload_bytes",
     "default_registry",
+    "plan_neighbor_alltoallv",
     "plan_wire",
     "policy_for_mode",
     "register_strategy",

@@ -81,6 +81,7 @@ __all__ = [
     "WirePlan",
     "WireGroup",
     "DEFAULT_SCHEDULE_POLICY",
+    "plan_neighbor_alltoallv",
 ]
 
 StrategyLike = Union[str, "Strategy", None]
@@ -464,6 +465,10 @@ class StrategyRegistry:
             s for s in self._by_name.values() if s.selectable and not s.wire_only
         )
 
+    def copy(self) -> "StrategyRegistry":
+        """A registry of the same strategies that registers apart from this one."""
+        return StrategyRegistry(tuple(self._by_name.values()))
+
     def __iter__(self):
         return iter(self._by_name.values())
 
@@ -735,6 +740,27 @@ class NeighborRequest(Request):
 #: caller does not say: ``"model"`` prices the candidates; ``"exact"`` is
 #: the byte-exact ladder
 DEFAULT_SCHEDULE_POLICY = "model"
+
+
+def plan_neighbor_alltoallv(
+    sizes: Tuple[int, ...],
+    perms: Tuple[Tuple[Tuple[int, int], ...], ...],
+    fingerprints: Optional[Tuple[str, ...]] = None,
+    uniform_waste_tolerance: float = 0.0,
+    native: bool = False,
+) -> WirePlan:
+    """Group ``len(sizes)`` transfers (one full permutation each) into an
+    exact-byte :class:`WirePlan`: a thin alias over
+    :func:`repro_torch.comm.wireplan.plan_wire`, kept as this module's
+    public planning entry point.  ``native`` says whether the transport
+    has a native ragged all-to-all (the local mesh has not)."""
+    return plan_wire(
+        tuple(sizes),
+        tuple(tuple(map(tuple, p)) for p in perms),
+        fingerprints=fingerprints,
+        uniform_waste_tolerance=uniform_waste_tolerance,
+        native=native,
+    )
 
 
 class Communicator:

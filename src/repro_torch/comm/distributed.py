@@ -57,8 +57,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.comm.transport import (check_chunks, check_perm, correction_perm,
-                                        stream_sizes, tier_members)
+from repro_torch.comm.transport import (RECORDERS, check_chunks, check_perm, correction_perm,
+                                        record_wire, stream_sizes, tier_members)
 from repro_torch.device import resolve_device
 
 __all__ = ["DistributedTransport", "BACKEND_DEVICE", "check_backend_device"]
@@ -111,9 +111,11 @@ class DistributedTransport:
         self.ops = 0    # wire ops issued
         self.bytes = 0  # bytes this rank put on the wire
 
-    def _count(self, nbytes: int) -> None:
+    def _count(self, nbytes: int, primitive: str = "ppermute") -> None:
         self.ops += 1
         self.bytes += nbytes
+        if RECORDERS:
+            record_wire(primitive, nbytes)
 
     def _check(self, rows: torch.Tensor, nranks: Optional[int] = None) -> None:
         if rows.dim() != 2 or rows.shape[0] != 1:
@@ -205,6 +207,8 @@ class DistributedTransport:
         work = dist.all_to_all_single(out.view(-1), send.view(-1), group=self.group,
                                       async_op=True)
         self.ops += 1
+        if RECORDERS:
+            record_wire("all_to_all", send.numel() * send.element_size())
         self._wait([work])
         return out
 
@@ -305,7 +309,7 @@ class DistributedTransport:
                 sendbuf[d, :n] = wire[0, goff : goff + n]
         got = torch.empty_like(sendbuf)
         work = dist.all_to_all_single(got, sendbuf, group=self.group, async_op=True)
-        self._count(R * seg)
+        self._count(R * seg, "all_to_all")
         self._wait([work])
         return [got[s : s + 1] for s in plan.recv_rows[self.rank]]
 
@@ -328,7 +332,7 @@ class DistributedTransport:
         got = torch.empty(sum(out_splits), dtype=torch.uint8, device=wire.device)
         work = dist.all_to_all_single(got, send, out_splits, in_splits, group=self.group,
                                       async_op=True)
-        self._count(sum(sizes))
+        self._count(sum(sizes), "ragged_all_to_all")
         self._wait([work])
         starts = [sum(out_splits[:s]) for s in range(R)]
         return [got[starts[s] : starts[s] + sizes[g]].view(1, -1)

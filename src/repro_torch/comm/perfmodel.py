@@ -464,6 +464,13 @@ class PerfModel:
             math.log2(max(n_neighbors, 1)), math.log2(max(nbytes, 1))
         )
 
+    # -- per-strategy terms (delegate to the registered plugin) ---------
+    def t_pack(self, ct, incount: int, strategy) -> float:
+        return self._resolve(strategy).model_pack(self, ct, incount)
+
+    def t_unpack(self, ct, incount: int, strategy) -> float:
+        return self._resolve(strategy).model_unpack(self, ct, incount)
+
     # -- link term ------------------------------------------------------
     def _axis_wire(self, axis: Optional[str]):
         """(table, fitted latency, fitted bw) pricing one link on

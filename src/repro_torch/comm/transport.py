@@ -62,6 +62,20 @@ __all__ = ["LocalMeshTransport", "check_perm", "stream_sizes", "tier_members",
            "correction_perm"]
 
 
+#: the byte counts of the open :func:`repro_torch.comm.wireplan.collective_payload_bytes`
+#: calls, each ``{"ops": n, <primitive>: bytes, ...}``
+RECORDERS: List[Dict[str, int]] = []
+
+
+def record_wire(primitive: str, nbytes: int) -> None:
+    """Count one wire op of ``nbytes`` bytes a rank under the primitive
+    the reference's traced program names (``ppermute``, ``all_to_all``,
+    ``ragged_all_to_all``) in every open recorder."""
+    for counts in RECORDERS:
+        counts["ops"] += 1
+        counts[primitive] = counts.get(primitive, 0) + nbytes
+
+
 def check_perm(perm: Sequence[Tuple[int, int]]) -> None:
     """Raise the reference's error (``lax.ppermute``'s, word for word)
     when a source or a destination repeats in ``perm``: such a send has
@@ -133,9 +147,11 @@ class LocalMeshTransport:
         # it runs on, so the host could not run ahead of the device
         self._plan_index: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
 
-    def _count(self, nbytes: int) -> None:
+    def _count(self, nbytes: int, primitive: str = "ppermute") -> None:
         self.ops += 1
         self.bytes += nbytes
+        if RECORDERS:
+            record_wire(primitive, nbytes)
 
     def _rows(self, table, device) -> torch.Tensor:
         return torch.as_tensor(table, dtype=torch.long, device=device)
@@ -198,6 +214,8 @@ class LocalMeshTransport:
         R, npeers = rows.shape[0], rows.shape[1]
         k = check_chunks(npeers, R)
         self.ops += 1
+        if RECORDERS:
+            record_wire("all_to_all", rows[0].numel() * rows.element_size())
         chunks = rows.reshape(R, R, k, *rows.shape[2:])
         return chunks.transpose(0, 1).reshape(rows.shape).contiguous()
 
@@ -284,7 +302,7 @@ class LocalMeshTransport:
         ranks = torch.arange(R, device=wire.device).view(-1, 1)
         sendbuf = stacked[ranks, send_rows]
         got = sendbuf.transpose(0, 1).contiguous()
-        self._count(R * seg)
+        self._count(R * seg, "all_to_all")
         by_group = got[ranks, recv_rows]
         return [by_group[:, g] for g in range(G)]
 
@@ -303,7 +321,7 @@ class LocalMeshTransport:
             index = (src * total + torch.arange(total)).to(wire.device)
             self._ragged_index = ((plan.fingerprint, str(wire.device)), index)
         got = wire.reshape(-1)[index.reshape(-1)].view(plan.nranks, -1)
-        self._count(plan.wire_bytes)
+        self._count(plan.wire_bytes, "ragged_all_to_all")
         return [
             got[:, goff : goff + grp.nbytes]
             for goff, grp in zip(plan.group_offsets, plan.groups)

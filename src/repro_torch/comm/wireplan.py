@@ -55,6 +55,7 @@ from typing import Dict, List, Optional, Tuple
 
 from repro_torch.core.commit import WireSegment
 from repro_torch.comm.topology import Topology, classify_and_coalesce
+from repro_torch.comm.transport import RECORDERS
 
 __all__ = [
     "WireGroup",
@@ -62,13 +63,20 @@ __all__ = [
     "plan_wire",
     "reschedule",
     "GROUPED_FALLBACK_RANK_FACTOR",
+    "WIRE_COLLECTIVES",
     "WIRE_SCHEDULES",
+    "collective_payload_bytes",
 ]
 
 #: past ``factor * ngroups`` ranks the fused single-collective layout is
 #: mostly zero rows (non-neighbor peers); the plan then always takes the
 #: grouped per-class schedule (ROADMAP: grid-size threshold fallback)
 GROUPED_FALLBACK_RANK_FACTOR = 4.0
+
+#: primitive names that put payload on the wire in our schedules (the
+#: reference's jaxpr names: a permutation send, a uniform all-to-all, a
+#: ragged all-to-all)
+WIRE_COLLECTIVES = ("ppermute", "all_to_all", "ragged_all_to_all")
 
 #: every wire schedule a plan can carry ("tiered" needs a topology
 #: annotation, "varlen" a stream-length annotation; the exact ladder
@@ -434,3 +442,27 @@ def reschedule(plan: WirePlan, schedule: str) -> WirePlan:
             "(WirePlan.with_stream_bytes, one probed length per class)"
         )
     return dataclasses.replace(plan, schedule=schedule)
+
+
+# ===========================================================================
+# payload accounting (tests + CI regression gate)
+# ===========================================================================
+
+def collective_payload_bytes(fn, *args) -> Dict[str, int]:
+    """Run ``fn(*args)`` once and total the bytes a rank put on the wire
+    in every wire op the transports issued meanwhile, by primitive.
+
+    Returns ``{"ops": <wire op count>, "total": <bytes>, <primitive>:
+    <bytes>, ...}`` under :data:`WIRE_COLLECTIVES`' names, the reference's
+    dict.  The reference traces ``fn`` and reads its jaxpr; here the
+    transports count what they did (a grouped class is one ``ppermute``
+    of its exact bytes, a uniform exchange one padded ``all_to_all``, a
+    ragged one ``ragged_all_to_all``), so ``fn`` really runs."""
+    counts: Dict[str, int] = {"ops": 0}
+    RECORDERS.append(counts)
+    try:
+        fn(*args)
+    finally:
+        RECORDERS.remove(counts)
+    counts["total"] = sum(v for k, v in counts.items() if k != "ops")
+    return counts

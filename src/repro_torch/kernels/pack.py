@@ -39,6 +39,7 @@ __all__ = [
     "pack_dma",
     "pack_plain",
     "pack_compress_ragged",
+    "pack_ragged",
     "aligned",
     "row_args",
     "row_path",
@@ -301,6 +302,13 @@ pack_dma.launches = 0
 # ---------------------------------------------------------------------------
 # ragged wire assembly
 # ---------------------------------------------------------------------------
+
+def pack_ragged(buf: torch.Tensor, leaves, total: int) -> torch.Tensor:
+    """:func:`pack_compress_ragged` with no encoder: ``leaves`` is a
+    sequence of ``(offset, nbytes, pack_fn)``, each leaf's packed bytes
+    written straight into its exact slot of the ``(B, total)`` wire."""
+    return pack_compress_ragged(buf, [(o, n, f, None) for o, n, f in leaves], total)
+
 
 def pack_compress_ragged(buf: torch.Tensor, leaves, total: int) -> torch.Tensor:
     """Pack (and encode) every leaf straight into its slot of a flat wire

@@ -28,7 +28,7 @@ import torch
 from repro_torch.kernels.geometry import PackGeometry
 from repro_torch.kernels.pack import block_index, check_operands, dma_args, launch, row_args
 
-__all__ = ["unpack_rows", "unpack_dma", "unpack_plain", "decode_unpack_ragged"]
+__all__ = ["unpack_rows", "unpack_dma", "unpack_plain", "unpack_ragged", "decode_unpack_ragged"]
 
 
 def unpack_plain(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) -> torch.Tensor:
@@ -75,6 +75,13 @@ def unpack_dma(dst: torch.Tensor, packed: torch.Tensor, geom: PackGeometry) -> t
 
 unpack_rows.launches = 0
 unpack_dma.launches = 0
+
+
+def unpack_ragged(dst: torch.Tensor, wire: torch.Tensor, leaves) -> torch.Tensor:
+    """:func:`decode_unpack_ragged` with no decoder: ``leaves`` is a
+    sequence of ``(offset, nbytes, unpack_fn)``, each leaf's exact wire
+    segment scattered into ``dst`` in place.  Returns ``dst``."""
+    return decode_unpack_ragged(dst, wire, [(o, n, None, f) for o, n, f in leaves])
 
 
 def decode_unpack_ragged(dst: torch.Tensor, wire: torch.Tensor, leaves) -> torch.Tensor:

@@ -17,9 +17,14 @@ in the measure store's decisions file; later runs load and pin them
 smoother (:mod:`repro_torch.launch.smoother`) runs through it, and so
 through the port's pack/unpack kernels.
 
-Everything runs on one device, the card unless ``--device cpu``.  The
-reference's ``mesh`` and its sharding rules wait for the multi-card
-slice (ROADMAP Queue 1); on one card the reference takes no mesh either.
+Everything runs on one device, the card unless ``--device cpu``, or on
+a device mesh (``train(mesh=...)``, :mod:`repro_torch.launch.mesh`): the
+parameters are then DTensors placed by the reference's logical-axis
+rules (:mod:`repro_torch.distributed.sharding`), the batch is sharded
+over the batch axes and the model's activations are constrained at the
+reference's sites.  As the reference meshes itself on four devices or
+more, ``train`` builds the (2, 2) test mesh when a process group of a
+world of 4 is up; in any larger world it raises and asks for ``mesh=``.
 Starting parameters come from :meth:`Model.init` (seed 0, the port's own
 generator) unless the checkpoint directory holds a checkpoint.  As in
 the reference, a checkpoint saved after step ``s`` holds the state after
@@ -41,8 +46,14 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.configs.registry import ARCHS, get_config, smoke_config
 from repro_torch.data.pipeline import synthetic_batch
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import DEFAULT_RULES, full_tensor, shard_model, use_rules
 from repro_torch.models.model import build_model
-from repro_torch.train.checkpoint import CheckpointManager, load_train_state, train_state
+from repro_torch.train.checkpoint import (
+    CheckpointManager,
+    load_train_state,
+    train_state,
+    train_state_shardings,
+)
 from repro_torch.train.elastic import StragglerMonitor
 from repro_torch.train.grad_wire import GRAD_WIRE_MODES, GradWire
 from repro_torch.train.optimizer import AdamWConfig, init_opt_state
@@ -75,13 +86,27 @@ def train(
     comm=None,
     grad_wire: str = "off",
     device="cuda",
+    mesh=None,
 ) -> dict:
     """Train ``cfg`` for ``steps`` steps of ``global_batch`` x ``seq_len``
     synthetic tokens.  Returns ``losses``, ``grad_norms`` and ``step_s``
     (one per step run), ``params`` (the model's, by port name),
     ``opt_state``, the ``model`` and, with a communicator,
-    ``comm_stats``."""
+    ``comm_stats``.
+
+    ``mesh``: a named ``DeviceMesh`` over the whole process group (every
+    rank calls ``train``), on ``device``'s type.  Without one, a process
+    group of world 4 trains on ``make_test_mesh(2, 2)`` as the reference
+    does on four devices; a world larger than 4 raises ``ValueError``
+    (the reference would take 4 of its devices; here every rank of the
+    group must be on the mesh, so pass one built for the whole world),
+    and a smaller one trains each rank alone.  The gradient wire needs
+    one device."""
     dev = resolve_device(device)
+    mesh = _default_mesh(mesh, dev)
+    if mesh is not None and grad_wire != "off":
+        raise ValueError(f"--grad-wire {grad_wire} exchanges one device's gradients; on a mesh "
+                         f"the gradients are reduced by their placements")
     shape = ShapeConfig("train", seq_len, global_batch, "train")
     model = build_model(cfg, device=dev)
     opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype, total_steps=max(steps, 10))
@@ -100,57 +125,88 @@ def train(
     mgr = CheckpointManager(ckpt_dir, every=ckpt_every)
     monitor = StragglerMonitor()
 
-    start, restored = mgr.restore_or_init(lambda: None)
+    with use_rules(mesh, DEFAULT_RULES):
+        start, params, opt_state = _start(model, mgr, opt_cfg, mesh)
+        if start:
+            print(f"restored checkpoint at step {start}")
+
+        def state():
+            return train_state(model, params, opt_state)
+
+        history, gnorms, step_s = [], [], []
+        for step in range(start, steps):
+            t0 = time.perf_counter()
+            batch = synthetic_batch(cfg, shape, step, device=dev, mesh=mesh)
+            if wire is not None:
+                loss, metrics0, grads = grad_fn(params, batch)
+                if not wire.planned:
+                    # the first concrete gradients are the calibration probe:
+                    # the ratio is measured, never assumed
+                    wire.plan_for(grads)
+                    print(wire.describe())
+                grads = wire.exchange(grads)
+                params, opt_state, metrics = update_fn(params, opt_state, grads, loss, metrics0)
+                del grads
+            else:
+                params, opt_state, metrics = step_fn(params, opt_state, batch)
+            metrics = {k: float(full_tensor(v)) for k, v in metrics.items()}
+            dt = time.perf_counter() - t0
+            verdict = monitor.observe(step, dt)
+            if verdict == "remesh":
+                print(f"straggler policy escalation at step {step} "
+                      f"(persistently slow steps) — checkpoint + remesh")
+            history.append(metrics["loss"])
+            gnorms.append(metrics["grad_norm"])
+            step_s.append(dt)
+            if step % log_every == 0 or step == steps - 1:
+                print(f"step {step:5d} loss {metrics['loss']:.4f} "
+                      f"gnorm {metrics['grad_norm']:.3f} "
+                      f"lr {metrics['lr']:.2e} {dt * 1e3:.0f}ms [{verdict}]")
+            mgr.maybe_save(step, state)
+
+        mgr.maybe_save(steps, state)
+        out = {"losses": history, "grad_norms": gnorms, "step_s": step_s, "params": params,
+               "opt_state": opt_state, "model": model}
+        if comm is not None:
+            out["comm_stats"] = comm.stats()
+        return out
+
+
+def _default_mesh(mesh, dev: torch.device):
+    """``mesh``, or the (2, 2) test mesh when a process group of world 4
+    is up (raising above 4), as the reference meshes itself."""
+    import torch.distributed as dist
+
+    if mesh is not None or not dist.is_available() or not dist.is_initialized():
+        return mesh
+    world = dist.get_world_size()
+    if world < 4:
+        return None
+    if world > 4:
+        raise ValueError(f"train() builds its own (2, 2) mesh in a world of 4; this world has "
+                         f"{world} ranks: pass mesh= built over all of them "
+                         f"(repro_torch.launch.mesh.make_test_mesh)")
+    from repro_torch.launch.mesh import make_test_mesh
+
+    return make_test_mesh(data=2, model=2, device_type=dev.type)
+
+
+def _start(model, mgr: CheckpointManager, opt_cfg: AdamWConfig, mesh):
+    """``(start step, params, opt_state)``: restored from the newest
+    checkpoint (onto the mesh's placements, the parameters placed first
+    so the restored leaves load into their shards) or drawn by
+    ``Model.init`` (seed 0) and then placed."""
+    shardings = train_state_shardings(model, mesh, DEFAULT_RULES) if mesh is not None else None
+    start, restored = mgr.restore_or_init(lambda: None, shardings=shardings)
     if restored is None:
         model.init(seed=0)
+    if mesh is not None:
+        shard_model(model, mesh, DEFAULT_RULES)
+    if restored is None:
         params = model.trainable()
-        opt_state = init_opt_state(params, opt_cfg)
-    else:
-        params, opt_state = load_train_state(model, restored)
-        del restored
-    if start:
-        print(f"restored checkpoint at step {start}")
-
-    def state():
-        return train_state(model, params, opt_state)
-
-    history, gnorms, step_s = [], [], []
-    for step in range(start, steps):
-        t0 = time.perf_counter()
-        batch = synthetic_batch(cfg, shape, step, device=dev)
-        if wire is not None:
-            loss, metrics0, grads = grad_fn(params, batch)
-            if not wire.planned:
-                # the first concrete gradients are the calibration probe:
-                # the ratio is measured, never assumed
-                wire.plan_for(grads)
-                print(wire.describe())
-            grads = wire.exchange(grads)
-            params, opt_state, metrics = update_fn(params, opt_state, grads, loss, metrics0)
-            del grads
-        else:
-            params, opt_state, metrics = step_fn(params, opt_state, batch)
-        metrics = {k: float(v) for k, v in metrics.items()}
-        dt = time.perf_counter() - t0
-        verdict = monitor.observe(step, dt)
-        if verdict == "remesh":
-            print(f"straggler policy escalation at step {step} "
-                  f"(persistently slow steps) — checkpoint + remesh")
-        history.append(metrics["loss"])
-        gnorms.append(metrics["grad_norm"])
-        step_s.append(dt)
-        if step % log_every == 0 or step == steps - 1:
-            print(f"step {step:5d} loss {metrics['loss']:.4f} "
-                  f"gnorm {metrics['grad_norm']:.3f} "
-                  f"lr {metrics['lr']:.2e} {dt * 1e3:.0f}ms [{verdict}]")
-        mgr.maybe_save(step, state)
-
-    mgr.maybe_save(steps, state)
-    out = {"losses": history, "grad_norms": gnorms, "step_s": step_s, "params": params,
-           "opt_state": opt_state, "model": model}
-    if comm is not None:
-        out["comm_stats"] = comm.stats()
-    return out
+        return start, params, init_opt_state(params, opt_cfg)
+    params, opt_state = load_train_state(model, restored)
+    return start, params, opt_state
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:

@@ -50,8 +50,10 @@ from repro_torch.measure.store import (
     COMPATIBLE_FORMATS,
     STORE_FORMAT,
     ParamsStore,
+    ci_params_path,
     default_store,
     h100_params_path,
+    load_ci_params,
     load_h100_params,
     load_or_calibrate,
 )
@@ -65,9 +67,11 @@ __all__ = [
     "ParamsStore",
     "STORE_FORMAT",
     "calibrate_params",
+    "ci_params_path",
     "default_store",
     "fit_latency_bandwidth",
     "h100_params_path",
+    "load_ci_params",
     "load_h100_params",
     "load_or_calibrate",
     "measure_copy_table",

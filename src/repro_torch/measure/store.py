@@ -22,7 +22,8 @@ rank count.  :func:`load_or_calibrate` reads the stored tables for this
 system, or calibrates once and stores them.
 
 The tables measured on one H100 are checked in as ``h100_params.json``
-next to this module (:func:`load_h100_params`).
+next to this module (:func:`load_h100_params`), and a reduced-grid CPU
+calibration as ``ci_params.json`` (:func:`load_ci_params`).
 """
 
 from __future__ import annotations
@@ -42,7 +43,9 @@ __all__ = [
     "ParamsStore",
     "default_store",
     "load_or_calibrate",
+    "ci_params_path",
     "h100_params_path",
+    "load_ci_params",
     "load_h100_params",
 ]
 
@@ -176,5 +179,21 @@ def load_h100_params() -> SystemParams:
     if params is None:
         raise FileNotFoundError(
             f"checked-in H100 params missing or unreadable: {h100_params_path()}"
+        )
+    return params
+
+
+def ci_params_path() -> Path:
+    """The checked-in reduced-grid CPU calibration that pins CI selection
+    decisions: the port's own, written by ``python -m repro_torch.measure
+    --reduced --device cpu``."""
+    return Path(__file__).parent / "ci_params.json"
+
+
+def load_ci_params() -> SystemParams:
+    params = ParamsStore.read_envelope(ci_params_path())
+    if params is None:
+        raise FileNotFoundError(
+            f"checked-in CI params missing or unreadable: {ci_params_path()}"
         )
     return params

@@ -9,7 +9,14 @@ The port of the reference's ``repro.models.blocks``.  Parameters live
 in :class:`torch.nn.Module` s whose attribute names are the reference's
 dict keys (``attn.wq``, ``mlp.w_gate``, ...); the blocks
 themselves are plain functions ``block(p, x, ...)`` over those modules,
-as the reference's are over dicts.
+as the reference's are over dicts.  The reference's sharding
+annotations stand at its sites (``constrain``, a no-op without a mesh).
+Under a mesh, the routing of :func:`moe_route`, Mamba2's mixing between
+its projections (:func:`_mamba_mix`) and RWKV6's chunked recurrence run
+through ``local_call`` (gathered, on every rank), since DTensor has no
+sharding strategy for their sorts, cumsums, splits and chunk loops; a
+sequence-sharded activation is gathered (``unshard_seq``) before it
+meets a projection or takes a projection's output in a residual add.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import constrain, local_call, replicated, unshard_seq
 from repro_torch.models import linear_attn as la
 from repro_torch.models.layers import (
     _ACTIVATIONS,
@@ -150,12 +158,14 @@ def _apply_rope(q, k, cfg: ModelConfig, positions):
 def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions, *, causal=True):
     """Full-sequence attention (training / prefill shapes).  positions:
     (B, S) int, or (3, B, S) under M-RoPE.  Returns ``(x + o, (k, v))``."""
-    h = rms_norm(x, p.norm, cfg.norm_eps)
+    h = unshard_seq(rms_norm(x, p.norm, cfg.norm_eps))
     q, k, v = _project_qkv(p, h, cfg)
     q, k = _apply_rope(q, k, cfg, positions)
+    q = constrain(q, "batch", None, "heads", None)
+    k = constrain(k, "batch", None, "heads", None)
     o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
     o = o.reshape(*x.shape[:2], -1) @ p.wo
-    return x + o, (k, v)
+    return unshard_seq(x) + o, (k, v)
 
 
 def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, k_cache, v_cache, t,
@@ -251,15 +261,21 @@ def init_dense_block(gen: torch.Generator, cfg: ModelConfig, dtype, device=None)
 
 
 def _mlp_res(p: MLP, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    h = rms_norm(x, p.norm, cfg.norm_eps)
-    return x + gated_mlp(p, h, cfg.activation)
+    h = unshard_seq(rms_norm(x, p.norm, cfg.norm_eps))
+    return unshard_seq(x) + gated_mlp(p, h, cfg.activation)
 
 
 def dense_block(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig, positions, *, causal=True):
     """Returns ``(x, (aux, (k, v)))``: aux is the reference's float32 zero."""
     x, kv = attention(p.attn, x, cfg, positions, causal=causal)
+    x = constrain(x, "batch", "seq", None)
     x = _mlp_res(p.mlp, x, cfg)
-    return x, (torch.zeros((), dtype=torch.float32, device=x.device), kv)
+    return x, (_zero(x), kv)
+
+
+def _zero(x: torch.Tensor) -> torch.Tensor:
+    """The reference's float32 zero aux, on ``x``'s device (and mesh)."""
+    return replicated(torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def dense_block_decode(p: DenseBlock, x: torch.Tensor, cfg: ModelConfig, k_cache, v_cache, t,
@@ -292,7 +308,7 @@ def cross_attention(p: CrossAttention, x: torch.Tensor, cfg: ModelConfig, enc_kv
     """Decoder cross-attention, non-causal; ``enc_kv = (k, v)``
     precomputed from the encoder output (:func:`encode_kv`), each
     ``(B, S_enc, KV, hd)``."""
-    h = rms_norm(x, p.norm, cfg.norm_eps)
+    h = unshard_seq(rms_norm(x, p.norm, cfg.norm_eps))
     B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.hd
     q = (h @ p.wq).reshape(B, S, H, hd)
@@ -300,7 +316,7 @@ def cross_attention(p: CrossAttention, x: torch.Tensor, cfg: ModelConfig, enc_kv
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
     k, v = enc_kv
     o = flash_attention(q, k, v, causal=False)
-    return x + o.reshape(B, S, -1) @ p.wo
+    return unshard_seq(x) + o.reshape(B, S, -1) @ p.wo
 
 
 def encode_kv(p: CrossAttention, enc_out: torch.Tensor, cfg: ModelConfig):
@@ -308,6 +324,7 @@ def encode_kv(p: CrossAttention, enc_out: torch.Tensor, cfg: ModelConfig):
     every decode step reuses them): ``(B, S_enc, KV, hd)`` each."""
     B, S, _ = enc_out.shape
     KV, hd = cfg.num_kv_heads, cfg.hd
+    enc_out = unshard_seq(enc_out)
     k = (enc_out @ p.wk).reshape(B, S, KV, hd)
     v = (enc_out @ p.wv).reshape(B, S, KV, hd)
     if cfg.qk_norm:
@@ -412,10 +429,16 @@ def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tens
         raise ValueError(f"MoE routing needs the sequence ({S}) to be a multiple of the "
                          f"group size min(moe_group_size, S) = {gs}")
     nsb = S // gs
-    xg = x.reshape(B, nsb, gs, D)
+    xg = constrain(x.reshape(B, nsb, gs, D), "batch", "seq", None, None)
     cap = max(int(gs * K / E * cfg.moe_capacity_factor), 1)
+    r = local_call(_route, p.router, xg, E, K, cap)
+    return {"xg": xg, **r, "cap": cap}
 
-    logits = torch.einsum("bnsd,de->bnse", xg.float(), p.router.float())
+
+def _route(router: torch.Tensor, xg: torch.Tensor, E: int, K: int, cap: int):
+    """:func:`moe_route`'s routing of the groups ``xg`` (B, n, gs, D)."""
+    B, nsb, gs, _ = xg.shape
+    logits = torch.einsum("bnsd,de->bnse", xg.float(), router.float())
     probs = torch.softmax(logits, dim=-1)
     density = probs.mean(dim=2)                                  # (B, n, E)
     top1 = F.one_hot(probs.argmax(dim=-1), E).float()
@@ -436,8 +459,8 @@ def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tens
     combine = torch.einsum("bnsk,bnske,bnskc->bnsec", gate_vals, keep, slot_oh)
     if _ROUTES is not None:
         _ROUTES.append({"probs": probs, "gate_idx": gate_idx, "keep": keep})
-    return {"xg": xg, "gate_idx": gate_idx, "keep": keep, "slot": slot, "dispatch": dispatch,
-            "combine": combine, "cap": cap, "aux": aux}
+    return {"gate_idx": gate_idx, "keep": keep, "slot": slot, "dispatch": dispatch,
+            "combine": combine, "aux": aux}
 
 
 def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
@@ -448,10 +471,15 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     (B, S, D), aux)``."""
     B, S, D = x.shape
     r = moe_route(p, x, cfg)
-    xin = torch.einsum("bnsec,bnsd->ebncd", r["dispatch"], r["xg"].float()).to(x.dtype)
+    xin = torch.einsum("bnsec,bnsd->ebncd", r["dispatch"], r["xg"].float())
+    # "tp": seq-blocks gathered over model, the expert hidden sharded over
+    # it (GShard); "dp": tokens stay sharded and the expert weights gather
+    seq_ax, ff_ax = ("seq", None) if cfg.moe_parallel == "dp" else (None, "d_ff")
+    xin = constrain(xin.to(x.dtype), "expert", "batch", seq_ax, None, None)
     act = _ACTIVATIONS[cfg.activation]
     h = act(torch.einsum("ebncd,edf->ebncf", xin, p.w_gate)) * torch.einsum(
         "ebncd,edf->ebncf", xin, p.w_in)
+    h = constrain(h, "expert", "batch", seq_ax, None, ff_ax)
     out = torch.einsum("ebncf,efd->ebncd", h, p.w_out)
     y = torch.einsum("bnsec,ebncd->bnsd", r["combine"].to(x.dtype), out)
     return y.reshape(B, S, D), r["aux"]
@@ -460,9 +488,10 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
 def moe_block(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig, positions, *, causal=True):
     """Returns ``(x, (aux, (k, v)))``."""
     x, kv = attention(p.attn, x, cfg, positions, causal=causal)
-    h = rms_norm(x, p.moe.norm, cfg.norm_eps)
+    x = constrain(x, "batch", "seq", None)
+    h = unshard_seq(rms_norm(x, p.moe.norm, cfg.norm_eps))
     y, aux = moe_ffn(p.moe, h, cfg)
-    return x + y, (aux, kv)
+    return unshard_seq(x) + y, (aux, kv)
 
 
 def moe_block_decode(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig, k_cache, v_cache, t,
@@ -574,21 +603,28 @@ def _mamba_inner(p: Mamba2, h: torch.Tensor, cfg: ModelConfig):
 def mamba2_block(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig, positions=None):
     """Returns ``(x, (aux, None))``: aux is the reference's float32 zero."""
     ps = p.ssm
+    h = unshard_seq(rms_norm(x, ps.norm, cfg.norm_eps))
+    y = local_call(_mamba_mix, h @ ps.in_proj, ps.conv_w, ps.conv_bias, ps.dt_bias, ps.A_log,
+                   ps.skip_D, ps.out_norm, cfg)
+    return unshard_seq(x) + y @ ps.out_proj, (_zero(x), None)
+
+
+def _mamba_mix(proj, conv_w, conv_bias, dt_bias, A_log, skip_D, out_norm, cfg: ModelConfig):
+    """Between Mamba2's projections: the split into ``(z, xBC, dt)``, the
+    causal conv, the SSD recurrence, the skip and the gated norm."""
     d_inner, H, ds, conv_ch = _mamba_dims(cfg)
-    B, S, D = x.shape
-    h = rms_norm(x, ps.norm, cfg.norm_eps)
-    z, xBC, dt = _mamba_inner(ps, h, cfg)
-    xBC = F.silu(_causal_conv(xBC, ps.conv_w, ps.conv_bias))
+    B, S, _ = proj.shape
+    z, xBC, dt = torch.split(proj, [d_inner, conv_ch, H], dim=-1)
+    xBC = F.silu(_causal_conv(xBC, conv_w, conv_bias))
     xc, B_, C_ = torch.split(xBC, [d_inner, ds, ds], dim=-1)
     v = xc.reshape(B, S, H, cfg.ssm_head_dim)
-    dtp = F.softplus(dt.float() + ps.dt_bias)                            # (B, S, H)
-    log_decay = -torch.exp(ps.A_log) * dtp
+    dtp = F.softplus(dt.float() + dt_bias)                               # (B, S, H)
+    log_decay = -torch.exp(A_log) * dtp
     # B_/C_ are shared across heads (ngroups = 1): passed 3-D
     y, _ = la.chunked_scalar_decay(C_, B_, v * dtp[..., None].to(v.dtype), log_decay)
-    y = y + ps.skip_D.to(v.dtype)[None, None, :, None] * v
+    y = y + skip_D.to(v.dtype)[None, None, :, None] * v
     y = y.reshape(B, S, d_inner)
-    y = rms_norm(y * F.silu(z), ps.out_norm, cfg.norm_eps)
-    return x + y @ ps.out_proj, (torch.zeros((), dtype=torch.float32, device=x.device), None)
+    return rms_norm(y * F.silu(z), out_norm, cfg.norm_eps)
 
 
 def mamba2_block_decode(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig, conv_state,
@@ -731,12 +767,12 @@ def rwkv6_block(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig, positions=None
     B, S, D = x.shape
     H, hd = _rwkv_dims(cfg)
     if shift_t is None:
-        shift_t = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+        shift_t = replicated(torch.zeros((B, D), dtype=x.dtype, device=x.device))
     if shift_c is None:
-        shift_c = torch.zeros((B, D), dtype=x.dtype, device=x.device)
+        shift_c = replicated(torch.zeros((B, D), dtype=x.dtype, device=x.device))
 
     # time mix
-    h = rms_norm(x, pr.norm_t, cfg.norm_eps)
+    h = unshard_seq(rms_norm(x, pr.norm_t, cfg.norm_eps))
     hx = _shift(h, shift_t)
 
     def mixed(mu):
@@ -747,15 +783,14 @@ def rwkv6_block(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig, positions=None
     v = (mixed(pr.mu_v) @ pr.wv).reshape(B, S, H, hd)
     g = mixed(pr.mu_g) @ pr.wg
     log_decay = _log_decay(pr, mixed(pr.mu_w)).reshape(B, S, H, hd)
-    y, _ = la.chunked_vector_decay(r, k, v, log_decay, pr.u)
+    y, _ = local_call(la.chunked_vector_decay, r, k, v, log_decay, pr.u)
     y = rms_norm(y.reshape(B, S, D), pr.ln_x, cfg.norm_eps)
-    x = x + (y * F.silu(g)) @ pr.wo
+    x = unshard_seq(x) + (y * F.silu(g)) @ pr.wo
 
     # channel mix
-    h2 = rms_norm(x, pr.norm_c, cfg.norm_eps)
-    x = x + _channel_mix(pr, h2, _shift(h2, shift_c))
-    zero = torch.zeros((), dtype=torch.float32, device=x.device)
-    return x, (zero, (h[:, -1, :], h2[:, -1, :]))
+    h2 = unshard_seq(rms_norm(x, pr.norm_c, cfg.norm_eps))
+    x = unshard_seq(x) + _channel_mix(pr, h2, _shift(h2, shift_c))
+    return x, (_zero(x), (h[:, -1, :], h2[:, -1, :]))
 
 
 def rwkv6_block_decode(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig, shift_t, shift_c,

@@ -8,7 +8,11 @@ them: where the reference asks for a float32 product
 are exact in float32), the softmax is spelled out, and
 norms and rotary angles in float32.  No library attention kernel is used,
 so the port computes the reference's operations.  The reference's
-sharding annotations have no meaning on one card and are left out.
+sharding annotations are kept at its sites (:func:`~repro_torch.distributed.sharding.constrain`,
+a no-op without a mesh), and the rotary angles go through ``replicated``,
+so that under a mesh they combine with the DTensor activations.  Under a
+mesh the attention runs on each rank's own batch rows and heads
+(:func:`_flash_on_shards`).
 ``flash_attention`` is differentiated by the reference's chunked backward
 (``_flash_vjp``), a :class:`torch.autograd.Function` here, never by
 autograd through the chunk loop.
@@ -21,6 +25,14 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.distributed.sharding import (
+    active,
+    constrain,
+    local_offset,
+    replicated,
+    use_rules,
+)
 
 __all__ = [
     "ATTN_CHUNK",
@@ -78,7 +90,7 @@ def _rope_angles(positions: torch.Tensor, dims: int, theta: float) -> torch.Tens
     """(..., dims/2) float32 angles for integer positions."""
     exps = -torch.arange(0, dims, 2, dtype=torch.float32, device=positions.device) / dims
     # a Python base: no host-to-device copy (and no host sync) per call
-    freqs = torch.pow(float(theta), exps)
+    freqs = replicated(torch.pow(float(theta), exps))
     return positions[..., None].float() * freqs
 
 
@@ -107,7 +119,7 @@ def mrope(q: torch.Tensor, k: torch.Tensor, positions3: torch.Tensor,
     d = q.shape[-1]
     assert sum(sections) == d // 2, (sections, d)
     exps = -(torch.arange(0, d, 2, dtype=torch.float32, device=positions3.device) / d)
-    freqs = torch.pow(float(theta), exps)  # the full ladder; each section takes its slice
+    freqs = replicated(torch.pow(float(theta), exps))  # the full ladder; each section its slice
     parts, lo = [], 0
     for i, sec in enumerate(sections):
         parts.append(positions3[i][..., None].float() * freqs[lo:lo + sec])
@@ -129,6 +141,17 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
     if window is not None:
         ok = ok & (qpos[:, None] - kpos[None, :] < window)
     return ok
+
+
+def _heads_shardable(H: int) -> bool:
+    """True iff the merged H dim divides the active mesh's heads axis:
+    the merged-head layout then lets the score tensors shard.  For head
+    counts that do not divide it (qwen2's 14, qwen2-vl's 12) and with no
+    mesh, the split (KVH, G) layout is kept."""
+    mesh, rules = active()
+    if mesh is None:
+        return False
+    return rules.resolve("heads", mesh, H) is not None
 
 
 def _flash_forward(q, k, v, causal, window, q_offset, chunk, merged):
@@ -275,14 +298,54 @@ def flash_attention(
     window: Optional[int] = None,
     q_offset: int = 0,
     chunk: int = ATTN_CHUNK,
-    merged: bool = False,
+    merged: Optional[bool] = None,
 ) -> torch.Tensor:
     """Online-softmax attention over kv chunks; GQA via head grouping.
     Never materializes the (Sq, Sk) score matrix.  ``merged`` picks the
-    merged-head layout (the reference takes it when the heads divide a
-    sharded mesh axis; on one card the split layout, the default).
+    merged-head layout; by default it is taken, as the reference takes
+    it, when the heads divide the active mesh's heads axis
+    (:func:`_heads_shardable`; on one card the split layout).
     Differentiable through :class:`FlashAttention`'s chunked backward."""
+    if merged is None:
+        merged = _heads_shardable(q.shape[2])
+    if active()[0] is not None:
+        return _flash_on_shards(q, k, v, causal, window, q_offset, chunk, merged)
     return FlashAttention.apply(q, k, v, causal, window, q_offset, chunk, merged)
+
+
+def _flash_on_shards(q, k, v, causal, window, q_offset, chunk, merged):
+    """:func:`flash_attention` under a mesh, where ``q``, ``k`` and ``v``
+    are DTensors: attention is independent across batch rows and query
+    heads, so each rank runs :class:`FlashAttention` on plain tensors of
+    its own rows and heads (``q`` as the sites constrained it, sharded on
+    dims 0 and 2 at most), against the key/value heads those query heads
+    read (gathered over the head axes; their gradients are summed over
+    them), and the output keeps ``q``'s placements.  Each rank's score
+    and cotangent blocks are then the ``("batch", None, "heads", None)``
+    shards that the reference's constraints inside its chunk loop ask
+    for."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = q.device_mesh
+    q_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+                 for p in q.placements)
+    kv_pl = tuple(p if p == Shard(0) else Replicate() for p in q_pl)
+    kv_grad = tuple(Partial() if p == Shard(2) else t for p, t in zip(q_pl, kv_pl))
+    q = q.redistribute(mesh, q_pl)
+    ql = q.to_local()
+    kl = k.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    vl = v.redistribute(mesh, kv_pl).to_local(grad_placements=kv_grad)
+    G = q.shape[2] // k.shape[2]
+    lo = local_offset(q)[2]
+    hi = lo + ql.shape[2]
+    if lo % G == 0 and hi % G == 0:  # whole query groups: their key/value heads
+        kl, vl = kl[:, :, lo // G:hi // G], vl[:, :, lo // G:hi // G]
+    else:  # a group split across ranks: each query head's own key/value head
+        kl = kl.repeat_interleave(G, dim=2)[:, :, lo:hi]
+        vl = vl.repeat_interleave(G, dim=2)[:, :, lo:hi]
+    with use_rules(None):  # plain tensors: no annotation applies inside
+        out = FlashAttention.apply(ql, kl, vl, causal, window, q_offset, chunk, merged)
+    return DTensor.from_local(out, mesh, q_pl, run_check=False)
 
 
 def ring_update(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
@@ -363,4 +426,5 @@ def gated_mlp(p, x: torch.Tensor, activation: str = "silu") -> torch.Tensor:
     """``p`` carries ``w_gate``, ``w_in`` and ``w_out``."""
     act = _ACTIVATIONS[activation]
     h = act(x @ p.w_gate) * (x @ p.w_in)
+    h = constrain(h, "batch", None, "d_ff")
     return h @ p.w_out

@@ -41,6 +41,13 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import (
+    bind_rules,
+    constrain,
+    embedding_lookup,
+    replicated,
+    unshard_seq,
+)
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import init_dense, init_norm, ring_update_stacked, rms_norm
 
@@ -120,7 +127,9 @@ class Model(nn.Module):
                 f"num_layers ({cfg.num_layers}) must be a positive multiple of attn_every "
                 f"({cfg.attn_every})")
         self.cfg = cfg
-        dev = resolve_device(device)
+        # the meta device builds the shapes alone (sharding plans at full width)
+        meta = torch.device(device).type == "meta"
+        dev = torch.device("meta") if meta else resolve_device(device)
         dt = _dtype(cfg)
         layer_cls, self._block, self._block_decode = _BLOCKS[cfg.family]
         # the embedding scale rounded to the table's dtype first, as the
@@ -189,13 +198,14 @@ class Model(nn.Module):
     # embedding / head
     # ------------------------------------------------------------------
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        return self.embed.vocab[tokens.long()] * self._embed_scale
+        return embedding_lookup(self.embed.vocab, tokens) * self._embed_scale
 
     def _head(self, x: torch.Tensor) -> torch.Tensor:
         """Float32 logits (B, S, V)."""
-        x = rms_norm(x, self.final_norm, self.cfg.norm_eps)
+        x = unshard_seq(rms_norm(x, self.final_norm, self.cfg.norm_eps))
         w = self.embed.vocab.T if self.cfg.tie_embeddings else self.lm_head
-        return torch.matmul(x.float(), w.float())  # preferred_element_type=float32
+        logits = torch.matmul(x.float(), w.float())  # preferred_element_type=float32
+        return constrain(logits, "batch", None, "vocab")
 
     def _with_patches(self, x: torch.Tensor, patch_embeds: torch.Tensor) -> torch.Tensor:
         """The vision patches prepended to the token embeddings, cut back
@@ -209,7 +219,7 @@ class Model(nn.Module):
         """``arange(S)`` per row by default; a 2-D ``positions`` is
         broadcast to M-RoPE's three streams."""
         if positions is None:
-            positions = torch.arange(S, device=self.device).expand(Bsz, S)
+            positions = replicated(torch.arange(S, device=self.device).expand(Bsz, S))
         positions = positions.to(self.device)
         if self.cfg.mrope and positions.dim() == 2:
             positions = positions.expand(3, *positions.shape)
@@ -224,17 +234,18 @@ class Model(nn.Module):
         per-layer ``(k, v)`` under ``collect_kv`` (else None)."""
         cfg = self.cfg  # the encoder's layers are dense, as encdec's decoder's
         remat = cfg.remat and torch.is_grad_enabled()
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = B._zero(x)
         kvs = [] if collect_kv else None
         block = (functools.partial(self._block, causal=causal) if cfg.family in _ATTENTION
                  else self._block)
         for layer in layers:
             def body(h, layer=layer):
                 h, (a, kv) = block(layer, h, cfg, positions)
-                return h, a, kv
+                return constrain(h, "batch", "seq", None), a, kv
 
             if remat:  # keep each layer's input; recompute the rest in backward
-                x, a, kv = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+                x, a, kv = checkpoint(bind_rules(body), x, use_reentrant=False,
+                                      preserve_rng_state=False)
             else:
                 x, a, kv = body(x)
             aux = aux + a
@@ -249,18 +260,19 @@ class Model(nn.Module):
         cfg = self.cfg
         k = cfg.attn_every
         remat = cfg.remat and torch.is_grad_enabled()
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = B._zero(x)
         for g in range(cfg.num_layers // k):
             def group(h, group_layers=self.layers[g * k:(g + 1) * k]):
-                a = torch.zeros((), dtype=torch.float32, device=h.device)
+                a = B._zero(h)
                 for layer in group_layers:
                     h, (al, _) = B.mamba2_block(layer, h, cfg)
                     a = a + al
                 h, (al, _) = B.dense_block(self.shared, h, cfg, positions)
-                return h, a + al
+                return constrain(h, "batch", "seq", None), a + al
 
             if remat:
-                x, a = checkpoint(group, x, use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(bind_rules(group), x, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 x, a = group(x)
             aux = aux + a
@@ -269,15 +281,16 @@ class Model(nn.Module):
     def _run_encdec_decoder(self, x, positions, enc):
         cfg = self.cfg
         remat = cfg.remat and torch.is_grad_enabled()
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        aux = B._zero(x)
         for layer, xa in zip(self.layers, self.xattn):
             def body(h, layer=layer, xa=xa):
                 h, (a, _) = B.dense_block(layer, h, cfg, positions)
                 h = B.cross_attention(xa, h, cfg, B.encode_kv(xa, enc, cfg))
-                return h, a
+                return constrain(h, "batch", "seq", None), a
 
             if remat:
-                x, a = checkpoint(body, x, use_reentrant=False, preserve_rng_state=False)
+                x, a = checkpoint(bind_rules(body), x, use_reentrant=False,
+                                  preserve_rng_state=False)
             else:
                 x, a = body(x)
             aux = aux + a
@@ -304,6 +317,7 @@ class Model(nn.Module):
             if patch_embeds is None:
                 raise ValueError("the vlm family's forward needs patch_embeds")
             x = self._with_patches(x, patch_embeds)
+        x = constrain(x, "batch", "seq", None)
         positions = self._positions(positions, Bsz, S)
         if cfg.family == "encdec":
             if enc_embeds is None:
@@ -337,11 +351,13 @@ class Model(nn.Module):
         x = self._embed(tokens)
         if cfg.family == "vlm" and patch_embeds is not None:
             x = self._with_patches(x, patch_embeds)
+        x = constrain(x, "batch", "seq", None)
         positions = self._positions(None, Bsz, S)
         x, _, kvs = self._run_stack(self.layers, x, positions, collect_kv=True)
         kvdt = _kv_dtype(cfg)
-        cache = {"k": torch.stack([k for k, _ in kvs]).to(kvdt),
-                 "v": torch.stack([v for _, v in kvs]).to(kvdt)}
+        cache = {key: constrain(torch.stack([kv[i] for kv in kvs]).to(kvdt),
+                                None, "batch", "kv_seq", None, None)
+                 for i, key in enumerate(("k", "v"))}
         return self._head(x[:, -1:, :])[:, 0], cache
 
     # ------------------------------------------------------------------
@@ -503,9 +519,9 @@ class Model(nn.Module):
         ``(B, S_enc, D)`` (cast to the model's dtype), without a causal
         mask, then its final norm."""
         cfg = self.cfg
-        enc = enc_embeds.to(self.device, _dtype(cfg))
+        enc = constrain(enc_embeds.to(self.device, _dtype(cfg)), "batch", "seq", None)
         Bsz, Se = enc.shape[:2]
-        pos = torch.arange(Se, device=self.device).expand(Bsz, Se)
+        pos = replicated(torch.arange(Se, device=self.device).expand(Bsz, Se))
         enc, _, _ = self._run_stack(self.encoder.layers, enc, pos, causal=False)
         return rms_norm(enc, self.encoder.final_norm, cfg.norm_eps)
 
@@ -519,7 +535,7 @@ class Model(nn.Module):
 
 def build_model(cfg: ModelConfig, device="cuda") -> Model:
     """An uninitialized :class:`Model` on ``device`` (the card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``; ``"meta"`` for the shapes alone)."""
     return Model(cfg, device=device)
 
 
@@ -527,12 +543,17 @@ def _to_torch(a: Any) -> torch.Tensor:
     """A reference array (jax or numpy, bf16 included, or a tensor) as a
     CPU tensor, bit for bit."""
     if isinstance(a, torch.Tensor):
-        return a.detach().cpu()
+        # a DTensor stays where its shards are (a checkpoint restored onto a mesh)
+        return a.detach() if _is_dtensor(a) else a.detach().cpu()
     arr = np.asarray(a)
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(np.ascontiguousarray(arr).view(np.uint16).copy()).view(
             torch.bfloat16)
     return torch.from_numpy(np.array(arr, copy=True))
+
+
+def _is_dtensor(t: torch.Tensor) -> bool:
+    return hasattr(t, "device_mesh")
 
 
 def params_from_reference(cfg: ModelConfig, params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:

@@ -14,8 +14,16 @@ package restores in the other.
   restore picks the newest *complete* manifest, so a torn checkpoint
   falls back to the previous one.
 
-Leaves may be torch tensors (on any device) or numpy arrays; a restored
-tree holds CPU tensors.  A training checkpoint holds the reference's
+* **A mesh** — a tree with DTensor leaves is saved in the same format:
+  every rank gathers each leaf's full value (a collective, so every rank
+  calls :func:`save_checkpoint`), rank 0 writes, and the others wait at a
+  barrier.  ``restore_checkpoint(..., shardings=...)`` places each leaf
+  on a mesh, which need not be the one that wrote it (the elastic
+  path); :func:`train_state_shardings` gives that tree for a model.
+
+Leaves may be torch tensors (on any device), DTensors or numpy arrays;
+a restored tree holds CPU tensors, or DTensors placed by ``shardings``.
+A training checkpoint holds the reference's
 tree (:func:`train_state`): ``params.*`` in the reference's stacked
 layout (:func:`~repro_torch.models.model.params_to_reference`: ``layers``
 and ``xattn`` on ``num_layers``, ``encoder.layers`` on
@@ -36,10 +44,18 @@ from typing import Any, Callable, Dict, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.distributed.sharding import (
+    DEFAULT_RULES,
+    Sharding,
+    ShardingRules,
+    distribute,
+    placements,
+    tree_partition_specs,
+)
 from repro_torch.models.model import Model, params_from_reference, params_to_reference
 
 __all__ = ["CheckpointManager", "latest_step", "load_train_state", "restore_checkpoint",
-           "save_checkpoint", "train_state"]
+           "save_checkpoint", "train_state", "train_state_shardings"]
 
 _MANIFEST = "manifest.json"
 
@@ -72,6 +88,8 @@ def _unflatten(flat: Dict[str, Any]):
 def _host_array(v) -> Tuple[np.ndarray, str]:
     """A leaf as the host array npz stores and its manifest dtype name."""
     if isinstance(v, torch.Tensor):
+        if hasattr(v, "full_tensor"):  # a DTensor: its whole value (a collective)
+            v = v.full_tensor()
         t = v.detach().cpu().contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
@@ -90,17 +108,33 @@ def _tensor(a: np.ndarray, dtype: Optional[str]) -> torch.Tensor:
 
 def save_checkpoint(directory: str, step: int, state: Dict[str, Any], keep: int = 3) -> str:
     """Atomically write ``state`` (nested dicts of tensors or arrays) for
-    ``step``.  Returns the final path."""
-    os.makedirs(directory, exist_ok=True)
+    ``step``.  Returns the final path.  With DTensor leaves every rank of
+    their mesh calls this: each gathers the leaves, rank 0 writes, and
+    all return after a barrier."""
     final = os.path.join(directory, f"step_{step:08d}")
+    flat = _flatten(state)
+    mesh = next((v.device_mesh for v in flat.values() if hasattr(v, "device_mesh")), None)
+    arrays, dtypes = {}, {}
+    for k, v in flat.items():
+        arrays[k], dtypes[k] = _host_array(v)
+    if mesh is not None:
+        import torch.distributed as dist
+
+        if dist.get_rank() == 0:
+            _write(directory, final, step, arrays, dtypes, keep)
+        dist.barrier()
+        return final
+    _write(directory, final, step, arrays, dtypes, keep)
+    return final
+
+
+def _write(directory: str, final: str, step: int, arrays: Dict[str, np.ndarray],
+           dtypes: Dict[str, str], keep: int) -> None:
+    os.makedirs(directory, exist_ok=True)
     tmp = final + ".tmp"
     if os.path.exists(tmp):
         shutil.rmtree(tmp)
     os.makedirs(tmp)
-
-    arrays, dtypes = {}, {}
-    for k, v in _flatten(state).items():
-        arrays[k], dtypes[k] = _host_array(v)
     np.savez(os.path.join(tmp, "shards.npz"), **arrays)
     manifest = {
         "step": step,
@@ -114,7 +148,6 @@ def save_checkpoint(directory: str, step: int, state: Dict[str, Any], keep: int 
     os.rename(tmp, final)  # atomic publish
 
     _gc(directory, keep)
-    return final
 
 
 def _gc(directory: str, keep: int):
@@ -139,11 +172,15 @@ def latest_step(directory: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore_checkpoint(directory: str, step: Optional[int] = None) -> Tuple[int, Dict[str, Any]]:
+def restore_checkpoint(directory: str, step: Optional[int] = None,
+                       shardings=None) -> Tuple[int, Dict[str, Any]]:
     """Restore the newest (or ``step``) checkpoint as ``(step, tree)``,
     the tree's leaves CPU tensors (bfloat16 where the manifest says so).
-    The reference's ``shardings`` placement waits for the multi-card
-    slice (ROADMAP Queue 1)."""
+    With ``shardings`` (a matching tree of :class:`~repro_torch.distributed.sharding.Sharding`,
+    ``None`` for a leaf to leave on the host) each leaf is moved to its
+    mesh's device and placed there, every rank keeping its chunk: the
+    elastic path, onto a mesh that may differ from the one that wrote
+    the checkpoint."""
     step = latest_step(directory) if step is None else step
     if step is None:
         raise FileNotFoundError(f"no complete checkpoint under {directory}")
@@ -152,6 +189,14 @@ def restore_checkpoint(directory: str, step: Optional[int] = None) -> Tuple[int,
         manifest = json.load(f)
     with np.load(os.path.join(path, "shards.npz")) as z:
         flat = {k: _tensor(z[k], manifest["leaves"].get(k, {}).get("dtype")) for k in z.files}
+    if shardings is not None:
+        want = _flatten(shardings)
+        if set(want) != set(flat):
+            raise ValueError(f"shardings do not match the checkpoint's leaves: "
+                             f"{sorted(set(want) ^ set(flat))[:8]}")
+        for k, sh in want.items():
+            if sh is not None:
+                flat[k] = distribute(flat[k].to(sh.mesh.device_type), sh.mesh, sh.placements)
     return step, _unflatten(flat)
 
 
@@ -171,9 +216,9 @@ class CheckpointManager:
                                    self.keep)
         return None
 
-    def restore_or_init(self, init_fn):
+    def restore_or_init(self, init_fn, shardings=None):
         try:
-            return restore_checkpoint(self.directory)
+            return restore_checkpoint(self.directory, shardings=shardings)
         except FileNotFoundError:
             return 0, init_fn()
 
@@ -191,6 +236,24 @@ def train_state(model: Model, params: Dict[str, torch.Tensor], opt_state: Dict) 
             "opt": {"mu": params_to_reference(cfg, opt_state["mu"]),
                     "nu": params_to_reference(cfg, opt_state["nu"]),
                     "step": opt_state["step"].detach()}}
+
+
+def train_state_shardings(model: Model, mesh, rules: ShardingRules = DEFAULT_RULES):
+    """The :class:`Sharding` tree of :func:`train_state`'s layout on
+    ``mesh``: every ``params`` and ``opt.mu``/``opt.nu`` leaf placed by
+    the reference's rules at its stacked shape, ``opt.step`` on the host."""
+    cfg = model.cfg
+    shapes = params_to_reference(cfg, {name: torch.empty(p.shape, device="meta")
+                                       for name, p in model.named_parameters()})
+    specs = tree_partition_specs(shapes, rules, mesh)
+
+    def place(node):
+        if isinstance(node, dict):
+            return {k: place(v) for k, v in node.items()}
+        return Sharding(mesh, placements(node, mesh))
+
+    tree = place(specs)
+    return {"params": tree, "opt": {"mu": tree, "nu": tree, "step": None}}
 
 
 @torch.no_grad()

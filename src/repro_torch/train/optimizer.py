@@ -19,6 +19,10 @@ stacked layout.
 
 ``adamw_update`` updates the parameters and moments in place (the
 reference donates their buffers to its jitted step) and returns them.
+On a device mesh the parameters, gradients and moments are DTensors of
+one placement each: the update runs on every rank's shard, and
+:func:`global_norm` sums the shards' squares into the full norm, so the
+clipping and the metrics are the unsharded run's.
 """
 
 from __future__ import annotations
@@ -28,6 +32,8 @@ from dataclasses import dataclass
 from typing import Dict, Mapping, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import full_tensor, replicate_on
 
 __all__ = [
     "AdamWConfig",
@@ -75,8 +81,8 @@ def init_opt_state(params: Mapping[str, torch.Tensor], cfg: AdamWConfig) -> Dict
     mdt = _mdt(cfg)
     dev = next(iter(params.values())).device
     return {
-        "mu": {k: torch.zeros(p.shape, dtype=mdt, device=p.device) for k, p in params.items()},
-        "nu": {k: torch.zeros(p.shape, dtype=mdt, device=p.device) for k, p in params.items()},
+        "mu": {k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()},
+        "nu": {k: torch.zeros_like(p, dtype=mdt) for k, p in params.items()},
         "step": torch.zeros((), dtype=torch.int32, device=dev),
     }
 
@@ -92,10 +98,12 @@ def lr_schedule(step: torch.Tensor, cfg: AdamWConfig) -> torch.Tensor:
 
 def global_norm(tree: Mapping[str, torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum over leaves of the float32 sums of squares, added
-    leaf by leaf in the tree's order as the reference's ``sum`` does."""
+    leaf by leaf in the tree's order as the reference's ``sum`` does.  A
+    DTensor leaf's sum is reduced over its shards first; the norm is then
+    a plain 0-d tensor."""
     total = None
     for g in tree.values():
-        sq = g.to(torch.float32).square().sum()
+        sq = full_tensor(g.to(torch.float32).square().sum())
         total = sq if total is None else total + sq
     return torch.sqrt(total)
 
@@ -116,6 +124,9 @@ def adamw_update(params: Dict[str, torch.Tensor], grads: Mapping[str, torch.Tens
     b1c = 1 - torch.pow(torch.full((), cfg.b1, device=stepf.device), stepf)
     b2c = 1 - torch.pow(torch.full((), cfg.b2, device=stepf.device), stepf)
     mu, nu = state["mu"], state["nu"]
+    first = next(iter(params.values()))
+    if hasattr(first, "device_mesh"):  # the scalars join the DTensor arithmetic replicated
+        scale, lr, b1c, b2c = (replicate_on(t, first.device_mesh) for t in (scale, lr, b1c, b2c))
     for name, p in params.items():
         g = grads[name].to(torch.float32) * scale
         m32 = mu[name].to(torch.float32) * cfg.b1 + g * (1 - cfg.b1)

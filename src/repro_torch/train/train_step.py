@@ -9,6 +9,14 @@ parameters, in the reference's tree order): gradients are taken with
 respect to exactly those tensors, and the update writes them in place,
 as the reference donates its parameter buffers.  A dict that is not
 the model's own parameters raises (:func:`check_params`).
+
+A parameter the forward does not read (the encoder-decoder's
+cross-attention biases) gets a zero gradient, as ``jax.grad`` gives it.
+On a device mesh the parameters and the batch are DTensors
+(:func:`repro_torch.distributed.sharding.shard_model`,
+:func:`repro_torch.data.pipeline.shard_batch`): gradients come back
+with their parameter's placements, and a micro-batch is the same rows
+of the global batch as on one device, placed as the batch is.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import Dict, Tuple
 
 import torch
 
+from repro_torch.distributed.sharding import full_tensor, take_last
 from repro_torch.models.model import Model
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
@@ -28,10 +37,10 @@ AUX_WEIGHT = 1e-2  # MoE load-balance loss weight
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy in float32: logsumexp minus the label's
-    logit."""
+    logit (on a mesh, picked from the vocab shards: :func:`take_last`)."""
     logits = logits.to(torch.float32)
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ll = take_last(logits, labels)
     return torch.mean(lse - ll)
 
 
@@ -78,28 +87,53 @@ def _make_compute_grads(model: Model):
     def grads_of(params, batch):
         with torch.enable_grad():
             loss, metrics = loss_fn(params, batch)
-            grads = torch.autograd.grad(loss, list(params.values()))
+            grads = torch.autograd.grad(loss, list(params.values()), materialize_grads=True)
         metrics = {k: v.detach() for k, v in metrics.items()}
-        return loss.detach(), metrics, dict(zip(params, grads))
+        return loss.detach(), metrics, {k: _placed_like(g, p) for (k, p), g in
+                                        zip(params.items(), grads)}
 
     def compute_grads(params, batch):
         if n_micro == 1:
             return grads_of(params, batch)
-        micro = {k: v.reshape(n_micro, v.shape[0] // n_micro, *v.shape[1:])
-                 for k, v in batch.items()}
-        gacc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-                for k, p in params.items()}
+        gacc = {k: torch.zeros_like(p, dtype=torch.float32) for k, p in params.items()}
         lacc = torch.zeros((), dtype=torch.float32, device=model.device)
         for i in range(n_micro):
-            loss, _, grads = grads_of(params, {k: v[i] for k, v in micro.items()})
+            loss, _, grads = grads_of(params, _micro_batch(batch, i, n_micro))
             with torch.no_grad():
                 for k, g in grads.items():
                     gacc[k] = gacc[k] + g.to(torch.float32) / n_micro
-                lacc = lacc + loss / n_micro
+                lacc = lacc + full_tensor(loss) / n_micro
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
         return lacc, {"xent": lacc, "moe_aux": zero}, gacc
 
     return compute_grads
+
+
+def _placed_like(g: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
+    """``g`` with ``p``'s placements (a DTensor gradient may come back
+    partial over the batch axes: this sums it); a plain gradient as it is."""
+    if hasattr(g, "placements") and tuple(g.placements) != tuple(p.placements):
+        return g.redistribute(p.device_mesh, p.placements)
+    return g
+
+
+def _micro_batch(batch: Dict[str, torch.Tensor], i: int, n: int) -> Dict[str, torch.Tensor]:
+    """The ``i``-th of ``n`` equal micro-batches: rows ``[i B/n, (i+1)
+    B/n)`` of every entry (M-RoPE ``positions`` on dim 1).  On a mesh the
+    rows are cut from the gathered batch and placed again as it was."""
+    out = {}
+    for k, v in batch.items():
+        dim = 1 if k == "positions" else 0
+        if hasattr(v, "placements"):
+            from repro_torch.data.pipeline import shard_batch
+
+            full = v.full_tensor()
+            rows = full.shape[dim] // n
+            out.update(shard_batch({k: full.narrow(dim, i * rows, rows)}, v.device_mesh))
+        else:
+            out[k] = v.reshape(*v.shape[:dim], n, v.shape[dim] // n, *v.shape[dim + 1:]).select(
+                dim, i)
+    return out
 
 
 def make_grad_step(model: Model, opt_cfg: AdamWConfig):

@@ -396,3 +396,115 @@ def test_segments_at_odd_wire_offsets():
     assert out is buf
     np.testing.assert_array_equal(buf.numpy().reshape(R, 16, 16), want)
     assert comm.wire_payload_bytes == plan.wire_bytes == 15 + 32
+
+
+# ---------------------------------------------------------------------------
+# the public names the reference's tests use
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def exact_reference_ladder(monkeypatch):
+    """The reference planner without its native ragged collective (XLA:CPU
+    cannot run it), its ``plan_wire`` cache cleared around the patch."""
+    import repro.compat
+
+    rwp.plan_wire.cache_clear()
+    monkeypatch.setattr(repro.compat, "has_ragged_all_to_all", lambda: False)
+    yield
+    rwp.plan_wire.cache_clear()
+
+
+@pytest.mark.parametrize("grid", [(2, 2, 2), (3, 3, 3)])
+def test_plan_neighbor_alltoallv_is_the_references(grid, exact_reference_ladder):
+    from repro.comm.api import plan_neighbor_alltoallv as ref_plan
+    from repro_torch.comm import plan_neighbor_alltoallv
+
+    _, _, _, _, pairs = _halo_types()
+    spec = HaloSpec(grid=grid, interior=(6, 5, 4), radius=2)
+    perms = [spec.perm(d) for d in rhalo.DIRECTIONS]
+    sends = pairs[0::2]
+    sizes = [ct.packed_extent() for _, ct in sends]
+    fps = tuple(ct.fingerprint for _, ct in sends)
+    _same_plan(plan_neighbor_alltoallv(sizes, perms, fingerprints=fps),
+               ref_plan(sizes, perms, fingerprints=fps))
+
+
+def test_strategy_registry_copy_is_independent():
+    from repro_torch.comm import StrategyRegistry, default_registry
+    from repro_torch.comm.api import Strategy
+
+    class Probe(Strategy):
+        name = "probe_copy"
+
+    src = default_registry()
+    dup = src.copy()
+    assert isinstance(dup, StrategyRegistry) and dup is not src
+    assert dup.names() == src.names()
+    assert [dup.get(n) for n in dup.names()] == [src.get(n) for n in src.names()]
+    dup.register(Probe())
+    assert "probe_copy" in dup and "probe_copy" not in src
+    empty = StrategyRegistry()
+    other = empty.copy()
+    other.register(Probe())
+    assert len(empty) == 0 and len(other) == 1
+
+
+@pytest.mark.parametrize("params", ["tpu_v5e", "synthetic"])
+@pytest.mark.parametrize("strategy", ["rows", "dma", "xla", "ref"])
+@pytest.mark.parametrize("incount", [1, 3])
+def test_t_pack_and_t_unpack_are_the_references(params, strategy, incount):
+    ref_comm, comm, _, _, pairs = _halo_types(params=params)
+    for ref_ct, ct in pairs:
+        for term in ("t_pack", "t_unpack"):
+            got = getattr(comm.model, term)(ct, incount, strategy)
+            want = getattr(ref_comm.model, term)(ref_ct, incount, strategy)
+            assert got == pytest.approx(want, rel=1e-12, abs=0), (term, ref_ct)
+
+
+PAYLOAD_REFERENCE = r"""
+import json
+import numpy as np
+import jax
+import jax.core, jax.extend.core
+import jax.numpy as jnp
+from jax.sharding import Mesh
+import repro.compat
+# the reference's counter walks jax.core.Jaxpr, which JAX 0.9 moved to
+# jax.extend.core; its native ragged collective does not run on XLA:CPU
+jax.core.Jaxpr, jax.core.ClosedJaxpr = jax.extend.core.Jaxpr, jax.extend.core.ClosedJaxpr
+repro.compat.has_ragged_all_to_all = lambda: False
+from repro.comm import Communicator, FixedPolicy, collective_payload_bytes
+from repro.halo import HaloSpec, make_halo_plan, make_halo_step
+
+spec = HaloSpec(grid=(2, 2, 2), interior=(6, 5, 4), radius=2)
+mesh = Mesh(np.array(jax.devices()), ("ranks",))
+comm = Communicator(axis_name="ranks", policy=FixedPolicy("rows"))
+plan = make_halo_plan(spec, comm, schedule_policy="exact")
+step = make_halo_step(spec, comm, mesh, schedule_policy="exact")
+x0 = jnp.zeros((spec.nranks * spec.alloc[0],) + tuple(spec.alloc[1:]), jnp.float32)
+print(json.dumps({"counts": collective_payload_bytes(step, x0), "wire_bytes": plan.wire_bytes}))
+"""
+
+
+def test_collective_payload_bytes_of_the_halo_exchange_is_the_references():
+    from repro_torch.comm import WIRE_COLLECTIVES, collective_payload_bytes
+    from repro_torch.halo import make_halo_step
+    from tests._subproc import run_with_devices
+
+    want = json.loads(run_with_devices(PAYLOAD_REFERENCE, ndev=8).strip().splitlines()[-1])
+    spec = HaloSpec(grid=(2, 2, 2), interior=(6, 5, 4), radius=2)
+    comm = Communicator(policy=FixedPolicy("rows"), device="cpu")
+    plan = make_halo_plan(spec, comm, schedule_policy="exact")
+    step = make_halo_step(spec, comm, device="cpu", schedule_policy="exact")
+    local, _ = _halo_state(spec)
+    got = collective_payload_bytes(step, torch.from_numpy(local))
+    assert got == want["counts"]
+    assert got == {"ops": 7, "ppermute": plan.wire_bytes, "total": plan.wire_bytes}
+    assert plan.wire_bytes == want["wire_bytes"]
+    assert set(got) - {"ops", "total"} <= set(WIRE_COLLECTIVES)
+    # the other schedules name their primitives as the reference's jaxpr does
+    for sched, prim, ops in (("uniform", "all_to_all", 1), ("ragged", "ragged_all_to_all", 1)):
+        p = dataclasses.replace(plan, wire=reschedule(plan.wire, sched))
+        counts = collective_payload_bytes(
+            lambda x, p=p: halo_exchange(x, spec, comm, plan=p), torch.from_numpy(local))
+        assert counts == {"ops": ops, prim: p.wire.issued_bytes, "total": p.wire.issued_bytes}

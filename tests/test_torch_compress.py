@@ -685,3 +685,33 @@ def test_the_main_path_plan_keeps_its_strategies_and_fingerprint():
     names = [s.name for s in plan.strategies]
     assert names == [s.name for s in without.strategies]
     assert sorted(set(names)) == ["dma", "rows"] and names.count("dma") == 10
+
+@pytest.mark.parametrize("rows", [1, 3])
+def test_pack_ragged_and_unpack_ragged_are_their_long_names(rows):
+    """The reference's aliases: no encoder, no decoder."""
+    from repro_torch.kernels.pack import pack_compress_ragged, pack_ragged
+    from repro_torch.kernels.unpack import decode_unpack_ragged, unpack_ragged
+
+    gen = torch.Generator().manual_seed(rows)
+    buf = torch.randint(0, 256, (rows, 64), dtype=torch.uint8, generator=gen)
+    spans = [(0, 5, 40), (5, 16, 3), (21, 7, 20)]  # (wire offset, nbytes, source byte)
+
+    def packer(src):
+        return lambda b, out: out.copy_(b[:, src:src + out.shape[1]])
+
+    def unpacker(dst_at):
+        def unpack(dst, part):
+            dst[:, dst_at:dst_at + part.shape[1]] = part
+        return unpack
+
+    wire = pack_ragged(buf, [(o, n, packer(src)) for o, n, src in spans], 28)
+    want = pack_compress_ragged(buf, [(o, n, packer(src), None) for o, n, src in spans], 28)
+    assert torch.equal(wire, want)
+    assert torch.equal(wire[:, 5:21], buf[:, 3:19])
+    leaves = [(o, n, unpacker(src)) for o, n, src in spans]
+    got = unpack_ragged(torch.zeros_like(buf), wire, leaves)
+    ref = decode_unpack_ragged(torch.zeros_like(buf), wire,
+                               [(o, n, None, f) for o, n, f in leaves])
+    assert torch.equal(got, ref)
+    for o, n, src in spans:
+        assert torch.equal(got[:, src:src + n], buf[:, src:src + n])

@@ -1013,3 +1013,40 @@ def test_smoke_recurrent_on_the_card_equal_the_cpu(arch, family, no_tf32):
         out[str(d)] = [g.cpu() for g in got]
     for a, b in zip(out["cpu"], out[str(dev)]):
         torch.testing.assert_close(b, a, rtol=1e-3, atol=1e-3)
+
+
+@pytest.fixture
+def card_mesh(nccl_world):
+    """The (1, 1) ``("data", "model")`` mesh over the module's world of
+    one."""
+    from repro_torch.launch.mesh import make_test_mesh
+
+    return make_test_mesh(data=1, model=1, device_type="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "qwen3-32b", "seamless-m4t-large-v2",
+                                  "zamba2-2.7b", "mixtral-8x22b", "rwkv6-7b", "qwen2-vl-2b"])
+def test_smoke_mesh_step_on_the_card_equals_the_unsharded_step(arch, card_mesh, tmp_path,
+                                                               no_tf32):
+    """One step of ``train(mesh=...)`` on the card's (1, 1) mesh (every
+    family's DTensor path on the card's torch: the placed parameters, the
+    sharded lookup and label pick, the attention on shards, the gathered
+    routing and recurrences, remat) against ``train()`` without the mesh,
+    both from ``Model.init`` (seed 0), float32: loss, grad norm and the
+    updated parameters to 1e-4."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.distributed.sharding import full_tensor
+    from repro_torch.launch.train import train
+
+    dev = _card()
+    cfg = smoke_config(arch).replace(dtype="float32", remat=True)
+    runs = [train(cfg, 1, 32, 4, str(tmp_path / str(i)), ckpt_every=100, device=dev,
+                  log_every=100, mesh=mesh) for i, mesh in enumerate((None, card_mesh))]
+    plain, meshed = runs
+    assert hasattr(meshed["params"]["embed.vocab"], "placements")
+    for k in ("losses", "grad_norms"):
+        np.testing.assert_allclose(meshed[k], plain[k], rtol=1e-4)
+    for k, p in plain["params"].items():
+        torch.testing.assert_close(full_tensor(meshed["params"][k]).detach(), p.detach(),
+                                   rtol=1e-4, atol=1e-4)

@@ -3,7 +3,8 @@
 * In a fresh interpreter, importing every module of ``repro_torch``
   pulls in neither ``jax`` nor any module of the reference package
   ``repro``, builds or loads no kernel, and starts no process group
-  (``repro_torch.launch`` included).
+  (``repro_torch.launch`` included, and the mesh modules
+  ``repro_torch.distributed`` and ``repro_torch.launch.mesh``).
 * Every entry point runs on the card unless the caller passes
   ``device="cpu"``: without a card it raises instead of quietly running
   on the host.  That holds for the observed entry points too
@@ -71,6 +72,8 @@ print("SERVING", sorted(m for m in names if m.startswith(("repro_torch.models",
                                                           "repro_torch.configs"))))
 print("TRAIN", sorted(m for m in names if m.startswith(("repro_torch.data",
                                                         "repro_torch.train."))))
+print("MESH", sorted(m for m in names if m.startswith(("repro_torch.distributed",
+                                                       "repro_torch.launch.mesh"))))
 print("FORBIDDEN", bad)
 """
 
@@ -87,6 +90,7 @@ def test_no_module_imports_jax_or_the_reference():
     assert lines["HALO"] == str(["repro_torch.halo.exchange", "repro_torch.halo.program",
                                  "repro_torch.halo.stencil"])
     assert lines["LAUNCH"] == str(["repro_torch.comm.distributed",
+                                   "repro_torch.launch.mesh",
                                    "repro_torch.launch.procgroup",
                                    "repro_torch.launch.serve",
                                    "repro_torch.launch.smoother",
@@ -113,6 +117,8 @@ def test_no_module_imports_jax_or_the_reference():
         "repro_torch.data", "repro_torch.data.pipeline", "repro_torch.train.checkpoint",
         "repro_torch.train.elastic", "repro_torch.train.grad_wire",
         "repro_torch.train.optimizer", "repro_torch.train.train_step"])
+    assert lines["MESH"] == str(["repro_torch.distributed", "repro_torch.distributed.sharding",
+                                 "repro_torch.launch.mesh"])
     assert lines["FORBIDDEN"] == "[]"
 
 

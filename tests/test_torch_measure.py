@@ -342,6 +342,25 @@ def test_reference_envelope_is_read_by_the_port():
     assert json.loads(mine.to_json())["stencil_table"] == json.loads(ref.to_json())["stencil_table"]
 
 
+def test_port_ci_params_are_checked_in_and_round_trip(tmp_path):
+    """The port's own reduced-grid CPU calibration (``python -m
+    repro_torch.measure --reduced --device cpu``), not the reference's."""
+    from repro_torch.measure import ci_params_path, load_ci_params
+
+    path = ci_params_path()
+    assert path.name == "ci_params.json" and path.parent.name == "measure"
+    assert path != rmeasure.ci_params_path()
+    params = load_ci_params()
+    env = json.loads(path.read_text())
+    assert env["format"] == STORE_FORMAT and env["system_description"][0] == "cpu"
+    assert params.name == "cpu_calibrated" and params.pack_table and params.unpack_table
+    store = ParamsStore(tmp_path, device="cpu")
+    again = store.save(params, path=tmp_path / "copy.json")
+    assert ParamsStore.read_envelope(again) == params
+    ref = rmeasure.ParamsStore.read_envelope(path)  # the reference reads it too
+    assert ref.pack_table == params.pack_table and ref.ici_latency == params.link_latency
+
+
 def test_system_description_names_the_host_and_the_ranks():
     assert system_description(8, "cpu") == ("cpu", "cpu", "8", torch.__version__)
     assert system_fingerprint(8, "cpu") != system_fingerprint(4, "cpu")

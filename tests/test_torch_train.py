@@ -444,6 +444,31 @@ def test_resume_repeats_the_saved_steps_batch(slice_runs):
     assert port["losses"][0] != slice_runs["port"]["losses"][2]
 
 
+def test_encdec_qkv_bias_trains_as_the_reference(tmp_path):
+    """The encoder-decoder with ``qkv_bias``: its cross-attention biases
+    are parameters that the forward never reads.  ``jax.grad`` gives them
+    zero gradients and the port's step zero gradients too
+    (``materialize_grads``), so both train 2 steps alike from the
+    reference's initial state and the dead biases stay exactly 0."""
+    rcfg = rreg.smoke_config("seamless-m4t-large-v2").replace(dtype="float32", qkv_bias=True)
+    pcfg = smoke_config("seamless-m4t-large-v2").replace(dtype="float32", qkv_bias=True)
+    params = ref_state(rcfg)
+    opt_cfg = ropt.AdamWConfig(moment_dtype=rcfg.opt_moment_dtype, total_steps=10)
+    rckpt.save_checkpoint(str(tmp_path / "ref"), 0, {"params": params,
+                                                     "opt": ropt.init_opt_state(params, opt_cfg)})
+    shutil.copytree(tmp_path / "ref", tmp_path / "port")
+    run = dict(steps=2, seq_len=32, global_batch=2, ckpt_every=100)
+    ref = rtrain.train(rcfg, ckpt_dir=str(tmp_path / "ref"), **run)
+    port = ptrain.train(pcfg, ckpt_dir=str(tmp_path / "port"), device=CPU, **run)
+    np.testing.assert_allclose(port["losses"], ref["losses"], rtol=1e-5)
+    dead = [k for k in port["params"] if k.startswith("xattn.") and ".bias_" in k]
+    assert len(dead) == 3 * pcfg.num_layers
+    for k in dead:
+        assert not port["params"][k].any(), k
+    for k in ("bias_q", "bias_k", "bias_v"):
+        assert not np.asarray(ref["params"]["xattn"][k]).any(), k
+
+
 def _manifest(path):
     with open(os.path.join(path, "manifest.json")) as f:
         m = json.load(f)
