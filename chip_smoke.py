@@ -173,13 +173,21 @@ past float32's ``exp`` range, serves zamba2-2.7b whole through the serve
 CLI (its startup smoother through the four kernels) and zamba2-2.7b and
 rwkv6-7b whole through ``ServeLoop``, holds decode to ``forward``, and
 trains zamba2-2.7b whole and rwkv6-7b at 16 of 32 layers; it prints a
-``{"recurrent": ...}`` line.
+``{"recurrent": ...}`` line.  After ``[mesh]``, the ``[dryrun]`` phase
+(:func:`phase_dryrun`) measures the card's bf16 GEMM and HBM copy rates
+beside ``HW_H100``, walks eight full-width cells of the dry run on the
+16 x 16 and 2 x 16 x 16 production meshes in child processes under fake
+process groups (no device) and prints ``report.py``'s two tables, walks
+the ``[train]`` step beside ``train_bound`` and its measured time, and
+decodes qwen2-0.5b on the card's (1, 1) mesh against unsharded decode;
+it prints a ``{"dryrun": ...}`` line.
 
 Prints a ``{"measure": ...}`` line, a ``{"program": ...}`` line, a
 ``{"dist": ...}`` line, a ``{"compress": ...}`` line, a ``{"tiered": ...}``
 line, an ``{"obs": ...}`` line, a ``{"smoother": ...}`` line, a
 ``{"serve": ...}`` line, a ``{"train": ...}`` line, a ``{"families": ...}``
-line, a ``{"recurrent": ...}`` line, one JSON line ``{"kernels": [...]}``
+line, a ``{"recurrent": ...}`` line, a ``{"dryrun": ...}`` line, one JSON
+line ``{"kernels": [...]}``
 (``launches``: the main path's loop plus the program, dist, compress,
 tiered, obs, smoother, serve, train, families and recurrent phases),
 the card's name and power
@@ -2609,7 +2617,7 @@ def phase_train(torch, dev, card, measured):
        and seconds to save); the restored tree ``torch.equal`` to the
        saved state (seconds to restore); two resumes give equal losses,
        the first equal to batch 2's loss on the restored state.
-    Returns the phase's launches."""
+    Returns the phase's launches and its ms per step."""
     import shutil
     import tempfile
 
@@ -2943,7 +2951,7 @@ def phase_train(torch, dev, card, measured):
           f"restored {out['restore_s']:.1f} s; resumed {resumes[0]}; launches "
           f"{out['launches']}; phase {out['phase_s']:.1f} s; {card}")
     print(json.dumps({"train": out}))
-    return out["launches"]
+    return out["launches"], out["ms_per_step"]
 
 
 
@@ -3921,10 +3929,12 @@ def _mesh_child(what: str, root: str) -> dict:
 
 
 def mesh_child(what: str, root: str) -> None:
-    """A ``[mesh]`` child process: ``train`` on the card, ``plan`` on the
-    host under a fake process group.  Writes ``ROOT/WHAT.json``."""
+    """A ``[mesh]`` or ``[dryrun]`` child process: ``train`` and
+    ``decode`` on the card, ``plan`` on the host under a fake process
+    group.  Writes ``ROOT/WHAT.json``."""
     sys.path.insert(0, os.path.join(HERE, "src"))
-    out = mesh_child_train(root) if what == "train" else mesh_child_plan()
+    out = {"train": mesh_child_train, "decode": mesh_child_decode,
+           "plan": lambda _: mesh_child_plan()}[what](root)
     with open(os.path.join(root, f"{what}.json"), "w") as f:
         json.dump(out, f)
 
@@ -4024,6 +4034,250 @@ def mesh_child_plan() -> dict:
         out[str(world)] = {"mesh": [list(names), list(mesh.shape)], "configs": configs}
         dist.destroy_process_group()
     return out
+
+
+# ---------------------------------------------------------------------------
+# [dryrun]: the dry run and the roofline
+# ---------------------------------------------------------------------------
+
+#: [dryrun] cells walked at full width on both production meshes, a child
+#: process per group and mesh (the groups run at once, on the host's cores)
+DRYRUN_GROUPS = (
+    (("mixtral-8x22b", "train_4k"),),
+    (("qwen2-0.5b", "train_4k"), ("qwen2-0.5b", "prefill_32k"), ("qwen2-0.5b", "decode_32k"),
+     ("qwen2-0.5b", "long_500k"), ("zamba2-2.7b", "decode_32k"), ("zamba2-2.7b", "long_500k")),
+    (("seamless-m4t-large-v2", "prefill_32k"),),
+)
+DRYRUN_SKIPS = {("qwen2-0.5b", "long_500k")}  # the reference's rule: full attention at 500k
+DRYRUN_CHILD_TIMEOUT_S = 600
+GEMM_N = 8192              # [dryrun]: the bf16 GEMM that measures the peak, N^3
+COPY_BYTES = 4 << 30       # ... and the device-to-device copy that measures HBM
+PEAK_REPS = 10
+DRYRUN_DECODE = {"batch": 4, "max_len": 128, "steps": 16}  # the (1, 1) mesh decode
+
+
+def dryrun_peaks(torch, dev) -> dict:
+    """The card's bf16 GEMM rate (``torch.matmul`` at ``GEMM_N``^3) and its
+    HBM rate (a ``COPY_BYTES`` device-to-device ``copy_``: read and
+    written, ``2 * COPY_BYTES`` a copy), each the median of ``PEAK_REPS``
+    calls timed by CUDA events after a warm-up."""
+    def median_ms(fn):
+        for _ in range(3):
+            fn()
+        pairs = []
+        for _ in range(PEAK_REPS):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            fn()
+            e1.record()
+            pairs.append((e0, e1))
+        torch.cuda.synchronize()
+        return statistics.median(a.elapsed_time(b) for a, b in pairs)
+
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    a, b = (torch.randn((GEMM_N, GEMM_N), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    c = torch.empty_like(a)
+    gemm_ms = median_ms(lambda: torch.matmul(a, b, out=c))
+    del a, b, c
+    src = torch.ones(COPY_BYTES, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    copy_ms = median_ms(lambda: dst.copy_(src))
+    if not torch.equal(dst[:1 << 20], src[:1 << 20]):
+        fail("[dryrun] the measured copy did not copy")
+    del src, dst
+    torch.cuda.empty_cache()
+    return {"gemm_n": GEMM_N, "gemm_ms": gemm_ms, "peak_flops": 2 * GEMM_N ** 3 / gemm_ms * 1e3,
+            "copy_bytes": COPY_BYTES, "copy_ms": copy_ms,
+            "hbm_bw": 2 * COPY_BYTES / copy_ms * 1e3}
+
+
+def dryrun_train_walk(train_ms: float) -> dict:
+    """The ``[train]`` step (qwen2-0.5b full width, seq 256 x 8, one
+    device, no mesh) walked on the ``meta`` device: its counted FLOPs and
+    bytes, the roofline terms from ``HW_H100``, beside
+    :func:`train_bound`'s inputs and the step ``[train]`` measured."""
+    import torch
+
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.data.pipeline import input_specs_train
+    from repro_torch.launch import train as launch_train
+    from repro_torch.models import build_model
+    from repro_torch.roofline.analysis import HW_H100
+    from repro_torch.roofline.op_cost import walk_cost
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = launch_train.resolve_config(TRAIN_ARCH, "full")
+    S, B = TRAIN_DEFAULTS["seq_len"], TRAIN_DEFAULTS["global_batch"]
+    model = build_model(cfg, device="meta")
+    params = model.trainable()
+    opt_cfg = AdamWConfig(moment_dtype=cfg.opt_moment_dtype, total_steps=10)
+    batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+             for k, v in input_specs_train(cfg, ShapeConfig("train", S, B, "train")).items()}
+    t0 = time.perf_counter()
+    _, cost = walk_cost(make_train_step(model, opt_cfg), params, init_opt_state(params, opt_cfg),
+                        batch)
+    bound = train_bound(cfg, B, S)
+    return {"walk_s": time.perf_counter() - t0, "flops": cost.flops, "bytes": cost.bytes,
+            "coll_bytes": cost.coll_bytes, "temp_size_in_bytes": cost.temp_size_in_bytes,
+            "top_bytes": cost.top_ops(6), "t_compute_ms": cost.flops / HW_H100.peak_flops * 1e3,
+            "t_memory_ms": cost.bytes / HW_H100.hbm_bw * 1e3,
+            "bound_flops": (bound["layer_gemm_tflop"] + bound["head_tflop"]) * 1e12,
+            "bound_bytes": bound["adamw_bytes"], "bound_ms": bound["bound_ms"],
+            "measured_ms_per_step": train_ms}
+
+
+def phase_dryrun(torch, dev, card, train_ms: float):
+    """The dry run and the roofline:
+
+    1. The card's bf16 GEMM and HBM copy rates (:func:`dryrun_peaks`),
+       printed beside ``HW_H100``'s constants.
+    2. In child processes under a fake process group of 256, then 512
+       (one per group of :data:`DRYRUN_GROUPS` and mesh, all at once, on
+       the host), the cells at full width walked on the 16 x 16 and 2 x
+       16 x 16 production meshes by ``repro_torch.launch.dryrun.run_cell``
+       (no device); ``report.py``'s two tables.  Every cell must be OK,
+       but qwen2-0.5b ``long_500k``, which must be the reference's SKIP.
+    3. The ``[train]`` step walked on one device (:func:`dryrun_train_walk`).
+    4. qwen2-0.5b decode at full width in a child: ``DRYRUN_DECODE``
+       steps on the (1, 1) mesh through NCCL in a world of one against as
+       many unsharded steps from the same state (greedy tokens equal,
+       logits within ``MESH_REL`` of the largest).
+    Returns the phase's record."""
+    import tempfile
+
+    from repro_torch.roofline.analysis import HW_H100
+    from repro_torch.roofline.report import dryrun_table, roofline_table
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out = {"card": card}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dryrun_") as root:
+        children = []
+        for multi_pod in (False, True):
+            for i, cells in enumerate(DRYRUN_GROUPS):
+                name = f"cells{i}_{'2x16x16' if multi_pod else '16x16'}"
+                children.append((name, subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__), "--dryrun-child", root, name,
+                     str(int(multi_pod)), json.dumps(cells)],
+                    stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+        try:
+            out["peaks"] = dryrun_peaks(torch, dev)
+            out["train_walk"] = dryrun_train_walk(train_ms)
+            out["decode"] = _mesh_child("decode", root)
+            records = []
+            for name, proc in children:
+                stdout, stderr = proc.communicate(timeout=DRYRUN_CHILD_TIMEOUT_S)
+                if proc.returncode != 0:
+                    fail(f"[dryrun] child {name} failed (rc={proc.returncode}):\n"
+                         f"{stdout[-3000:]}\n{stderr[-3000:]}")
+                with open(os.path.join(root, f"{name}.json")) as f:
+                    records += json.load(f)
+        finally:
+            for _, proc in children:
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.communicate()
+    out["phase_s"] = time.perf_counter() - t0
+    for r in records:
+        want = "SKIP" if (r["arch"], r["shape"]) in DRYRUN_SKIPS else "OK"
+        if r["status"] != want:
+            fail(f"[dryrun] {r['arch']} x {r['shape']} x {r['mesh']}: {r['status']}, want {want}")
+    out["records"] = records
+    pk, tw, dec = out["peaks"], out["train_walk"], out["decode"]
+    print(f"[dryrun] {card}: bf16 GEMM {GEMM_N}^3 {pk['gemm_ms']:.3f} ms = "
+          f"{pk['peak_flops'] / 1e12:.1f} TFLOP/s (HW_H100.peak_flops "
+          f"{HW_H100.peak_flops / 1e12:.1f}); copy {COPY_BYTES >> 30} GiB {pk['copy_ms']:.3f} ms = "
+          f"{pk['hbm_bw'] / 1e12:.3f} TB/s read + write (HW_H100.hbm_bw "
+          f"{HW_H100.hbm_bw / 1e12:.3f})")
+    print("[dryrun] cells walked (fake process groups of 256 and 512; terms from HW_H100, "
+          f"{card}):")
+    print(dryrun_table(records))
+    print(roofline_table(records))
+    print("[dryrun] walk_s: " + ", ".join(f"{r['arch']} {r['shape']} {r['mesh']} {r['walk_s']}"
+                                          for r in records if r["status"] == "OK"))
+    print(f"[dryrun] [train] step walked on one device: {tw['flops']:.4e} FLOPs, "
+          f"{tw['bytes']:.4e} bytes -> compute {tw['t_compute_ms']:.2f} ms, memory "
+          f"{tw['t_memory_ms']:.2f} ms (HW_H100); train_bound: {tw['bound_flops']:.4e} GEMM "
+          f"FLOPs, {tw['bound_bytes']:.4e} AdamW bytes, {tw['bound_ms']:.2f} ms; measured "
+          f"{tw['measured_ms_per_step']:.1f} ms a step")
+    print(f"[dryrun] qwen2-0.5b decode, {DRYRUN_DECODE['steps']} steps: tokens equal on the "
+          f"(1, 1) mesh; logits {dec['max_abs_diff']:.3g} apart (largest {dec['max_logit']:.3g}); "
+          f"ms a step {dec['ms_plain']:.2f} unsharded, {dec['ms_mesh']:.2f} on the mesh")
+    print(json.dumps({"dryrun": {k: v for k, v in out.items() if k != "records"}}))
+    return out
+
+
+def dryrun_child(root: str, name: str, multi_pod: str, cells: str) -> None:
+    """A ``[dryrun]`` child: walk ``cells`` on a production mesh over a
+    fake process group; writes ``ROOT/NAME.json``."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.launch.dryrun import production_mesh, run_cell
+
+    mesh = production_mesh(bool(int(multi_pod)))
+    recs = [run_cell(arch, shape, mesh, verbose=False) for arch, shape in json.loads(cells)]
+    with open(os.path.join(root, f"{name}.json"), "w") as f:
+        json.dump(recs, f)
+
+
+def mesh_child_decode(root: str) -> dict:
+    """qwen2-0.5b at full width (bf16, seed 0): ``DRYRUN_DECODE`` greedy
+    decode steps without a mesh, then from the same parameters and a
+    fresh cache on the (1, 1) mesh of a world of one through NCCL."""
+    import torch
+
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.launch import train as launch_train
+    from repro_torch.launch.dryrun import _cache_shardings, place
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.launch.procgroup import destroy_process_group, init_process_group
+    from repro_torch.models import build_model
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    init_process_group("nccl", store_path=os.path.join(root, "store_decode"), rank=0,
+                       world_size=1)
+    try:
+        mesh = make_test_mesh(data=1, model=1, device_type="cuda")
+        cfg = launch_train.resolve_config(TRAIN_ARCH, "full")
+        B, L, steps = (DRYRUN_DECODE[k] for k in ("batch", "max_len", "steps"))
+        model = build_model(cfg, device=dev).init(SEED)
+        first = torch.arange(B, dtype=torch.int32, device=dev) * 7919 % cfg.vocab_size
+        rows = sh.placements((sh.DEFAULT_RULES.resolve("batch", mesh, B),), mesh)
+
+        def run(cache, on_mesh):
+            tokens, logits, ms = first, [], []
+            for t in range(steps):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.no_grad():
+                    lg, cache = model.decode_step(cache, sh.distribute(tokens, mesh, rows)
+                                                  if on_mesh else tokens, t)
+                lg = sh.full_tensor(lg).float()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                logits.append(lg)
+                tokens = lg.argmax(-1).to(torch.int32)
+            return torch.stack(logits), statistics.median(ms[1:])
+
+        plain, ms_plain = run(model.init_cache(B, L), False)
+        sh.shard_model(model, mesh)
+        with sh.use_rules(mesh):
+            cache = model.init_cache(B, L)
+            meshed, ms_mesh = run(place(cache, _cache_shardings(cache, sh.DEFAULT_RULES, mesh)),
+                                  True)
+        diff, top = float((meshed - plain).abs().max()), float(plain.abs().max())
+        if not torch.equal(meshed.argmax(-1), plain.argmax(-1)):
+            raise SystemExit("[dryrun] decode on the (1, 1) mesh chose other tokens")
+        if not diff <= MESH_REL * top:
+            raise SystemExit(f"[dryrun] decode on the (1, 1) mesh: logits {diff} apart, largest "
+                             f"{top}")
+        return {"steps": steps, "batch": B, "max_abs_diff": diff, "max_logit": top,
+                "bit_equal": diff == 0.0, "ms_plain": ms_plain, "ms_mesh": ms_mesh}
+    finally:
+        destroy_process_group()
 
 
 def main_path_shapes(spec, dev):
@@ -4255,10 +4509,11 @@ def main() -> int:
     obs = phase_obs(torch, dev, spec, card, program_window_ms)
     smoother = phase_smoother(torch, dev, card, measured)
     serve = phase_serve(torch, dev, card, measured)
-    train = phase_train(torch, dev, card, measured)
+    train, train_ms = phase_train(torch, dev, card, measured)
     families = phase_families(torch, dev, card)
     recurrent = phase_recurrent(torch, dev, card, measured)
     mesh = phase_mesh(torch, dev, card)
+    dryrun = phase_dryrun(torch, dev, card, train_ms)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
     kernels = []
@@ -4300,6 +4555,7 @@ def main() -> int:
     print(json.dumps({"timer_floor": floor, "card": card}))
     print(json.dumps({"dma_tile_sweep": sweep, "card": card}))
     timings["mesh_s"] = mesh["phase_s"]
+    timings["dryrun_s"] = dryrun["phase_s"]
     timings["total_s"] = time.perf_counter() - t_start
     print(json.dumps({"timings": timings, "card": card}))
     print(json.dumps({"kernels": kernels}))
@@ -4312,5 +4568,8 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-child"]:
         mesh_child(*sys.argv[2:4])
+        sys.exit(0)
+    if sys.argv[1:2] == ["--dryrun-child"]:
+        dryrun_child(*sys.argv[2:6])
         sys.exit(0)
     sys.exit(main())

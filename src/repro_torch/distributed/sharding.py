@@ -57,6 +57,7 @@ __all__ = [
     "placements",
     "replicate_on",
     "replicated",
+    "shard_call",
     "shard_model",
     "take_last",
     "tree_partition_specs",
@@ -320,6 +321,39 @@ def local_call(fn, *args, **kwargs):
     with use_rules(None):  # plain tensors: no annotation applies inside
         out = fn(*args, **kwargs)
     return tree_map(up, out)
+
+
+def shard_call(fn, in_placements, out_placements, *args):
+    """The reference's ``shard_map``: ``fn`` run by each rank on its own
+    blocks, with no mesh active.  Each DTensor argument is redistributed
+    to its entry of ``in_placements`` and handed over as its local block
+    (other arguments as they are); ``fn``'s tensor output, or each of a
+    tuple's, comes back as a DTensor with ``out_placements`` (a sequence
+    of them for a tuple; ``Partial`` where ranks hold summands).  As ``shard_map``
+    sums the cotangents of a replicated input, an input's gradient is
+    ``Partial`` on every mesh dim where it is replicated and an output is
+    not.  Needs a mesh."""
+    from torch.distributed.tensor import DTensor, Partial, Placement
+
+    dm = _device_mesh()
+    single = isinstance(out_placements[0], Placement)
+    outs = [out_placements] if single else out_placements
+    spread = {d for pl in outs for d, p in enumerate(pl) if not p.is_replicate()}
+
+    def down(a, pl):
+        if not isinstance(a, DTensor):
+            return a
+        grad = tuple(Partial() if p.is_replicate() and d in spread else p
+                     for d, p in enumerate(pl))
+        return a.redistribute(dm, tuple(pl)).to_local(grad_placements=grad)
+
+    local = [down(a, pl) for a, pl in zip(args, in_placements)]
+    with use_rules(None):  # plain tensors: no annotation applies inside
+        out = fn(*local)
+    if single:
+        return DTensor.from_local(out, dm, tuple(outs[0]), run_check=False)
+    return tuple(DTensor.from_local(o, dm, tuple(pl), run_check=False)
+                 for o, pl in zip(out, outs))
 
 
 def full_tensor(t: torch.Tensor) -> torch.Tensor:

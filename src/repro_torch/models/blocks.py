@@ -11,16 +11,20 @@ dict keys (``attn.wq``, ``mlp.w_gate``, ...); the blocks
 themselves are plain functions ``block(p, x, ...)`` over those modules,
 as the reference's are over dicts.  The reference's sharding
 annotations stand at its sites (``constrain``, a no-op without a mesh).
-Under a mesh, the routing of :func:`moe_route`, Mamba2's mixing between
-its projections (:func:`_mamba_mix`) and RWKV6's chunked recurrence run
-through ``local_call`` (gathered, on every rank), since DTensor has no
-sharding strategy for their sorts, cumsums, splits and chunk loops; a
-sequence-sharded activation is gathered (``unshard_seq``) before it
-meets a projection or takes a projection's output in a residual add.
+Under a mesh, Mamba2's mixing between its projections (:func:`_mamba_mix`)
+and RWKV6's chunked recurrence run through ``local_call`` (gathered, on
+every rank), since DTensor has no sharding strategy for their cumsums,
+splits and chunk loops; the MoE's routing and experts and the recurrent
+decode steps run on each rank's blocks (``shard_call``), as the
+reference's ``shard_map`` would, which also keeps DTensor's sharding
+propagation away from their many-operand products; a sequence-sharded
+activation is gathered (``unshard_seq``) before it meets a projection or
+takes a projection's output in a residual add.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional
@@ -30,7 +34,16 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import constrain, local_call, replicated, unshard_seq
+from repro_torch.distributed.sharding import (
+    active,
+    constrain,
+    local_call,
+    local_offset,
+    placements,
+    replicated,
+    shard_call,
+    unshard_seq,
+)
 from repro_torch.models import linear_attn as la
 from repro_torch.models.layers import (
     _ACTIVATIONS,
@@ -132,17 +145,48 @@ class Attention(nn.Module):
             self.k_norm.fill_(1)
 
 
+def _split_heads(t: torch.Tensor, H: int, hd: int) -> torch.Tensor:
+    """``t`` ``(..., H * hd)`` as ``(..., H, hd)``.  Under a mesh whose
+    shards of the last dim would split a head (14 heads on a model axis
+    of 16), that dim is gathered first: DTensor refuses such a view."""
+    if active()[0] is not None:
+        from torch.distributed.tensor import Replicate
+
+        last = t.dim() - 1
+        ways = math.prod(t.device_mesh.size(d) for d, q in enumerate(t.placements)
+                         if q.is_shard(last))
+        if H % ways:
+            t = t.redistribute(t.device_mesh, [Replicate() if q.is_shard(last) else q
+                                               for q in t.placements])
+    return t.reshape(*t.shape[:-1], H, hd)
+
+
+def _merge_heads(o: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
+    """``o`` ``(..., H, hd)`` with its heads merged, times ``wo`` ``(H *
+    hd, D)``.  Under a mesh whose shards of ``wo``'s rows would split a
+    head, those rows are gathered first: the backward would otherwise
+    split the sharded gradient of the merged ``o`` into heads, a view
+    DTensor refuses (see :func:`_split_heads`)."""
+    H = o.shape[-2]
+    if active()[0] is not None:
+        from torch.distributed.tensor import Replicate
+
+        ways = math.prod(wo.device_mesh.size(d) for d, q in enumerate(wo.placements)
+                         if q.is_shard(0))
+        if H % ways:
+            wo = wo.redistribute(wo.device_mesh, [Replicate() if q.is_shard(0) else q
+                                                  for q in wo.placements])
+    return o.reshape(*o.shape[:-2], -1) @ wo
+
+
 def _project_qkv(p: Attention, x: torch.Tensor, cfg: ModelConfig):
-    B, S, D = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.hd
     q = x @ p.wq
     k = x @ p.wk
     v = x @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bias_q, k + p.bias_k, v + p.bias_v
-    q = q.reshape(B, S, H, hd)
-    k = k.reshape(B, S, KV, hd)
-    v = v.reshape(B, S, KV, hd)
+    q, k, v = _split_heads(q, H, hd), _split_heads(k, KV, hd), _split_heads(v, KV, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
@@ -164,7 +208,7 @@ def attention(p: Attention, x: torch.Tensor, cfg: ModelConfig, positions, *, cau
     q = constrain(q, "batch", None, "heads", None)
     k = constrain(k, "batch", None, "heads", None)
     o = flash_attention(q, k, v, causal=causal, window=cfg.sliding_window)
-    o = o.reshape(*x.shape[:2], -1) @ p.wo
+    o = _merge_heads(o, p.wo)
     return unshard_seq(x) + o, (k, v)
 
 
@@ -192,13 +236,14 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, k_cache, v
             q, k_cache.to(q.dtype), v_cache.to(q.dtype), t,
             window=cfg.sliding_window, kpos=kpos, current=(k, v),
         )
-        o = o.reshape(x.shape[0], 1, -1) @ p.wo
+        o = _merge_heads(o, p.wo)
         return x + o, (k, v)
     if cfg.cache_update in ("ring", "dus"):
         ring_update(k_cache, k, slot)
         ring_update(v_cache, v, slot)
     elif cfg.cache_update == "onehot":
-        onehot = (torch.arange(S, device=x.device) == slot).to(k_cache.dtype)[None, :, None, None]
+        onehot = replicated(torch.arange(S, device=x.device) == slot).to(k_cache.dtype)
+        onehot = onehot[None, :, None, None]
         k_cache.copy_(k_cache * (1 - onehot) + k.to(k_cache.dtype) * onehot)
         v_cache.copy_(v_cache * (1 - onehot) + v.to(v_cache.dtype) * onehot)
     else:
@@ -208,7 +253,7 @@ def attention_decode(p: Attention, x: torch.Tensor, cfg: ModelConfig, k_cache, v
         q, k_cache.to(q.dtype), v_cache.to(q.dtype), t,
         window=cfg.sliding_window, kpos=kpos,
     )
-    o = o.reshape(x.shape[0], 1, -1) @ p.wo
+    o = _merge_heads(o, p.wo)
     return x + o, (k_cache, v_cache)
 
 
@@ -309,24 +354,22 @@ def cross_attention(p: CrossAttention, x: torch.Tensor, cfg: ModelConfig, enc_kv
     precomputed from the encoder output (:func:`encode_kv`), each
     ``(B, S_enc, KV, hd)``."""
     h = unshard_seq(rms_norm(x, p.norm, cfg.norm_eps))
-    B, S, D = x.shape
     H, hd = cfg.num_heads, cfg.hd
-    q = (h @ p.wq).reshape(B, S, H, hd)
+    q = _split_heads(h @ p.wq, H, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p.q_norm, cfg.norm_eps)
     k, v = enc_kv
     o = flash_attention(q, k, v, causal=False)
-    return unshard_seq(x) + o.reshape(B, S, -1) @ p.wo
+    return unshard_seq(x) + _merge_heads(o, p.wo)
 
 
 def encode_kv(p: CrossAttention, enc_out: torch.Tensor, cfg: ModelConfig):
     """Cross-attention K/V from the encoder output (once per sequence;
     every decode step reuses them): ``(B, S_enc, KV, hd)`` each."""
-    B, S, _ = enc_out.shape
     KV, hd = cfg.num_kv_heads, cfg.hd
     enc_out = unshard_seq(enc_out)
-    k = (enc_out @ p.wk).reshape(B, S, KV, hd)
-    v = (enc_out @ p.wv).reshape(B, S, KV, hd)
+    k = _split_heads(enc_out @ p.wk, KV, hd)
+    v = _split_heads(enc_out @ p.wv, KV, hd)
     if cfg.qk_norm:
         k = rms_norm(k, p.k_norm, cfg.norm_eps)
     return k, v
@@ -421,7 +464,8 @@ def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tens
     (B, n, gs, K), ``keep`` (B, n, gs, K, E), ``slot`` (B, n, gs, K)
     int32, ``dispatch`` and ``combine`` (B, n, gs, E, cap; ``combine``
     weighted by the gate values renormalized over the K choices),
-    ``cap`` and the load-balancing ``aux``."""
+    ``cap`` and the load-balancing ``aux``.  Under a mesh each rank routes
+    the groups of its own block of ``xg`` (:func:`_moe_groups`)."""
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     gs = min(cfg.moe_group_size, S)
@@ -429,10 +473,41 @@ def moe_route(p: MoE, x: torch.Tensor, cfg: ModelConfig) -> Dict[str, torch.Tens
         raise ValueError(f"MoE routing needs the sequence ({S}) to be a multiple of the "
                          f"group size min(moe_group_size, S) = {gs}")
     nsb = S // gs
-    xg = constrain(x.reshape(B, nsb, gs, D), "batch", "seq", None, None)
+    xg = x.reshape(B, nsb, gs, D)
     cap = max(int(gs * K / E * cfg.moe_capacity_factor), 1)
-    r = local_call(_route, p.router, xg, E, K, cap)
-    return {"xg": xg, **r, "cap": cap}
+    if active()[0] is None:
+        return {"xg": xg, **_route(p.router, xg, E, K, cap), "cap": cap}
+    from torch.distributed.tensor import Partial, Replicate
+
+    xg_pl = _moe_groups(cfg, xg.shape)
+    rep = [Replicate()] * len(xg_pl)
+    # each rank's share of the groups: its aux (a mean over its groups)
+    # scaled by it is a summand of the global mean
+    frac = 1.0 / math.prod(xg.device_mesh.size(d) for d, q in enumerate(xg_pl) if q.is_shard())
+    keys = ("gate_idx", "keep", "slot", "dispatch", "combine", "aux")
+
+    def route(router, xg_local):
+        r = _route(router, xg_local, E, K, cap)
+        r["aux"] = r["aux"] * frac
+        return tuple(r[k] for k in keys)
+
+    aux_pl = [Partial() if q.is_shard() else q for q in xg_pl]
+    out = dict(zip(keys, shard_call(route, [rep, xg_pl], [xg_pl] * 5 + [aux_pl],
+                                    p.router, xg)))
+    out["aux"] = out["aux"].redistribute(xg.device_mesh, rep)
+    return {"xg": xg.redistribute(xg.device_mesh, xg_pl), **out, "cap": cap}
+
+
+def _moe_groups(cfg: ModelConfig, shape) -> tuple:
+    """Where the MoE's groups ``(B, n, gs, D)`` live under the active
+    mesh: the batch rows on the batch axes, the sequence blocks gathered
+    under ``moe_parallel="tp"`` (the expert hidden is sharded instead)
+    and sharded on the sequence axes under ``"dp"``, as the reference's
+    constraint of the expert inputs places them."""
+    mesh, rules = active()
+    seq = "seq" if cfg.moe_parallel == "dp" else None
+    return placements(tuple(rules.resolve(a, mesh, d)
+                            for a, d in zip(("batch", seq, None, None), shape)), mesh)
 
 
 def _route(router: torch.Tensor, xg: torch.Tensor, E: int, K: int, cap: int):
@@ -468,21 +543,60 @@ def moe_ffn(p: MoE, x: torch.Tensor, cfg: ModelConfig):
     MLP over its ``cap`` slots of every group, combined back with the
     gate weights (dropped tokens get zero).  The dispatch product is
     float32, the expert products in the model's dtype.  Returns ``(y
-    (B, S, D), aux)``."""
+    (B, S, D), aux)``.  Under a mesh each rank runs its groups through
+    its blocks of the experts (:func:`_experts_on_shards`)."""
     B, S, D = x.shape
     r = moe_route(p, x, cfg)
-    xin = torch.einsum("bnsec,bnsd->ebncd", r["dispatch"], r["xg"].float())
-    # "tp": seq-blocks gathered over model, the expert hidden sharded over
-    # it (GShard); "dp": tokens stay sharded and the expert weights gather
-    seq_ax, ff_ax = ("seq", None) if cfg.moe_parallel == "dp" else (None, "d_ff")
-    xin = constrain(xin.to(x.dtype), "expert", "batch", seq_ax, None, None)
-    act = _ACTIVATIONS[cfg.activation]
-    h = act(torch.einsum("ebncd,edf->ebncf", xin, p.w_gate)) * torch.einsum(
-        "ebncd,edf->ebncf", xin, p.w_in)
-    h = constrain(h, "expert", "batch", seq_ax, None, ff_ax)
-    out = torch.einsum("ebncf,efd->ebncd", h, p.w_out)
-    y = torch.einsum("bnsec,ebncd->bnsd", r["combine"].to(x.dtype), out)
+    if active()[0] is None:
+        y = _experts(r["dispatch"], r["combine"], r["xg"], p.w_gate, p.w_in, p.w_out,
+                     activation=cfg.activation)
+    else:
+        y = _experts_on_shards(p, r, cfg)
     return y.reshape(B, S, D), r["aux"]
+
+
+def _experts(dispatch, combine, xg, w_gate, w_in, w_out, *, activation: str):
+    """The expert products of :func:`moe_ffn` on plain tensors."""
+    dt = xg.dtype
+    xin = torch.einsum("bnsec,bnsd->ebncd", dispatch, xg.float()).to(dt)
+    act = _ACTIVATIONS[activation]
+    h = act(torch.einsum("ebncd,edf->ebncf", xin, w_gate)) * torch.einsum(
+        "ebncd,edf->ebncf", xin, w_in)
+    out = torch.einsum("ebncf,efd->ebncd", h, w_out)
+    return torch.einsum("bnsec,ebncd->bnsd", combine.to(dt), out)
+
+
+def _experts_on_shards(p: MoE, r, cfg: ModelConfig) -> torch.Tensor:
+    """:func:`moe_ffn`'s experts under a mesh, each rank on plain
+    tensors (the reference's constraints, written out): its groups, as
+    :func:`_moe_groups` places them, against its blocks of the experts,
+    whose hidden dim is sharded on the ``"d_ff"`` axes under ``"tp"``
+    (gathered under ``"dp"``), the expert dim on the ``"expert"`` axes
+    and the model dim gathered.  A rank's output is then a summand over
+    the expert and hidden shards, summed across them once (an
+    all-reduce of the ``(B, n, gs, D)`` output)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+
+    mesh, rules = active()
+    ff = None if cfg.moe_parallel == "dp" else "d_ff"
+
+    def pl(axes, t):
+        return placements(tuple(rules.resolve(a, mesh, d) for a, d in zip(axes, t.shape)), mesh)
+
+    xg_pl = _moe_groups(cfg, r["xg"].shape)
+    route_pl = list(xg_pl)
+    w_in_pl = pl(("expert", None, ff), p.w_gate)
+    w_out_pl = pl(("expert", ff, None), p.w_out)
+    for d, (q, w) in enumerate(zip(xg_pl, w_in_pl)):
+        if q.is_shard() and w.is_shard():
+            raise ValueError(f"mesh dim {d} shards both the MoE groups and the experts")
+        if w.is_shard(0):
+            route_pl[d] = Shard(3)  # the dispatch's expert dim, as the weights'
+    y_pl = [Partial() if w.is_shard() else q for q, w in zip(xg_pl, w_in_pl)]
+    y = shard_call(functools.partial(_experts, activation=cfg.activation),
+                   [route_pl, route_pl, xg_pl, w_in_pl, w_in_pl, w_out_pl], y_pl,
+                   r["dispatch"], r["combine"], r["xg"], p.w_gate, p.w_in, p.w_out)
+    return y.redistribute(y.device_mesh, [Replicate() if q.is_partial() else q for q in y_pl])
 
 
 def moe_block(p: MoEBlock, x: torch.Tensor, cfg: ModelConfig, positions, *, causal=True):
@@ -632,27 +746,60 @@ def mamba2_block_decode(p: Mamba2Block, x: torch.Tensor, cfg: ModelConfig, conv_
     """x: (B, 1, D); conv_state: (B, width - 1, conv_ch) in the model's
     dtype; ssm_state: (B, H, ssm_state, head_dim) float32.  The conv runs
     in float32 and is cast back after ``silu``, as the reference's.
-    Returns ``(x, (conv_state, ssm_state))``, both new tensors."""
+    Returns ``(x, (conv_state, ssm_state))``, both new tensors.  Under a
+    mesh the step runs on each rank's batch rows and its block of the
+    state's heads (:func:`_mamba_step`)."""
     ps = p.ssm
-    d_inner, H, ds, conv_ch = _mamba_dims(cfg)
+    d_inner = _mamba_dims(cfg)[0]
     B = x.shape[0]
     h = rms_norm(x, ps.norm, cfg.norm_eps)
-    z, xBC, dt = _mamba_inner(ps, h, cfg)
-    window = torch.cat([conv_state, xBC], dim=1)                        # (B, width, ch)
-    conv = torch.einsum("bwc,wc->bc", window.float(), ps.conv_w.float()) + ps.conv_bias.float()
-    xBC1 = F.silu(conv).to(x.dtype)
-    xc, B_, C_ = torch.split(xBC1, [d_inner, ds, ds], dim=-1)
-    v = xc.reshape(B, H, cfg.ssm_head_dim)
-    dtp = F.softplus(dt[:, 0].float() + ps.dt_bias)                      # (B, H)
-    log_decay = -torch.exp(ps.A_log) * dtp
-    k = B_[:, None, :].expand(B, H, ds)
-    q = C_[:, None, :].expand(B, H, ds)
-    y, ssm_state = la.step_scalar_decay(q, k, v * dtp[..., None].to(v.dtype), log_decay,
-                                        ssm_state)
-    y = y + ps.skip_D.to(v.dtype)[None, :, None] * v
+    proj = h @ ps.in_proj
+    step = (proj, conv_state, ssm_state, ps.conv_w, ps.conv_bias, ps.dt_bias, ps.A_log,
+            ps.skip_D)
+    if active()[0] is None:
+        y, z, window, ssm_state = _mamba_step(*step, cfg=cfg)
+    else:
+        from torch.distributed.tensor import Replicate, Shard
+
+        rows = [Shard(0) if q == Shard(0) else Replicate() for q in ssm_state.placements]
+        heads = [Shard(1) if q == Shard(1) else r for q, r in zip(ssm_state.placements, rows)]
+        y_pl = [Shard(2) if q == Shard(1) else r for q, r in zip(heads, rows)]
+        rep = [Replicate()] * len(rows)
+        h0 = local_offset(ssm_state)[1]
+        y, z, window, ssm_state = shard_call(
+            lambda *a: _mamba_step(*a, cfg=cfg, h0=h0),
+            [rows, rows, heads, rep, rep, rep, rep, rep], [y_pl, rows, rows, heads], *step)
     y = y.reshape(B, 1, d_inner)
     y = rms_norm(y * F.silu(z), ps.out_norm, cfg.norm_eps)
-    return x + y @ ps.out_proj, (window[:, 1:], ssm_state)
+    return x + y @ ps.out_proj, (window, ssm_state)
+
+
+def _mamba_step(proj, conv_state, ssm_state, conv_w, conv_bias, dt_bias, A_log, skip_D, *,
+                cfg: ModelConfig, h0: int = 0):
+    """Mamba2's single step between its projections, for the heads
+    ``[h0, h0 + ssm_state.shape[1])`` (all of them on one device).
+    Returns ``(y (B, 1, H_l, head_dim), z, new conv window, new state)``."""
+    d_inner, H, ds, conv_ch = _mamba_dims(cfg)
+    B = proj.shape[0]
+    z, xBC, dt = torch.split(proj, [d_inner, conv_ch, H], dim=-1)
+    window = torch.cat([conv_state, xBC], dim=1)                        # (B, width, ch)
+    conv = torch.einsum("bwc,wc->bc", window.float(), conv_w.float()) + conv_bias.float()
+    xBC1 = F.silu(conv).to(proj.dtype)
+    xc, B_, C_ = torch.split(xBC1, [d_inner, ds, ds], dim=-1)
+    v = xc.reshape(B, H, cfg.ssm_head_dim)
+    dtp = F.softplus(dt[:, 0].float() + dt_bias)                         # (B, H)
+    log_decay = -torch.exp(A_log) * dtp
+    skip = skip_D
+    Hl = ssm_state.shape[1]
+    if Hl != H:  # this rank's heads
+        v, dtp, log_decay, skip = (a[..., h0:h0 + Hl] if a.dim() == 1 else a[:, h0:h0 + Hl]
+                                   for a in (v, dtp, log_decay, skip))
+    k = B_[:, None, :].expand(B, Hl, ds)
+    q = C_[:, None, :].expand(B, Hl, ds)
+    y, ssm_state = la.step_scalar_decay(q, k, v * dtp[..., None].to(v.dtype), log_decay,
+                                        ssm_state)
+    y = y + skip.to(v.dtype)[None, :, None] * v
+    return y[:, None], z, window[:, 1:], ssm_state
 
 
 # ===========================================================================
@@ -778,11 +925,10 @@ def rwkv6_block(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig, positions=None
     def mixed(mu):
         return h + (hx - h) * mu
 
-    r = (mixed(pr.mu_r) @ pr.wr).reshape(B, S, H, hd)
-    k = (mixed(pr.mu_k) @ pr.wk).reshape(B, S, H, hd)
-    v = (mixed(pr.mu_v) @ pr.wv).reshape(B, S, H, hd)
+    r, k, v = (_split_heads(mixed(mu) @ w, H, hd)
+               for mu, w in ((pr.mu_r, pr.wr), (pr.mu_k, pr.wk), (pr.mu_v, pr.wv)))
     g = mixed(pr.mu_g) @ pr.wg
-    log_decay = _log_decay(pr, mixed(pr.mu_w)).reshape(B, S, H, hd)
+    log_decay = _split_heads(_log_decay(pr, mixed(pr.mu_w)), H, hd)
     y, _ = local_call(la.chunked_vector_decay, r, k, v, log_decay, pr.u)
     y = rms_norm(y.reshape(B, S, D), pr.ln_x, cfg.norm_eps)
     x = unshard_seq(x) + (y * F.silu(g)) @ pr.wo
@@ -807,12 +953,20 @@ def rwkv6_block_decode(p: RWKV6Block, x: torch.Tensor, cfg: ModelConfig, shift_t
     def mixed(mu):
         return h + (shift_t - h) * mu
 
-    r = (mixed(pr.mu_r) @ pr.wr).reshape(B, H, hd)
-    k = (mixed(pr.mu_k) @ pr.wk).reshape(B, H, hd)
-    v = (mixed(pr.mu_v) @ pr.wv).reshape(B, H, hd)
+    r, k, v = (_split_heads(mixed(mu) @ w, H, hd)
+               for mu, w in ((pr.mu_r, pr.wr), (pr.mu_k, pr.wk), (pr.mu_v, pr.wv)))
     g = mixed(pr.mu_g) @ pr.wg
-    log_decay = _log_decay(pr, mixed(pr.mu_w)).reshape(B, H, hd)
-    y, wkv_state = la.step_vector_decay(r, k, v, log_decay, pr.u, wkv_state)
+    log_decay = _split_heads(_log_decay(pr, mixed(pr.mu_w)), H, hd)
+    if active()[0] is None:
+        y, wkv_state = la.step_vector_decay(r, k, v, log_decay, pr.u, wkv_state)
+    else:  # each rank's batch rows and its block of the state's heads
+        from torch.distributed.tensor import Replicate, Shard
+
+        rows = [Shard(0) if q == Shard(0) else Replicate() for q in wkv_state.placements]
+        heads = [Shard(1) if q == Shard(1) else w for q, w in zip(wkv_state.placements, rows)]
+        bonus = [Shard(0) if q == Shard(1) else Replicate() for q in heads]
+        y, wkv_state = shard_call(la.step_vector_decay, [heads] * 4 + [bonus, heads],
+                                  [heads, heads], r, k, v, log_decay, pr.u, wkv_state)
     y = rms_norm(y.reshape(B, D), pr.ln_x, cfg.norm_eps)
     x = x + ((y * F.silu(g)) @ pr.wo)[:, None, :]
 

@@ -12,7 +12,9 @@ sharding annotations are kept at its sites (:func:`~repro_torch.distributed.shar
 a no-op without a mesh), and the rotary angles go through ``replicated``,
 so that under a mesh they combine with the DTensor activations.  Under a
 mesh the attention runs on each rank's own batch rows and heads
-(:func:`_flash_on_shards`).
+(:func:`_flash_on_shards`), decode attention on each rank's block of
+cache slots (:func:`_decode_attention_on_shards`), and a ring write goes
+to the rank that owns the slot (:func:`_ring_write`).
 ``flash_attention`` is differentiated by the reference's chunked backward
 (``_flash_vjp``), a :class:`torch.autograd.Function` here, never by
 autograd through the chunk loop.
@@ -317,8 +319,8 @@ def _flash_on_shards(q, k, v, causal, window, q_offset, chunk, merged):
     """:func:`flash_attention` under a mesh, where ``q``, ``k`` and ``v``
     are DTensors: attention is independent across batch rows and query
     heads, so each rank runs :class:`FlashAttention` on plain tensors of
-    its own rows and heads (``q`` as the sites constrained it, sharded on
-    dims 0 and 2 at most), against the key/value heads those query heads
+    its own rows and heads (``q``'s batch shards, its heads over the
+    ``"heads"`` axes where they divide them), against the key/value heads those query heads
     read (gathered over the head axes; their gradients are summed over
     them), and the output keeps ``q``'s placements.  Each rank's score
     and cotangent blocks are then the ``("batch", None, "heads", None)``
@@ -327,8 +329,13 @@ def _flash_on_shards(q, k, v, causal, window, q_offset, chunk, merged):
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
     mesh = q.device_mesh
-    q_pl = tuple(p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
-                 for p in q.placements)
+    heads = active()[1].resolve("heads", mesh, q.shape[2])
+    heads = (heads,) if isinstance(heads, str) else heads or ()
+    # the query heads split over the heads axes wherever they divide them,
+    # however ``q`` arrives (a cross-attention's query may come partial)
+    q_pl = tuple(p if p == Shard(0) else
+                 Shard(2) if p == Shard(2) or name in heads else Replicate()
+                 for p, name in zip(q.placements, mesh.mesh_dim_names))
     kv_pl = tuple(p if p == Shard(0) else Replicate() for p in q_pl)
     kv_grad = tuple(Partial() if p == Shard(2) else t for p, t in zip(q_pl, kv_pl))
     q = q.redistribute(mesh, q_pl)
@@ -351,18 +358,41 @@ def _flash_on_shards(q, k, v, causal, window, q_offset, chunk, merged):
 def ring_update(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
     """Write one token into a ring-buffer cache at ``slot`` along axis 1,
     in place (the reference's one-device ``dynamic_update_slice`` on a
-    donated buffer: traffic is one row); returns ``cache``.
+    donated buffer: traffic is one row); returns ``cache``.  Under a mesh
+    that shards the sequence (``"kv_seq"``) the write goes to the owning
+    shard alone (:func:`_ring_write`).
     cache: (B, S, KV, hd); new: (B, 1, KV, hd)."""
-    s = int(slot)
-    cache[:, s:s + 1] = new.to(cache.dtype)
-    return cache
+    return _ring_write(cache, new, int(slot), 1)
 
 
 def ring_update_stacked(cache: torch.Tensor, new: torch.Tensor, slot) -> torch.Tensor:
     """Batched deferred cache write, every layer at once, in place.
     cache: (L, B, S, KV, hd); new: (L, B, 1, KV, hd).  Returns ``cache``."""
-    s = int(slot)
-    cache[:, :, s:s + 1] = new.to(cache.dtype)
+    return _ring_write(cache, new, int(slot), 2)
+
+
+def _ring_write(cache: torch.Tensor, new: torch.Tensor, s: int, dim: int) -> torch.Tensor:
+    """``cache`` with ``new`` written at index ``s`` of its sequence dim
+    ``dim``, in place.  Without a mesh, or where the rules leave the
+    sequence whole, one in-place slice write.  Under a mesh that shards
+    it, the reference's ``shard_map`` branch: ``new`` is placed as the
+    cache is, its sequence dim whole, and each rank writes the row into
+    its own block only when ``0 <= s - offset < S_local`` (``offset`` its
+    block's first slot): one row of traffic, and no collective."""
+    mesh, rules = active()
+    if mesh is None or rules.resolve("kv_seq", mesh, cache.shape[dim]) is None:
+        cache.narrow(dim, s, 1).copy_(new.to(cache.dtype))
+        return cache
+    from torch.distributed.tensor import Replicate
+
+    pl = [Replicate() if p.is_shard(dim) else p for p in cache.placements]
+    # every rank places the row (a collective when ``new`` is laid out
+    # otherwise); only the owner writes it
+    row = replicated(new).redistribute(cache.device_mesh, pl).to_local()
+    block = cache.to_local()
+    local = s - local_offset(cache)[dim]
+    if 0 <= local < block.shape[dim]:
+        block.narrow(dim, local, 1).copy_(row.to(cache.dtype))
     return cache
 
 
@@ -377,7 +407,10 @@ def decode_attention(
     current: Optional[tuple] = None,      # deferred write: (k_new, v_new) (B,1,KVH,D)
 ) -> torch.Tensor:
     """Single-token attention against a KV cache, with an explicit
-    softmax over the valid slots."""
+    softmax over the valid slots (under a mesh on each rank's cache
+    block: :func:`_decode_attention_on_shards`)."""
+    if active()[0] is not None:
+        return _decode_attention_on_shards(q, k_cache, v_cache, t, window, kpos, current)
     B, _, H, D = q.shape
     _, S, KVH, _ = k_cache.shape
     G = H // KVH
@@ -409,6 +442,68 @@ def decode_attention(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgs,bskd->bkgd", p.to(v_cache.dtype).float(), v_cache.float())
     return out.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _decode_attention_on_shards(q, k_cache, v_cache, t, window, kpos, current):
+    """:func:`decode_attention` under a mesh, where the caches are
+    DTensors sharded on batch rows (dim 0) and sequence slots (dim 1) at
+    most.  Each rank scores its query rows against its own block of slots;
+    the softmax's max and sum and the weighted values are then reduced
+    over the mesh dims that shard the slots (an all-reduce each, of
+    ``(B, KV, G)`` statistics and the ``(B, KV, G, hd)`` output): the
+    reference's cross-shard softmax reductions, written out.  Returns a
+    ``(B, 1, H, D)`` DTensor sharded on the cache's batch dims."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+
+    mesh = k_cache.device_mesh
+    kv_pl = tuple(k_cache.placements)
+    if tuple(v_cache.placements) != kv_pl or any(
+            not (p.is_replicate() or p in (Shard(0), Shard(1))) for p in kv_pl):
+        raise ValueError(f"decode_attention on a mesh takes caches sharded on batch rows and "
+                         f"slots alike; got {kv_pl} and {tuple(v_cache.placements)}")
+    row_pl = tuple(Shard(0) if p == Shard(0) else Replicate() for p in kv_pl)
+
+    def reduce(x, op):  # ``x`` summed (op: "sum") or maxed over the slot shards
+        if row_pl == kv_pl:
+            return x
+        pl = tuple(Partial(op) if p == Shard(1) else r for p, r in zip(kv_pl, row_pl))
+        return DTensor.from_local(x, mesh, pl, run_check=False).redistribute(
+            mesh, row_pl).to_local()
+
+    kl, vl = k_cache.to_local(), v_cache.to_local()
+    B_l, S_l, KVH, D = kl.shape
+    H = q.shape[2]
+    G = H // KVH
+    lo = local_offset(k_cache)[1]
+    qg = replicated(q).redistribute(mesh, row_pl).to_local().reshape(B_l, KVH, G, D)
+    if kpos is None:
+        kp = torch.arange(lo, lo + S_l, device=kl.device)
+        valid = kp <= t
+    else:
+        kp = replicated(kpos).redistribute(mesh, [Replicate()] * mesh.ndim).to_local()
+        kp = kp[lo:lo + S_l]
+        valid = (kp >= 0) & (kp <= t)
+    if window is not None:
+        valid = valid & (kp > t - window)
+    s = torch.einsum("bkgd,bskd->bkgs", qg.float(), kl.float()) / math.sqrt(D)
+    s = torch.where(valid[None, None, None, :], s, -math.inf)
+    m = reduce(s.amax(dim=-1), "max")
+    if current is not None:
+        k_cur, v_cur = (replicated(c).redistribute(mesh, row_pl).to_local() for c in current)
+        s_cur = torch.einsum("bkgd,bkd->bkg", qg.float(),
+                             k_cur[:, 0].to(qg.dtype).float()) / math.sqrt(D)
+        m = torch.maximum(m, s_cur)
+    p = torch.exp(s - m[..., None])
+    l = reduce(p.sum(dim=-1), "sum")
+    if current is not None:
+        p_cur = torch.exp(s_cur - m)
+        l = l + p_cur
+    p = p / l[..., None]
+    out = reduce(torch.einsum("bkgs,bskd->bkgd", p.to(vl.dtype).float(), vl.float()), "sum")
+    if current is not None:
+        out = out + (p_cur / l)[..., None] * v_cur[:, 0, :, None, :].float()
+    out = out.reshape(B_l, 1, H, D).to(q.dtype)
+    return DTensor.from_local(out, mesh, row_pl, run_check=False)
 
 
 # ---------------------------------------------------------------------------

@@ -432,12 +432,12 @@ class Model(nn.Module):
         x = self._embed(tokens[:, None])
         if cfg.family in ("ssm", "rwkv"):
             return self._decode_recurrent(cache, x)
-        pos = self._positions(torch.full((Bsz, 1), t, dtype=torch.long, device=self.device),
-                              Bsz, 1)
+        pos = self._positions(
+            replicated(torch.full((Bsz, 1), t, dtype=torch.long, device=self.device)), Bsz, 1)
         kc_all = cache["shared_k" if cfg.family == "hybrid" else "k"]
         S = kc_all.shape[2]
         slot = t % S
-        at_slot = torch.arange(S, device=self.device) == slot
+        at_slot = replicated(torch.arange(S, device=self.device) == slot)
         if cfg.family == "hybrid":
             return self._decode_hybrid(cache, x, t, pos, at_slot)
         if cfg.family == "encdec":

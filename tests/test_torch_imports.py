@@ -3,8 +3,10 @@
 * In a fresh interpreter, importing every module of ``repro_torch``
   pulls in neither ``jax`` nor any module of the reference package
   ``repro``, builds or loads no kernel, and starts no process group
-  (``repro_torch.launch`` included, and the mesh modules
-  ``repro_torch.distributed`` and ``repro_torch.launch.mesh``).
+  (``repro_torch.launch`` included, the mesh modules
+  ``repro_torch.distributed`` and ``repro_torch.launch.mesh``, and the dry
+  run and roofline, ``repro_torch.launch.{dryrun,diagnose}`` and
+  ``repro_torch.roofline``).
 * Every entry point runs on the card unless the caller passes
   ``device="cpu"``: without a card it raises instead of quietly running
   on the host.  That holds for the observed entry points too
@@ -74,6 +76,8 @@ print("TRAIN", sorted(m for m in names if m.startswith(("repro_torch.data",
                                                         "repro_torch.train."))))
 print("MESH", sorted(m for m in names if m.startswith(("repro_torch.distributed",
                                                        "repro_torch.launch.mesh"))))
+print("ROOFLINE", sorted(m for m in names if m.startswith(("repro_torch.roofline",
+                                                           "repro_torch.launch.d"))))
 print("FORBIDDEN", bad)
 """
 
@@ -90,6 +94,8 @@ def test_no_module_imports_jax_or_the_reference():
     assert lines["HALO"] == str(["repro_torch.halo.exchange", "repro_torch.halo.program",
                                  "repro_torch.halo.stencil"])
     assert lines["LAUNCH"] == str(["repro_torch.comm.distributed",
+                                   "repro_torch.launch.diagnose",
+                                   "repro_torch.launch.dryrun",
                                    "repro_torch.launch.mesh",
                                    "repro_torch.launch.procgroup",
                                    "repro_torch.launch.serve",
@@ -119,6 +125,10 @@ def test_no_module_imports_jax_or_the_reference():
         "repro_torch.train.optimizer", "repro_torch.train.train_step"])
     assert lines["MESH"] == str(["repro_torch.distributed", "repro_torch.distributed.sharding",
                                  "repro_torch.launch.mesh"])
+    assert lines["ROOFLINE"] == str(["repro_torch.launch.diagnose", "repro_torch.launch.dryrun",
+                                     "repro_torch.roofline", "repro_torch.roofline.analysis",
+                                     "repro_torch.roofline.op_cost",
+                                     "repro_torch.roofline.report"])
     assert lines["FORBIDDEN"] == "[]"
 
 
@@ -200,3 +210,22 @@ def test_training_entry_point_runs_on_the_cpu_when_asked(tmp_path):
         set_default_halo_steps(before)
     assert out["model"].device == torch.device("cpu") and len(out["losses"]) == 1
     assert all(p.device.type == "cpu" for p in out["params"].values())
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """``chip_smoke.py`` names no import of ``jax`` or ``repro``, and
+    loading it (its phases import the port lazily) pulls in neither."""
+    import re
+
+    path = os.path.join(REPO, "chip_smoke.py")
+    src = open(path).read()
+    assert not re.findall(r"^\s*(?:import|from)\s+(?:jax|jaxlib|repro)(?:\.|\s|$)", src, re.M)
+    code = (f"import importlib.util, sys\n"
+            f"spec = importlib.util.spec_from_file_location('chip_smoke', {path!r})\n"
+            f"spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+            f"print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro')))")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]"
