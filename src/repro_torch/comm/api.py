@@ -57,7 +57,7 @@ from repro_torch.kernels import ref as refk
 from repro_torch.kernels.geometry import PackGeometry, plan_geometry
 from repro_torch.kernels.pack import pack_compress_ragged, pack_dma, pack_rows
 from repro_torch.kernels.unpack import decode_unpack_ragged, unpack_dma, unpack_rows
-from repro_torch.obs.trace import synchronize
+from repro_torch.obs.trace import region, synchronize
 
 __all__ = [
     "Strategy",
@@ -713,18 +713,20 @@ class NeighborRequest(Request):
         """Drain one class: the first whose wire op has already finished,
         else the first pending one in plan order; enqueue its unpacks
         into :attr:`buffer` and return it.  Raises ``ValueError`` once
-        every class is drained."""
-        pend = self.pending
-        if not pend:
-            raise ValueError("wait_any() on a fully drained request")
-        pick = next((c for c in pend if c.ready()), pend[0])
-        pick.unpack_into(self._buf)
-        self.drained.append(pick.index)
-        if self._on_drain is not None:
-            self._on_drain(self, pick)
-        if len(self.drained) == len(self.classes):
-            self._value = self._buf
-        return pick
+        every class is drained.  Each drain is one ``tempi.unpack``
+        range (:func:`~repro_torch.obs.trace.region`)."""
+        with region("unpack"):
+            pend = self.pending
+            if not pend:
+                raise ValueError("wait_any() on a fully drained request")
+            pick = next((c for c in pend if c.ready()), pend[0])
+            pick.unpack_into(self._buf)
+            self.drained.append(pick.index)
+            if self._on_drain is not None:
+                self._on_drain(self, pick)
+            if len(self.drained) == len(self.classes):
+                self._value = self._buf
+            return pick
 
     def wait(self) -> torch.Tensor:
         while self._value is _PENDING:
@@ -1155,53 +1157,58 @@ class Communicator:
         writes the packed cells must first drain every class.
 
         Under an active tracer the pack and the wire are ``pack`` and
-        ``wire`` spans, each synchronized at its end; with telemetry or a
-        tracer attached each drained class is observed
-        (:meth:`_observed_drain`)."""
-        if not (len(send_cts) == len(recv_cts) == len(perms)):
-            raise ValueError("send_cts, recv_cts, perms must align")
-        self._check(buf)
-        n = len(send_cts)
-        if n == 0:
-            return NeighborRequest(buf, ())
-        if strategies is None:
-            strategies = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
-        if plan is None:
-            _, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
-        elif len(plan.segments) != n:
-            raise ValueError(
-                f"wire plan describes {len(plan.segments)} transfers, got {n} send types"
-            )
+        ``wire`` spans, each synchronized at its end; with telemetry or an
+        active tracer attached each drained class is observed
+        (:meth:`_observed_drain`).  The host's work lies in ``tempi.*``
+        ranges (:func:`~repro_torch.obs.trace.region`): ``prep`` before
+        the first pack and again after the wire, ``pack``, ``wire``, and
+        one ``unpack`` per drained class."""
+        with region("prep"):
+            if not (len(send_cts) == len(recv_cts) == len(perms)):
+                raise ValueError("send_cts, recv_cts, perms must align")
+            self._check(buf)
+            n = len(send_cts)
+            if n == 0:
+                return NeighborRequest(buf, ())
+            if strategies is None:
+                strategies = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
+            if plan is None:
+                _, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
+            elif len(plan.segments) != n:
+                raise ValueError(
+                    f"wire plan describes {len(plan.segments)} transfers, got {n} send types"
+                )
 
-        def leaf_packer(strat: Strategy, ct: CommittedType):
-            # a compressor's member bytes are gathered by the static
-            # choice's kernels and encoded into the slot; every other
-            # strategy packs its wire format straight into the slot
-            enc = getattr(strat, "encode_wire", None)
-            if enc is not None:
-                return (lambda b, out: ops.pack(b, ct, batched=True)), enc
-            return (lambda b, out: strat.pack(b, ct, out=out, batched=True)), None
+            def leaf_packer(strat: Strategy, ct: CommittedType):
+                # a compressor's member bytes are gathered by the static
+                # choice's kernels and encoded into the slot; every other
+                # strategy packs its wire format straight into the slot
+                enc = getattr(strat, "encode_wire", None)
+                if enc is not None:
+                    return (lambda b, out: ops.pack(b, ct, batched=True)), enc
+                return (lambda b, out: strat.pack(b, ct, out=out, batched=True)), None
 
-        leaves = [(plan.segments[i].offset, plan.segments[i].nbytes,
-                   *leaf_packer(strategies[i], send_cts[i])) for i in range(n)]
-        events: List[Optional[torch.cuda.Event]] = [None] * plan.ngroups
-        on_class = None
-        if buf.is_cuda:
-            side = self._side_stream()
-            side.wait_stream(torch.cuda.current_stream(buf.device))
-            # the side stream reads buf: keep its memory from being handed
-            # out again before those reads are done
-            buf.record_stream(side)
+            leaves = [(plan.segments[i].offset, plan.segments[i].nbytes,
+                       *leaf_packer(strategies[i], send_cts[i])) for i in range(n)]
+            events: List[Optional[torch.cuda.Event]] = [None] * plan.ngroups
+            on_class = None
+            if buf.is_cuda:
+                side = self._side_stream()
+                side.wait_stream(torch.cuda.current_stream(buf.device))
+                # the side stream reads buf: keep its memory from being
+                # handed out again before those reads are done
+                buf.record_stream(side)
 
-            def on_class(g: int) -> None:
-                events[g] = torch.cuda.Event()
-                events[g].record(side)
+                def on_class(g: int) -> None:
+                    events[g] = torch.cuda.Event()
+                    events[g].record(side)
 
-        observed = self.telemetry is not None or self.tracer is not None
-        tracing = observed and self._tracing_spans()
-        with torch.cuda.stream(side) if buf.is_cuda else contextlib.nullcontext():
+            tracing = self._tracing_spans()
+            observed = self.telemetry is not None or tracing
             if tracing:
                 t_pack, t_wire, _ = self._phase_predictions(send_cts, strategies, plan)
+        with torch.cuda.stream(side) if buf.is_cuda else contextlib.nullcontext():
+            if tracing:
                 with self.tracer.span("pack", pred=t_pack, nbytes=plan.wire_bytes):
                     wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
                     synchronize(wire)
@@ -1210,52 +1217,55 @@ class Communicator:
                     group_rows = self.transport.exchange(wire, plan, on_class)
                     synchronize(wire)
             else:
-                wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
-                group_rows = self.transport.exchange(wire, plan, on_class)
-        varlen = plan.schedule == "varlen"
-        if varlen:
-            self.compress_exchanges += 1
-            self.compress_capacity_bytes += plan.wire_bytes
-            self.compress_stream_bytes += plan.effective_wire_bytes
-            if self.telemetry is not None:
-                self.telemetry.observe(f"{plan.fingerprint}/ratio", plan.stream_ratio)
-        sizes = plan.stream_bytes if varlen else tuple(g.nbytes for g in plan.groups)
-        fp = plan.fingerprint
-        for g, nbytes in enumerate(sizes):
-            key = f"{fp}/c{g}"
-            self.wire_class_ops[key] = self.wire_class_ops.get(key, 0) + 1
-            self.wire_class_bytes[key] = self.wire_class_bytes.get(key, 0) + nbytes
+                with region("pack"):
+                    wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
+                with region("wire"):
+                    group_rows = self.transport.exchange(wire, plan, on_class)
+        with region("prep"):
+            varlen = plan.schedule == "varlen"
+            if varlen:
+                self.compress_exchanges += 1
+                self.compress_capacity_bytes += plan.wire_bytes
+                self.compress_stream_bytes += plan.effective_wire_bytes
+                if self.telemetry is not None:
+                    self.telemetry.observe(f"{plan.fingerprint}/ratio", plan.stream_ratio)
+            sizes = plan.stream_bytes if varlen else tuple(g.nbytes for g in plan.groups)
+            fp = plan.fingerprint
+            for g, nbytes in enumerate(sizes):
+                key = f"{fp}/c{g}"
+                self.wire_class_ops[key] = self.wire_class_ops.get(key, 0) + 1
+                self.wire_class_bytes[key] = self.wire_class_bytes.get(key, 0) + nbytes
 
-        def leaf_decoder(strat, recv_ct):
-            dec = getattr(strat, "decode_wire", None)
-            return None if dec is None else (lambda part: dec(part, recv_ct.size))
+            def leaf_decoder(strat, recv_ct):
+                dec = getattr(strat, "decode_wire", None)
+                return None if dec is None else (lambda part: dec(part, recv_ct.size))
 
-        def leaf_unpacker(strat, recv_ct, send_ct):
-            # a compressor's leaf receives decoded member bytes and only
-            # scatters them; otherwise unpack_wire takes the wire bytes
-            if getattr(strat, "decode_wire", None) is not None:
-                return lambda dst, member: self.select(recv_ct, 1, wire=False).unpack(
-                    dst, member, recv_ct, 1, batched=True)
-            return lambda dst, part: strat.unpack_wire(self, dst, part, recv_ct, send_ct, 1)
+            def leaf_unpacker(strat, recv_ct, send_ct):
+                # a compressor's leaf receives decoded member bytes and only
+                # scatters them; otherwise unpack_wire takes the wire bytes
+                if getattr(strat, "decode_wire", None) is not None:
+                    return lambda dst, member: self.select(recv_ct, 1, wire=False).unpack(
+                        dst, member, recv_ct, 1, batched=True)
+                return lambda dst, part: strat.unpack_wire(self, dst, part, recv_ct, send_ct, 1)
 
-        def class_unpacker(grp: WireGroup, g: int):
-            # under varlen a single-transfer class's payload is the cut
-            # stream, decoded at its received length
-            leaves = [
-                (off, sizes[g] if len(grp.transfers) == 1 else plan.segments[i].nbytes,
-                 leaf_decoder(strategies[i], recv_cts[i]),
-                 leaf_unpacker(strategies[i], recv_cts[i], send_cts[i]))
-                for i, off in zip(grp.transfers, grp.offsets)
+            def class_unpacker(grp: WireGroup, g: int):
+                # under varlen a single-transfer class's payload is the cut
+                # stream, decoded at its received length
+                leaves = [
+                    (off, sizes[g] if len(grp.transfers) == 1 else plan.segments[i].nbytes,
+                     leaf_decoder(strategies[i], recv_cts[i]),
+                     leaf_unpacker(strategies[i], recv_cts[i], send_cts[i]))
+                    for i, off in zip(grp.transfers, grp.offsets)
+                ]
+                return lambda dst, payload: decode_unpack_ragged(dst, payload, leaves)
+
+            classes = [
+                ClassRequest(g, group_rows[g], grp.transfers, sizes[g],
+                             class_unpacker(grp, g), events[g], hold=wire)
+                for g, grp in enumerate(plan.groups)
             ]
-            return lambda dst, payload: decode_unpack_ragged(dst, payload, leaves)
-
-        classes = [
-            ClassRequest(g, group_rows[g], grp.transfers, sizes[g],
-                         class_unpacker(grp, g), events[g], hold=wire)
-            for g, grp in enumerate(plan.groups)
-        ]
-        on_drain = self._observed_drain(tracing) if observed else self._drain_order
-        return NeighborRequest(buf, classes, plan, on_drain)
+            on_drain = self._observed_drain(tracing) if observed else self._drain_order
+            return NeighborRequest(buf, classes, plan, on_drain)
 
     def neighbor_alltoallv(self, buf, send_cts, recv_cts, perms, plan=None,
                            strategies=None) -> torch.Tensor:
@@ -1266,21 +1276,26 @@ class Communicator:
         ``exchange`` span carrying the decision signature
         (``fingerprint``, ``strategy=wire/<schedule>``, ``schedule``,
         ``wire_bytes``, ``ngroups``, ``pred``) around ``plan`` (when
-        planned here), ``pack``, ``wire`` and ``unpack``."""
+        planned here), ``pack``, ``wire`` and ``unpack``.  Untraced, the
+        call is one ``tempi.exchange`` range
+        (:func:`~repro_torch.obs.trace.region`); the span opens it when
+        traced."""
         if len(send_cts) > 0 and self._tracing_spans():
             return self._neighbor_alltoallv_traced(
                 buf, send_cts, recv_cts, perms, plan, strategies)
-        if self.telemetry is None or len(send_cts) == 0:
-            return self.ineighbor_alltoallv(
-                buf, send_cts, recv_cts, perms, plan, strategies
-            ).wait()
-        if plan is None:
-            strategies, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
-        t0 = time.perf_counter()
-        out = self.ineighbor_alltoallv(buf, send_cts, recv_cts, perms, plan, strategies).wait()
-        synchronize(out)
-        self.telemetry.observe(plan.fingerprint, time.perf_counter() - t0)
-        return out
+        with region("exchange"):
+            if self.telemetry is None or len(send_cts) == 0:
+                return self.ineighbor_alltoallv(
+                    buf, send_cts, recv_cts, perms, plan, strategies
+                ).wait()
+            if plan is None:
+                strategies, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
+            t0 = time.perf_counter()
+            out = self.ineighbor_alltoallv(buf, send_cts, recv_cts, perms, plan,
+                                           strategies).wait()
+            synchronize(out)
+            self.telemetry.observe(plan.fingerprint, time.perf_counter() - t0)
+            return out
 
     def _neighbor_alltoallv_traced(self, buf, send_cts, recv_cts, perms, plan, strategies):
         """The blocking fused exchange under the tracer: one ``exchange``

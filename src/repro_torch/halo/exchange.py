@@ -220,8 +220,16 @@ def ihalo_exchange(local: torch.Tensor, spec: HaloSpec, comm: Communicator,
 def halo_exchange(local: torch.Tensor, spec: HaloSpec, comm: Communicator,
                   types=None, plan: Optional[HaloPlan] = None) -> torch.Tensor:
     """One full 26-neighbor halo exchange; fills every halo shell of
-    ``local`` in place and returns it."""
-    return ihalo_exchange(local, spec, comm, types, plan).wait()
+    ``local`` in place and returns it.  The blocking
+    :meth:`Communicator.neighbor_alltoallv`: under a tracer the whole
+    ``exchange`` span tree, with ``unpack``."""
+    _check_local(local, spec, comm)
+    if plan is None:
+        plan = make_halo_plan(spec, comm, types)
+    return comm.neighbor_alltoallv(
+        local, plan.send_cts, plan.recv_cts, plan.perms,
+        plan=plan.wire, strategies=plan.strategies,
+    )
 
 
 def make_halo_step(spec: HaloSpec, comm: Optional[Communicator] = None, *,

@@ -46,8 +46,7 @@ from repro_torch.comm.api import as_communicator
 from repro_torch.comm.perfmodel import ProgramEstimate, StrategyEstimate
 from repro_torch.core.datatypes import FLOAT, Named
 from repro_torch.device import resolve_device
-from repro_torch.halo.exchange import (HaloPlan, HaloSpec, _check_local, halo_exchange,
-                                      make_halo_plan)
+from repro_torch.halo.exchange import HaloPlan, HaloSpec, halo_exchange, make_halo_plan
 from repro_torch.halo.stencil import (
     STENCIL26,
     Ops,
@@ -245,11 +244,7 @@ class HaloProgram:
         ):
             # the exchange span and its phases come from the blocking
             # Communicator path
-            _check_local(local, self.spec, comm)
-            local = comm.neighbor_alltoallv(
-                local, self.plan.send_cts, self.plan.recv_cts, self.plan.perms,
-                plan=self.plan.wire, strategies=self.plan.strategies,
-            )
+            local = halo_exchange(local, self.spec, comm, plan=self.plan)
             valid = self.spec.radii
             pred_app = phases.get("stencil", 0.0) / napp
             for i, o in enumerate(op_sequence(self.ops, self.steps)):

@@ -50,6 +50,7 @@ from repro_torch.halo.exchange import (
     make_halo_plan,
 )
 from repro_torch.kernels.ops import stencil_window_chain, stencil_window_update
+from repro_torch.obs.trace import region
 
 __all__ = [
     "StencilOp",
@@ -201,7 +202,9 @@ def stencil_apply(
 
 def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None):
     """``repeats`` passes of a (possibly heterogeneous) op cycle on one
-    exchange, in place; the valid region shrinks by each op's radii."""
+    exchange, in place; the valid region shrinks by each op's radii.
+    Each application is one ``tempi.stencil`` range
+    (:func:`~repro_torch.obs.trace.region`)."""
     valid = _as_radii(valid, spec)
     need = cycle_halo_radii(op, repeats)
     if any(n > v for n, v in zip(need, valid)):
@@ -210,7 +213,8 @@ def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None):
             f"the valid halo depth {valid}"
         )
     for o in op_sequence(op, repeats):
-        local = stencil_apply(local, spec, valid, o)
+        with region("stencil"):
+            local = stencil_apply(local, spec, valid, o)
         valid = tuple(v - r for v, r in zip(valid, o.radii))
     return local
 

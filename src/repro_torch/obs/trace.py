@@ -39,12 +39,21 @@ module records that decomposition as it happens:
 Span times are ``time.perf_counter`` seconds on the host clock.  Export
 to Chrome-trace JSON / text flamecharts lives in
 :mod:`repro_torch.obs.export`; ``python -m repro_torch.obs`` is the CLI.
+
+* :func:`region` — a ``tempi.<name>`` range on the profiler's timeline,
+  always on: every recorded span opens one, and the untraced exchange
+  opens one per phase (``exchange``, ``prep``, ``pack``, ``wire``, one
+  ``unpack`` per drained class, ``stencil``).  It is a host operation of
+  ``torch.profiler`` (a ``cpu_op``, not a ``user_annotation``), so a
+  profile charges the device's idle gaps to the phase the host was in and
+  no device-side event carries its name.  With no profiler running it
+  costs about a microsecond and synchronizes nothing.
 """
 
 from __future__ import annotations
 
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 from typing import Dict, Iterator, List, Optional, Sequence
 
@@ -57,6 +66,7 @@ __all__ = [
     "Span",
     "Tracer",
     "attribute_program_iteration",
+    "region",
     "synchronize",
 ]
 
@@ -71,6 +81,22 @@ PHASES = ("pack", "wire", "unpack", "stencil")
 #: span-count cap — a million-iteration job must not grow an unbounded
 #: trace; past the cap spans are dropped and counted, never an error
 DEFAULT_MAX_SPANS = 200_000
+
+
+try:
+    from torch._C._profiler import _RecordFunctionFast
+except ImportError:  # a torch without the fast record function
+    _RecordFunctionFast = None
+
+
+def region(name: str):
+    """A ``tempi.<name>`` range on ``torch.profiler``'s host timeline
+    around the ``with`` body: a host operation that records nothing when
+    no profiler runs, and a ``nullcontext`` where torch lacks
+    ``_RecordFunctionFast``."""
+    if _RecordFunctionFast is None:
+        return nullcontext()
+    return _RecordFunctionFast("tempi." + name)
 
 
 def _capturing() -> bool:
@@ -159,7 +185,9 @@ class Tracer:
         is recorded and the body runs untouched.
 
         The caller owns synchronization: block (:func:`synchronize`)
-        before exit or the span under-reports asynchronous launches.
+        before exit or the span under-reports asynchronous launches.  A
+        recorded span also opens :func:`region` ``(name)`` around the
+        body, so it sits on any ``torch.profiler`` trace's timeline.
         """
         if not self.active:
             yield None
@@ -171,7 +199,8 @@ class Tracer:
             return
         self._stack.append(sp.span_id)
         try:
-            yield sp
+            with region(name):
+                yield sp
         finally:
             sp.duration = time.perf_counter() - sp.start
             self._stack.pop()

@@ -369,6 +369,33 @@ def test_class_events_complete_and_wait_any_drains_every_class():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("traced", [False, True])
+def test_tempi_ranges_are_host_events_and_no_device_event_carries_their_name(traced):
+    """``bench/profiling.py`` counts every device-side event as busy time
+    and every one outside the pack/unpack kernels as the wire: a range
+    mirrored onto the device would change ``idle_pct.*`` and
+    ``wire_ms``."""
+    from repro_torch.obs import Tracer
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(16, 16, 16), radius=2)
+    comm = Communicator(device=dev, tracer=Tracer() if traced else None)
+    step = make_halo_step(spec, comm, device=dev)
+    local = step(_small_state(spec, dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step(local)
+        torch.cuda.synchronize()
+    events = list(prof.events())
+    cuda = [e.name for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    host = {e.name for e in events if e.device_type == torch.autograd.DeviceType.CPU}
+    assert cuda and not [n for n in cuda if n.startswith("tempi.")]
+    assert not [e.name for e in events if e.is_user_annotation]
+    assert {"tempi.exchange", "tempi.prep", "tempi.pack", "tempi.wire", "tempi.unpack"} <= host
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("mode", OVERLAP_MODES)
 def test_overlapped_iteration_on_the_card_equals_the_plain_path(mode):
     dev = _card()

@@ -27,7 +27,13 @@
   reference's CLI prints, apart from paths.
 * Tracer -> ``phase_aggregates`` -> ``DriftDetector.audit`` end to end,
   and ``production_communicator(telemetry=True, tracer=True)``.
-* Untraced, the exchange and the program iteration synchronize nothing.
+* Untraced, the exchange and the program iteration synchronize nothing;
+  nor does either with a disabled tracer attached.  Under a tracer the
+  blocking halo step records the whole ``exchange`` tree.
+* The ``tempi.*`` ranges on a CPU ``torch.profiler`` timeline: host
+  ``cpu_op`` events, not user annotations; one ``tempi.exchange`` a
+  blocking halo step around two ``prep``, one ``pack``, one ``wire`` and
+  one ``unpack`` a wire class; one ``tempi.stencil`` an application.
 
 The reference's ``test_run_smoother_traced_exchanges_bounded_by_iterations``
 and the smoother half of ``test_tracer_aggregates_feed_audit_end_to_end``
@@ -58,7 +64,7 @@ from repro.measure.decisions import DecisionCache as RefDecisionCache
 from repro_torch.comm import Communicator, SystemParams, reschedule
 from repro_torch.core import FLOAT, Vector
 from repro_torch.fleet import DriftDetector, ExchangeTelemetry, predict_program_phases
-from repro_torch.halo import HaloSpec, build_halo_program, make_halo_types
+from repro_torch.halo import HaloSpec, build_halo_program, make_halo_step, make_halo_types
 from repro_torch.halo.exchange import DIRECTIONS
 from repro_torch.measure import DecisionCache, production_communicator
 from repro_torch.obs import (
@@ -339,6 +345,82 @@ def test_traced_exchange_equals_the_untraced_one_and_untraced_synchronizes_nothi
     assert torch.equal(got, want)
     assert calls  # the traced path synchronizes at its span boundaries
     assert plain.transport.ops == traced.transport.ops
+
+
+def test_a_disabled_tracer_synchronizes_nothing(monkeypatch):
+    import repro_torch.comm.api as api
+
+    calls = []
+    monkeypatch.setattr(api, "synchronize", lambda t: calls.append(t))
+    plain = Communicator(device="cpu")
+    prog = build_halo_program(GRID, INTERIOR, plain, steps=2)
+    x = _state(prog.spec.alloc)
+    want = prog.iteration(x.clone(), plain)
+    tr = Tracer(enabled=False)
+    off = Communicator(device="cpu", tracer=tr)
+    got = build_halo_program(GRID, INTERIOR, off, steps=2).iteration(x.clone(), off)
+    assert calls == [] and len(tr) == 0
+    assert torch.equal(got, want)
+
+
+def test_the_blocking_halo_step_records_the_whole_tree_under_a_tracer():
+    spec = HaloSpec(grid=GRID, interior=INTERIOR, radius=1)
+    x = _state(spec.alloc)
+    want = make_halo_step(spec, device="cpu")(x.clone())
+    tr = Tracer()
+    step = make_halo_step(spec, Communicator(device="cpu", tracer=tr), device="cpu")
+    tr.clear()
+    got = step(x.clone())
+    assert torch.equal(got, want)
+    (ex,) = [s for s in tr.spans if s.name == "exchange"]
+    assert ex.parent_id is None and ex.attrs["fingerprint"] == step.plan.wire.fingerprint
+    assert [s.name for s in tr.spans if s.parent_id == ex.span_id] == ["pack", "wire", "unpack"]
+    assert validate(to_chrome_trace(tr)) == []
+
+
+def _tempi_ranges(fn, tmp_path):
+    """``fn()`` under a CPU ``torch.profiler``: its ``tempi.*`` events,
+    after checking each is a host ``cpu_op`` and not a user annotation."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    ranges = [e for e in prof.events() if e.name.startswith("tempi.")]
+    for e in ranges:
+        assert e.device_type == torch.autograd.DeviceType.CPU and not e.is_user_annotation
+    prof.export_chrome_trace(str(tmp_path / "profile.json"))
+    events = json.loads((tmp_path / "profile.json").read_text())["traceEvents"]
+    assert {ev["cat"] for ev in events if ev.get("name", "").startswith("tempi.")} == {"cpu_op"}
+    return ranges
+
+
+def _inside(e, outer):
+    return (outer.time_range.start <= e.time_range.start
+            and e.time_range.end <= outer.time_range.end)
+
+
+def test_the_untraced_halo_step_lies_in_tempi_ranges_on_the_profiler_timeline(tmp_path):
+    spec = HaloSpec(grid=GRID, interior=INTERIOR, radius=1)
+    step = make_halo_step(spec, device="cpu")
+    x = step(_state(spec.alloc))
+    ranges = _tempi_ranges(lambda: step(x), tmp_path)
+    (ex,) = [e for e in ranges if e.name == "tempi.exchange"]
+    inner = [e for e in ranges if e is not ex]
+    assert all(_inside(e, ex) for e in inner)
+    assert sorted(e.name for e in inner) == sorted(
+        ["tempi.prep"] * 2 + ["tempi.pack", "tempi.wire"]
+        + ["tempi.unpack"] * step.plan.wire.ngroups)
+
+
+def test_each_stencil_application_is_one_tempi_range(tmp_path):
+    comm = Communicator(device="cpu")
+    prog = build_halo_program(GRID, INTERIOR, comm, steps=2)
+    x = _state(prog.spec.alloc)
+    ranges = _tempi_ranges(lambda: prog.iteration(x, comm), tmp_path)
+    (ex,) = [e for e in ranges if e.name == "tempi.exchange"]
+    stencil = [e for e in ranges if e.name == "tempi.stencil"]
+    assert len(stencil) == prog.applications == 2
+    assert all(ex.time_range.end <= e.time_range.start for e in stencil)
 
 
 # ---------------------------------------------------------------------------
