@@ -6,8 +6,8 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
 
 1. build   the kernels under ``src/repro_torch/kernels/csrc`` with nvcc,
            all sources at once (seconds printed);
-2. kernels hold each of the four kernels against its plain PyTorch
-           version on the card, bit-exact: on a subset of the CPU test
+2. kernels hold each of the four exchange kernels against its plain
+           PyTorch version on the card, bit-exact: on a subset of the CPU test
            sweeps, on planes that share rows, on alignment cases that
            drive the row kernels through every vector width V (16, 8, 4,
            2, 1 bytes) on both their paths (a warp per row, one thread
@@ -17,7 +17,12 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            full-width halo at radius 1, 2 and 3 (the shapes the main
            path and the s = 1, 2, 3 programs launch), and at every point of the calibration sweep
            (``Vector(nblocks, blk, pitch, BYTE)``, blk 8-512 bytes, up to
-           524,288 rows), 8 ranks per launch;
+           524,288 rows), 8 ranks per launch.  Then the stencil kernel
+           (``csrc/stencil.cu``) at both windows of the s = 2 cycle on the
+           iterate cell's state (8 x 512^3 float32, halo depth 2),
+           ``torch.equal`` to its plain version (the second window with
+           the rim it reads copied, ``copy_rim``), each timed beside its
+           plain version and its byte bound (``[stencil]``);
 3. main    8 ranks on a periodic 2x2x2 grid, 256^3 float32 interior per
            rank, radius 2, all ranks in one (8, 260, 260, 260) tensor.
            One exchange under ``tempi``, ``rows``, ``dma`` and
@@ -31,7 +36,8 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            device's idle share over 2 iterations (``torch.profiler``).  Kernel
            launch counts are zeroed just before this phase and read just
            after it; every kernel must have run, and each mode's launches
-           per exchange must match its plan;
+           per exchange must match its plan; the iterations copy no
+           window into the state (``splice_copies``);
 4. measure the §5 model's tables calibrated on the card (full grid, 8
            ranks a launch) through ``production_communicator`` into a
            temporary store; launch counts are zeroed before the
@@ -321,7 +327,16 @@ KERNEL_INFO = {
     "pack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/pack.py:157"),
     "unpack_rows": ("src/repro_torch/kernels/csrc/rows.cuh", "src/repro/kernels/unpack.py:83"),
     "unpack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/unpack.py:128"),
+    "stencil": ("src/repro_torch/kernels/csrc/stencil.cu",
+                "none: the reference's stencil is jnp (src/repro/halo/stencil.py)"),
 }
+#: the exchange's kernels: pack and unpack, timed at the halo's shapes
+EXCHANGE_KERNELS = ("pack_rows", "pack_dma", "unpack_rows", "unpack_dma")
+#: the iterate cell's state (``bench/configs/stencil26_r2_512.json``): 8
+#: ranks of 512^3 float32 at halo depth 2, where the stencil kernel is
+#: held to its plain version and timed
+STENCIL_INTERIOR = (512, 512, 512)
+STENCIL_REPS = 5           # timed calls of the plain stencil (179 ms each at that shape)
 
 
 def phase_build():
@@ -352,7 +367,7 @@ class KernelCheck:
         self.unpack = {"unpack_rows": unpack_rows, "unpack_dma": unpack_dma}
         self.pack_plain, self.unpack_plain = pack_plain, unpack_plain
         self.err = dict.fromkeys(KERNEL_INFO, 0.0)
-        self.paths = {name: set() for name in KERNEL_INFO}
+        self.paths = {name: set() for name in EXCHANGE_KERNELS}
         self.checks = 0
 
     def _diff(self, name, got, want, what):
@@ -533,6 +548,88 @@ def phase_kernels(torch, dev, spec, check):
           f"{ {k: sorted(v) for k, v in check.paths.items()} }")
 
 
+def phase_stencil(torch, dev, check, card):
+    """The stencil kernel at both windows of the s = 2 cycle, on the
+    iterate cell's state (:data:`STENCIL_INTERIOR`, 8 ranks, halo depth
+    2, ``STENCIL26``), held with ``torch.equal`` to its plain version:
+    application 1 reads the state and writes its 514^3 window into the
+    scratch; application 2 reads the scratch and writes its 512^3 window
+    into the state, with the 514^3 rim it reads copied unchanged
+    (``copy_rim``).  Times each (CUDA events, :data:`REPS` calls; the
+    plain version :data:`STENCIL_REPS`) beside its byte bound at HBM
+    rate: each cell it reads once, each cell it writes once.  Returns the
+    ``{"kernels": ...}`` line's timing fields: sums over the cycle."""
+    from repro_torch.halo import STENCIL26, HaloSpec
+    from repro_torch.kernels.ops import stencil_window_plain, stencil_window_update
+
+    spec = HaloSpec(grid=(2, 2, 2), interior=STENCIL_INTERIOR, radius=2)
+    R, r, n = spec.nranks, spec.radius, spec.interior
+    op = STENCIL26
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    state = torch.randn((R,) + spec.alloc, generator=gen, device=dev)
+    scratch = torch.empty_like(state)
+
+    def view(t, origin, shape):
+        (z, y, x), (nz, ny, nx) = origin, shape
+        return t[..., z:z + nz, y:y + ny, x:x + nx]
+
+    outer = ((r - 1,) * 3, tuple(m + 2 * r - 2 for m in n))  # application 1's window
+    inner = ((r,) * 3, tuple(n))                              # application 2's window
+    es = state.element_size()
+
+    def with_rim(plain):
+        """Application 2's destination as the plain path leaves it: the
+        scratch's 514^3 window with the plain 512^3 result inside it."""
+        want = view(scratch, *outer).clone()
+        view(want, (1, 1, 1), n).copy_(plain)
+        return want
+
+    # (name, the kernel, its plain version, the plain result as the kernel
+    # leaves its destination, the destination, the window computed, the
+    # cells read, the cells written)
+    apps = (
+        ("application 1",
+         lambda: stencil_window_update(state, op.offsets, op.weight, *outer,
+                                       out=view(scratch, *outer)),
+         lambda: stencil_window_plain(state, op.offsets, op.weight, *outer),
+         lambda plain: plain,
+         lambda: view(scratch, *outer), outer[1], tuple(m + 2 for m in outer[1]), outer[1]),
+        ("application 2, copy_rim",
+         lambda: stencil_window_update(scratch, op.offsets, op.weight, *inner,
+                                       out=view(state, *outer), copy_rim=True),
+         lambda: stencil_window_plain(scratch, op.offsets, op.weight, *inner),
+         with_rim,
+         lambda: view(state, *outer), inner[1], outer[1], outer[1]),
+    )
+    timer = Timer(torch, dev)
+    windows = []
+    for name, fn, plain, placed, dest, window, read, written in apps:
+        want = placed(plain())
+        fn()
+        torch.cuda.synchronize()
+        d = (dest() - want).abs().max().item()
+        check.err["stencil"] = max(check.err["stencil"], d)
+        check.checks += 1
+        if not torch.equal(dest(), want):
+            fail(f"stencil differs from its plain version at {name}: max |diff| {d}")
+        del want
+        nbytes = es * R * (math.prod(read) + math.prod(written))
+        windows.append({"application": name, "window": list(window), "ms": timer.ms(fn),
+                        "plain_ms": timer.ms(plain, reps=STENCIL_REPS), "bytes": nbytes,
+                        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3})
+        torch.cuda.empty_cache()
+    del state, scratch, timer
+    torch.cuda.empty_cache()
+    out = {"ms": sum(w["ms"] for w in windows), "plain_ms": sum(w["plain_ms"] for w in windows),
+           "bound_ms": sum(w["bound_ms"] for w in windows), "bound_by": "bytes",
+           "ranks": R, "interior": list(n), "windows": windows}
+    print("[stencil] 8 x " + "x".join(map(str, n)) + " float32, the s = 2 cycle's two "
+          "windows bit-exact to the plain version; "
+          + "; ".join(f"{w['application']}: {w['ms']:.3f} ms (plain {w['plain_ms']:.3f}, "
+                      f"bound {w['bound_ms']:.3f})" for w in windows) + f"; {card}")
+    return out
+
+
 def sweep_check(torch, dev, ranks, check, gen):
     """Every kernel against its plain version at every (blk, total) point
     of the calibration sweep, ``ranks`` ranks a launch, and the ``xla``
@@ -601,6 +698,7 @@ def stencil_roll(torch, g, op):
 
 
 def phase_main(torch, dev, spec, timings):
+    import repro_torch.halo.stencil as halo_stencil
     from repro_torch.comm import Communicator, FixedPolicy, policy_for_mode
     from repro_torch.halo import STENCIL26, make_halo_step, stencil_iterations
     from repro_torch.kernels import launch_counts, reset_launch_counts
@@ -662,12 +760,17 @@ def phase_main(torch, dev, spec, timings):
     local = start.clone()
     del start
     iters, steps = 5, 2
+    splices = halo_stencil.splice_copies
     t0 = time.perf_counter()
     for _ in range(iters):
         step(local)
         stencil_iterations(local, spec, steps=steps)
     torch.cuda.synchronize()
     timings["iteration_ms"] = (time.perf_counter() - t0) * 1e3 / iters
+    timings["splice_copies"] = halo_stencil.splice_copies - splices
+    if timings["splice_copies"]:
+        fail(f"{iters} iterations of the s = 2 cycle copied {timings['splice_copies']} "
+             f"windows into the state; the scratch chain copies none")
     for _ in range(iters * steps):
         g = stencil_roll(torch, g, STENCIL26)
     r, n = spec.radius, spec.interior
@@ -893,33 +996,42 @@ def phase_measure(torch, dev, spec, card):
 
 
 class CellCount:
-    """While active, counts the output cells (all ranks) of every
-    stencil window update: the one primitive that the plain path, the
-    interior chain, the shell slabs and the rim regions all call."""
+    """While active, counts the computed cells (all ranks; a copied rim
+    is not computed) of every stencil window update the halo layer asks
+    for, from the windows it passes: single updates (the plain path, the
+    shell slabs, the rim regions) and each stage of a chain (the
+    interior chain)."""
 
     def __init__(self):
         import repro_torch.halo.stencil as stencil
-        import repro_torch.kernels.ops as ops
 
-        self.modules = (ops, stencil)
-        self.orig = ops.stencil_window_update
+        self.stencil = stencil
+        self.orig = (stencil.stencil_window_update, stencil.stencil_window_chain)
         self.cells = 0
 
+    def _add(self, arr, shape):
+        self.cells += arr[..., 0, 0, 0].numel() * shape[0] * shape[1] * shape[2]
+
     def __enter__(self):
-        orig = self.orig
+        update, chain = self.orig
 
-        def counted(arr, offsets, weight, origin, shape):
-            out = orig(arr, offsets, weight, origin, shape)
-            self.cells += out.numel()
-            return out
+        def counted_update(arr, offsets, weight, origin, shape, **kw):
+            self._add(arr, shape)
+            return update(arr, offsets, weight, origin, shape, **kw)
 
-        for m in self.modules:
-            m.stencil_window_update = counted
+        def counted_chain(arr, stages):
+            shape = arr.shape[-3:]
+            for _, _, radii in stages:
+                shape = [n - 2 * r for n, r in zip(shape, radii)]
+                self._add(arr, shape)
+            return chain(arr, stages)
+
+        self.stencil.stencil_window_update = counted_update
+        self.stencil.stencil_window_chain = counted_chain
         return self
 
     def __exit__(self, *exc):
-        for m in self.modules:
-            m.stencil_window_update = self.orig
+        self.stencil.stencil_window_update, self.stencil.stencil_window_chain = self.orig
 
 
 def rank_blocks(torch, spec, g):
@@ -1237,14 +1349,15 @@ def phase_dist(torch, dev, card):
     spec = HaloSpec(grid=(1, 1, 1), interior=(256, 256, 256), radius=2)
     out = {"card": card, "grid": list(spec.grid), "interior": list(spec.interior),
            "radius": spec.radius, "exchange": {}, "program": {}}
-    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts = dict.fromkeys(EXCHANGE_KERNELS, 0)
 
     def counted(fn):
         reset_launch_counts()
         fn()
         torch.cuda.synchronize()
-        for k, v in launch_counts().items():
-            counts[k] += v
+        launched = launch_counts()
+        for k in counts:  # the pack and unpack kernels
+            counts[k] += launched[k]
 
     def same(what, xd, xl, cd, cl):
         if not torch.equal(xd, xl):
@@ -1491,15 +1604,16 @@ def phase_compress(torch, dev, spec, card):
     t_phase = time.perf_counter()
     timer = Timer(torch, dev)
     out = {"card": card, "capacity": {}, "varlen": {}}
-    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts = dict.fromkeys(EXCHANGE_KERNELS, 0)
 
     def counted(fn):
         torch.cuda.synchronize()
         reset_launch_counts()
         got = fn()
         torch.cuda.synchronize()
-        for k, v in launch_counts().items():
-            counts[k] += v
+        launched = launch_counts()
+        for k in counts:  # the pack and unpack kernels
+            counts[k] += launched[k]
         return got
 
     # 8 ranks, capacity wires
@@ -1717,15 +1831,16 @@ def phase_tiered(torch, dev, spec, card, measured):
 
     t_phase = time.perf_counter()
     out = {"card": card, "grids": {}}
-    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts = dict.fromkeys(EXCHANGE_KERNELS, 0)
 
     def counted(fn):
         torch.cuda.synchronize()
         reset_launch_counts()
         fn()
         torch.cuda.synchronize()
-        for k, v in launch_counts().items():
-            counts[k] += v
+        launched = launch_counts()
+        for k in counts:  # the pack and unpack kernels
+            counts[k] += launched[k]
 
     def exchange(comm, s, x, plan, sched, count=False):
         """One exchange of ``plan`` rescheduled to ``sched``; returns the
@@ -3829,7 +3944,7 @@ def plan_launches(plan, comm):
     from repro_torch.core import StridedBlock
     from repro_torch.kernels.geometry import plan_geometry
 
-    counts = dict.fromkeys(KERNEL_INFO, 0)
+    counts = dict.fromkeys(EXCHANGE_KERNELS, 0)
     for strat, send_ct, recv_ct in zip(plan.strategies, plan.send_cts, plan.recv_cts):
         packer = strat.name
         if strat.name == "bounding":
@@ -4438,7 +4553,7 @@ def phase_timing(torch, dev, spec):
     faces = []
     face_geoms = face_shapes(spec, dev)
     for face, (sg, rg) in face_geoms.items():
-        for kernel in KERNEL_INFO:
+        for kernel in EXCHANGE_KERNELS:
             geom = sg if kernel.startswith("pack") else rg
             faces.append(dict(face=face, **time_kernel(torch, timer, kernel, geom, words)))
     shapes = []
@@ -4500,6 +4615,7 @@ def main() -> int:
     spec = HaloSpec(grid=(2, 2, 2), interior=(256, 256, 256), radius=2)
     check = KernelCheck(torch, dev)
     phase_kernels(torch, dev, spec, check)
+    stencil = phase_stencil(torch, dev, check, card)
     counts = phase_main(torch, dev, spec, timings)
     measure, measured = phase_measure(torch, dev, spec, card)
     program, program_window_ms = phase_program(torch, dev, spec, card, measured)
@@ -4516,23 +4632,23 @@ def main() -> int:
     dryrun = phase_dryrun(torch, dev, card, train_ms)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
+    by_phase = {"main_loop": counts, "program": program, "dist": dist, "compress": compress,
+                "tiered": tiered, "obs": obs, "smoother": smoother, "serve": serve,
+                "train": train, "families": families, "recurrent": recurrent}
     kernels = []
     for kernel, (source, replaces) in KERNEL_INFO.items():
+        launches = {f"launches_{k}": v.get(kernel, 0) for k, v in by_phase.items()}
+        row = {"name": kernel, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": sum(launches.values()), "max_abs_err": check.err[kernel],
+               **launches,
+               "launches_calibration": measure["calibration_launches"][kernel],
+               "launches_measured_exchanges": measure["exchange_launches"][kernel]}
+        if kernel == "stencil":
+            kernels.append({**row, **stencil})
+            continue
         mine = [f for f in faces if f["kernel"] == kernel]
         kernels.append({
-            "name": kernel, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": (counts[kernel] + program[kernel] + dist[kernel] + compress[kernel]
-                         + tiered[kernel] + obs[kernel] + smoother[kernel] + serve[kernel]
-                         + train[kernel] + families[kernel] + recurrent[kernel]),
-            "max_abs_err": check.err[kernel],
-            "launches_main_loop": counts[kernel], "launches_program": program[kernel],
-            "launches_dist": dist[kernel], "launches_compress": compress[kernel],
-            "launches_tiered": tiered[kernel], "launches_obs": obs[kernel],
-            "launches_smoother": smoother[kernel], "launches_serve": serve[kernel],
-            "launches_train": train[kernel], "launches_families": families[kernel],
-            "launches_recurrent": recurrent[kernel],
-            "launches_calibration": measure["calibration_launches"][kernel],
-            "launches_measured_exchanges": measure["exchange_launches"][kernel],
+            **row,
             "ms": sum(f["ms"] for f in mine), "plain_ms": sum(f["plain_ms"] for f in mine),
             "bound_ms": sum(f["bound_ms"] for f in mine), "bound_by": "bytes",
             "bound_sectors_ms": sum(f["bound_sectors_ms"] for f in mine),

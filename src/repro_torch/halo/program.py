@@ -36,6 +36,7 @@ own cache; only rank 0 writes the decisions file
 from __future__ import annotations
 
 import hashlib
+from contextlib import contextmanager
 from dataclasses import dataclass
 from functools import cached_property
 from typing import Dict, List, Optional, Sequence, Tuple, Union
@@ -54,9 +55,7 @@ from repro_torch.halo.stencil import (
     as_ops,
     cycle_halo_radii,
     cycle_radii,
-    op_sequence,
     overlapped_stencil_iteration,
-    stencil_apply,
     stencil_cycle,
 )
 
@@ -245,14 +244,17 @@ class HaloProgram:
             # the exchange span and its phases come from the blocking
             # Communicator path
             local = halo_exchange(local, self.spec, comm, plan=self.plan)
-            valid = self.spec.radii
             pred_app = phases.get("stencil", 0.0) / napp
-            for i, o in enumerate(op_sequence(self.ops, self.steps)):
+
+            @contextmanager
+            def span(i):
                 with tracer.span("stencil", application=i, op=i % self.cycle_len,
                                  pred=pred_app):
-                    local = stencil_apply(local, self.spec, valid, o)
+                    yield
                     synchronize(local)
-                valid = tuple(v - r for v, r in zip(valid, o.radii))
+
+            # the untraced path's own schedule, one span per application
+            stencil_cycle(local, self.spec, self.ops, self.steps, span=span)
         return local
 
 

@@ -30,15 +30,20 @@ it in place.  All window arithmetic goes through the shared
 accumulate in the reference's order, element by element, so a cell
 comes out bit-identical whichever window computed it: that is what makes
 the chain, the slabs and the regions splice into the plain path's
-result.  The stencil is plain torch: the reference computes it in jnp,
-with no Pallas kernel.
+result.  On the card that primitive is one hand-written kernel
+(``kernels/csrc/stencil.cu``) that reads each input cell from device
+memory once; on the CPU it is the plain torch version, with the same
+arithmetic.  The reference computes the stencil in jnp, with no Pallas
+kernel.  :func:`stencil_cycle` chains its applications through one
+scratch tensor, so no application of an even-length cycle copies its
+window into the state.
 """
 
 from __future__ import annotations
 
 import itertools
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple, Union
+from typing import Callable, ContextManager, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -51,6 +56,11 @@ from repro_torch.halo.exchange import (
 )
 from repro_torch.kernels.ops import stencil_window_chain, stencil_window_update
 from repro_torch.obs.trace import region
+
+#: stencil applications whose whole window was written aside and then
+#: copied into the state (:func:`stencil_apply`, the last application of
+#: an odd :func:`stencil_cycle`); readers take differences
+splice_copies = 0
 
 __all__ = [
     "StencilOp",
@@ -193,18 +203,44 @@ def stencil_apply(
     ``valid`` is the per-dimension halo depth whose cells currently hold
     correct values (default: the full ``spec.radii`` — "the exchange
     just ran").  The update writes interior plus a shell of
-    ``valid - op.radii``; returns ``local``.
+    ``valid - op.radii``; returns ``local``.  The window is computed
+    aside and copied in: one splice copy.
     """
+    global splice_copies
     origin, shape = _window_of(spec, _as_radii(valid, spec), op)
     _put(local, origin, stencil_window_update(local, op.offsets, op.weight, origin, shape))
+    splice_copies += 1
     return local
 
 
-def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None):
+def _view(t: torch.Tensor, origin, shape) -> torch.Tensor:
+    (z, y, x), (nz, ny, nx) = origin, shape
+    return t[..., z : z + nz, y : y + ny, x : x + nx]
+
+
+def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None,
+                  span: Optional[Callable[[int], ContextManager]] = None):
     """``repeats`` passes of a (possibly heterogeneous) op cycle on one
     exchange, in place; the valid region shrinks by each op's radii.
-    Each application is one ``tempi.stencil`` range
-    (:func:`~repro_torch.obs.trace.region`)."""
+
+    The applications alternate between ``local`` and one scratch tensor
+    of its shape.  Every window lies inside the one before it, grown by
+    its own op's radii: application 1 reads ``local`` and writes its
+    window into the scratch; application 2 reads the scratch and writes
+    into ``local`` its window together with the rim around it, application
+    1's cells that no later window covers, copied unchanged
+    (``copy_rim``); and so on.  No application of an even chain copies a
+    window back.  An odd chain ends with a copy of the last window from
+    the scratch (a splice copy, counted in :data:`splice_copies`).
+    ``local`` then holds what applying each op in place would leave,
+    halos included.  The scratch
+    comes from the caching allocator, which hands the same block back at
+    the next call of the same shape.
+
+    Each application runs inside ``span(i)`` (default: one
+    ``tempi.stencil`` range, :func:`~repro_torch.obs.trace.region`);
+    the copy at the end belongs to the last application."""
+    global splice_copies
     valid = _as_radii(valid, spec)
     need = cycle_halo_radii(op, repeats)
     if any(n > v for n, v in zip(need, valid)):
@@ -212,11 +248,28 @@ def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None):
             f"{repeats} repeats of cycle radii {cycle_radii(op)} exhaust "
             f"the valid halo depth {valid}"
         )
-    for o in op_sequence(op, repeats):
-        with region("stencil"):
-            local = stencil_apply(local, spec, valid, o)
+    seq = op_sequence(op, repeats)
+    windows = []
+    for o in seq:
+        windows.append(_window_of(spec, valid, o))
         valid = tuple(v - r for v, r in zip(valid, o.radii))
+    scratch = torch.empty_like(local)
+    for i, (o, (origin, shape)) in enumerate(zip(seq, windows)):
+        with (span or _stencil_region)(i):
+            if i % 2 == 0:
+                stencil_window_update(local, o.offsets, o.weight, origin, shape,
+                                      out=_view(scratch, origin, shape))
+            else:
+                stencil_window_update(scratch, o.offsets, o.weight, origin, shape,
+                                      out=_view(local, *windows[i - 1]), copy_rim=True)
+            if i == len(seq) - 1 and i % 2 == 0:
+                _put(local, origin, _view(scratch, origin, shape))
+                splice_copies += 1
     return local
+
+
+def _stencil_region(i: int) -> ContextManager:
+    return region("stencil")
 
 
 def stencil_steps(local, spec: HaloSpec, steps: int, op: StencilOp = STENCIL26,

@@ -1,6 +1,7 @@
-"""repro_torch.kernels — hand-written Hopper pack/unpack kernels for
-canonical StridedBlocks (paper §3.3), with ops.py wrappers and ref.py
-oracles.  The kernels are built from ``csrc/`` at first use
+"""repro_torch.kernels — hand-written Hopper kernels: pack/unpack for
+canonical StridedBlocks (paper §3.3) and the halo layer's stencil window
+update, with ops.py wrappers, their plain torch versions (the CPU path)
+and ref.py oracles.  The kernels are built from ``csrc/`` at first use
 (:mod:`repro_torch.kernels.build`)."""
 
 # import the kernel submodules BEFORE re-exporting ops' pack/unpack
@@ -14,6 +15,7 @@ from repro_torch.kernels.ops import (
     byte_view,
     pack,
     pack_block,
+    stencil_window_update,
     unpack,
 )
 
@@ -24,6 +26,7 @@ KERNELS = {
     "pack_dma": _pack_kernels.pack_dma,
     "unpack_rows": _unpack_kernels.unpack_rows,
     "unpack_dma": _unpack_kernels.unpack_dma,
+    "stencil": stencil_window_update,
 }
 
 

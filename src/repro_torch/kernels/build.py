@@ -28,7 +28,7 @@ __all__ = ["SOURCES", "build", "build_dir", "library", "BUILD_LOG"]
 CSRC = Path(__file__).resolve().parent / "csrc"
 
 #: every kernel source of the port (csrc/<name>.cu)
-SOURCES = ("pack", "unpack")
+SOURCES = ("pack", "unpack", "stencil")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -48,9 +48,13 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _KERNEL_ARGS = [_P, _L, _P, _L, _I, _I, _L, _L, _L, _L, _L, _L, _I, _P]
 _ROW_KERNEL_ARGS = _KERNEL_ARGS[:12] + [_I, _I] + _KERNEL_ARGS[12:]
 _DMA_KERNEL_ARGS = _KERNEL_ARGS[:12] + [_I, _I, _I] + _KERNEL_ARGS[12:]
+#: the stencil update: (in, 3 strides, out, 3 strides, batch, nz, ny, nx,
+#: rz, ry, rx, copied rim, element bytes, w / N, 1 - w, device, stream)
+_STENCIL_ARGS = [_P, _L, _L, _L, _P, _L, _L, _L] + [_I] * 9 + [ctypes.c_double] * 2 + [_I, _P]
 _ENTRIES = {
     "pack": {"tempi_pack_rows": _ROW_KERNEL_ARGS, "tempi_pack_dma": _DMA_KERNEL_ARGS},
     "unpack": {"tempi_unpack_rows": _ROW_KERNEL_ARGS, "tempi_unpack_dma": _DMA_KERNEL_ARGS},
+    "stencil": {"tempi_stencil_update": _STENCIL_ARGS},
 }
 
 

@@ -26,12 +26,15 @@ writes **in place** into its buffer and returns it.
 
 from __future__ import annotations
 
+import functools
+import itertools
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.commit import CommittedType, KernelKind
 from repro_torch.core.strided_block import StridedBlock
+from repro_torch.kernels.build import library
 from repro_torch.kernels.geometry import PackGeometry, plan_geometry
 from repro_torch.kernels.pack import aligned
 
@@ -46,6 +49,7 @@ __all__ = [
     "run_pack_kernel",
     "run_unpack_kernel",
     "shifted_window_sum",
+    "stencil_window_plain",
     "stencil_window_update",
     "stencil_window_chain",
 ]
@@ -73,7 +77,10 @@ def _resolve(strategy):
 # origin/shape the caller picks.  The window is taken over the LAST
 # three dimensions, so any leading dimensions (the local mesh's ranks)
 # are updated in the same call.  One primitive means one accumulation
-# order, which is what keeps overlapping results bit-identical.
+# order, which is what keeps overlapping results bit-identical.  On the
+# card the update is one hand-written kernel (``csrc/stencil.cu``) that
+# reads each input cell once; on the CPU it is the plain torch version
+# (:func:`stencil_window_plain`), cell for cell the same arithmetic.
 
 def _window(arr: torch.Tensor, origin, shape) -> torch.Tensor:
     (z, y, x), (nz, ny, nx) = origin, shape
@@ -93,21 +100,136 @@ def shifted_window_sum(arr, offsets, origin, shape):
     return acc
 
 
-def stencil_window_update(arr, offsets, weight, origin, shape):
+def stencil_window_plain(arr, offsets, weight, origin, shape):
+    """The plain torch version of :func:`stencil_window_update` (any
+    device): a new tensor holding the updated window.  The scalar factors
+    are rounded to ``arr.dtype`` first, as in the reference.  They stay
+    on the host, 0-dim: a copy of a host scalar to the card would
+    synchronize the stream each call."""
+    w = torch.tensor(weight, dtype=arr.dtype)
+    acc = shifted_window_sum(arr, offsets, origin, shape)
+    center = _window(arr, origin, shape)
+    return acc.mul_(w / len(offsets)).add_(center * (1 - w))
+
+
+@functools.lru_cache(maxsize=64)
+def _box_offsets(radii):
+    """The offsets of the full ``radii`` box minus its centre, in
+    ``itertools.product`` order (:attr:`repro_torch.halo.StencilOp.offsets`)."""
+    return tuple(d for d in itertools.product(*(range(-r, r + 1) for r in radii))
+                 if d != (0, 0, 0))
+
+
+@functools.lru_cache(maxsize=64)
+def _factors(weight, n, dtype):
+    """``(w / n, 1 - w)`` rounded to ``dtype`` exactly as
+    :func:`stencil_window_plain` rounds them, as Python floats."""
+    w = torch.tensor(weight, dtype=dtype)
+    return (w / n).item(), (1 - w).item()
+
+
+def _batched(t: torch.Tensor, name: str) -> torch.Tensor:
+    """``t`` as a ``(B, z, y, x)`` view, x contiguous; raises if the
+    leading dimensions do not fold into one stride."""
+    if t.stride(-1) != 1 and t.shape[-1] > 1:
+        raise ValueError(f"{name} must be contiguous along its last dimension")
+    return t.unsqueeze(0) if t.dim() == 3 else t.view((-1,) + tuple(t.shape[-3:]))
+
+
+def _span(t: torch.Tensor):
+    """The byte interval ``[lo, hi)`` that a tensor's elements lie in."""
+    last = sum((n - 1) * s for n, s in zip(t.shape, t.stride()))
+    lo = t.data_ptr()
+    return lo, lo + (last + 1) * t.element_size()
+
+
+def _window_out(arr: torch.Tensor, origin, shape) -> torch.Tensor:
+    """A new tensor for the window, its rows on the same 16-byte phase as
+    the window's rows in ``arr`` (a view into rows padded to 16 bytes), so
+    the kernel moves 16 bytes a thread on both sides."""
+    es = arr.element_size()
+    first = arr.data_ptr() + es * sum(o * s for o, s in zip(origin, arr.stride()[-3:]))
+    phase = first % 16 // es
+    lanes = 16 // es
+    pitch = -(-(phase + shape[2]) // lanes) * lanes
+    buf = torch.empty(tuple(arr.shape[:-3]) + (shape[0], shape[1], pitch), dtype=arr.dtype,
+                      device=arr.device)
+    return buf[..., phase : phase + shape[2]]
+
+
+def stencil_window_update(arr, offsets, weight, origin, shape, out=None, copy_rim=False):
     """One weighted-neighborhood stencil update of the window
     ``arr[..., origin : origin + shape]``:
 
         new = (1 - w) * center + (w / len(offsets)) * sum(shifted views)
 
-    Returns the updated window only (a new tensor; the caller splices
-    it back).  The scalar factors are rounded to ``arr.dtype`` first, as
-    in the reference.  They stay on the host, 0-dim: a copy of a host
-    scalar to the card would synchronize the stream each call.
+    Writes the updated window into ``out`` (a tensor of the window's
+    shape, leading dimensions included, that does not overlap the cells
+    the update reads) or, when None, into a new tensor; returns it.  The
+    caller splices it back.  With ``copy_rim`` the destination is the
+    window grown by the offsets' radii on every side, the cells the update
+    reads, and its outer layer receives those cells of ``arr`` unchanged.
+
+    A CUDA tensor takes the kernel ``csrc/stencil.cu``: float32 or
+    float64, the offsets of a full box minus its centre in
+    ``itertools.product`` order (every :class:`repro_torch.halo.StencilOp`),
+    anything else raises.  A CPU tensor takes :func:`stencil_window_plain`.
+    Both give the same bits.  Launches are counted in ``.launches``.
     """
-    w = torch.tensor(weight, dtype=arr.dtype)
-    acc = shifted_window_sum(arr, offsets, origin, shape)
-    center = _window(arr, origin, shape)
-    return acc.mul_(w / len(offsets)).add_(center * (1 - w))
+    offsets = tuple(tuple(int(c) for c in d) for d in offsets)
+    radii = tuple(max(abs(d[a]) for d in offsets) for a in range(3)) if offsets else (0, 0, 0)
+    origin, shape = tuple(origin), tuple(shape)
+    read = (tuple(o - r for o, r in zip(origin, radii)),
+            tuple(n + 2 * r for n, r in zip(shape, radii)))
+    region = read if copy_rim else (origin, shape)
+    if arr.device.type == "cpu":
+        new = stencil_window_plain(arr, offsets, weight, origin, shape)
+        if not copy_rim:
+            return new if out is None else out.copy_(new)
+        if out is None:
+            out = torch.empty(tuple(arr.shape[:-3]) + region[1], dtype=arr.dtype)
+        out.copy_(_window(arr, *region))
+        _window(out, radii, shape).copy_(new)
+        return out
+    if arr.device.type != "cuda":
+        raise ValueError(f"unsupported device {arr.device}")
+    if arr.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the stencil kernel takes float32 or float64, not {arr.dtype}")
+    if not offsets or offsets != _box_offsets(radii):
+        raise ValueError("the stencil kernel takes the offsets of a full box minus its "
+                         f"centre, in itertools.product order; got {offsets}")
+    dims = tuple(arr.shape[-3:])
+    if any(o < 0 or o + n > d for o, n, d in zip(*read, dims)):
+        raise ValueError(f"window {origin} + {shape} with radii {radii} leaves {dims}")
+    if out is None:
+        out = _window_out(arr, *region)
+    if (out.shape != arr.shape[:-3] + region[1] or out.dtype != arr.dtype
+            or out.device != arr.device):
+        raise ValueError(f"out is {out.dtype} {tuple(out.shape)} on {out.device}; need "
+                         f"{arr.dtype} {tuple(arr.shape[:-3] + region[1])} on {arr.device}")
+    if min(shape) == 0 or out.numel() == 0:
+        return out
+    src = _batched(arr, "arr")
+    dst = _batched(out, "out")
+    (rlo, rhi), (wlo, whi) = _span(_window(arr, *read)), _span(out)
+    if rlo < whi and wlo < rhi and arr.untyped_storage().data_ptr() == \
+            out.untyped_storage().data_ptr():
+        raise ValueError("out overlaps the cells the update reads")
+    es = arr.element_size()
+    first = arr.data_ptr() + es * sum(o * s for o, s in zip(region[0], src.stride()[1:]))
+    scale, keep = _factors(float(weight), len(offsets), arr.dtype)
+    fn = library("stencil").tempi_stencil_update
+    err = fn(first, *src.stride()[:3], dst.data_ptr(), *dst.stride()[:3], src.shape[0],
+             *region[1], *radii, int(copy_rim), es, scale, keep, arr.device.index,
+             torch.cuda.current_stream(arr.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tempi_stencil_update launch failed with CUDA error {err}")
+    stencil_window_update.launches += 1
+    return out
+
+
+#: kernel launches of :func:`stencil_window_update`
+stencil_window_update.launches = 0
 
 
 def stencil_window_chain(arr, stages):

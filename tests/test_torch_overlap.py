@@ -217,22 +217,32 @@ def _plain(spec, comm, plan, x, ops, steps):
 
 
 class _CountCells:
-    """Counts the output cells of every stencil window update."""
+    """Counts the computed cells (a copied rim is not computed) of every
+    stencil window update the halo layer asks for, from the windows it
+    passes: single updates and each stage of a chain."""
 
     def __init__(self, monkeypatch):
         import repro_torch.halo.stencil as st
-        import repro_torch.kernels.ops as ops
 
-        orig = ops.stencil_window_update
+        update, chain = st.stencil_window_update, st.stencil_window_chain
         self.cells = 0
 
-        def counted(arr, offsets, weight, origin, shape):
-            out = orig(arr, offsets, weight, origin, shape)
-            self.cells += out.numel()
-            return out
+        def cells(arr, shape):
+            return arr[..., 0, 0, 0].numel() * shape[0] * shape[1] * shape[2]
 
-        for m in (ops, st):
-            monkeypatch.setattr(m, "stencil_window_update", counted)
+        def counted_update(arr, offsets, weight, origin, shape, **kw):
+            self.cells += cells(arr, shape)
+            return update(arr, offsets, weight, origin, shape, **kw)
+
+        def counted_chain(arr, stages):
+            shape = arr.shape[-3:]
+            for _, _, radii in stages:
+                shape = [n - 2 * r for n, r in zip(shape, radii)]
+                self.cells += cells(arr, shape)
+            return chain(arr, stages)
+
+        monkeypatch.setattr(st, "stencil_window_update", counted_update)
+        monkeypatch.setattr(st, "stencil_window_chain", counted_chain)
 
 
 @pytest.mark.parametrize("mode", OVERLAP_MODES)

@@ -39,17 +39,23 @@ from repro_torch.halo import (
     HaloSpec,
     StencilOp,
     build_halo_program,
+    cycle_halo_radii,
     from_reference,
     get_default_halo_steps,
     halo_exchange,
     make_halo_plan,
     make_program_step,
+    op_sequence,
+    overlapped_stencil_iteration,
     parse_halo_steps,
     program_fingerprint,
     set_default_halo_steps,
+    stencil_apply,
     stencil_cycle,
 )
+import repro_torch.halo.stencil as st
 from repro_torch.halo.program import _feasible_steps
+from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.measure import DecisionCache, production_communicator
 from tests._subproc import run_with_devices
 from test_torch_overlap import TABLES, no_native_ragged, param_pair  # noqa: F401
@@ -263,6 +269,80 @@ def test_cycle_program_is_bit_exact_to_the_plain_path():
     over = from_reference(_blocks(spec, g), spec, device="cpu")
     program.iteration(over, comm, overlap="region")
     assert torch.equal(over, want)
+
+
+def _applications_one_by_one(local, spec, ops, repeats):
+    """Each application in place through ``stencil_apply``: the schedule
+    that the scratch chain of ``stencil_cycle`` replaces."""
+    valid = spec.radii
+    for o in op_sequence(ops, repeats):
+        stencil_apply(local, spec, valid, o)
+        valid = tuple(v - r for v, r in zip(valid, o.radii))
+    return local
+
+
+SCRATCH_CASES = {
+    "26pt_s1": ((STENCIL26,), 1),
+    "26pt_s2": ((STENCIL26,), 2),
+    "26pt_s3": ((STENCIL26,), 3),
+    "pair_s2": ((StencilOp((2, 1, 1)), StencilOp((1, 2, 3), 0.3)), 2),
+    "pair_s1": ((StencilOp((2, 1, 1)), StencilOp((1, 2, 3), 0.3)), 1),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SCRATCH_CASES))
+def test_scratch_cycle_equals_the_applications_one_by_one_halos_included(case):
+    ops, repeats = SCRATCH_CASES[case]
+    spec = HaloSpec(grid=(2, 2, 2), interior=(6, 5, 7), radius=cycle_halo_radii(ops, repeats))
+    start = torch.from_numpy(
+        np.random.default_rng(8).normal(size=(8,) + spec.alloc).astype(np.float32))
+    want = _applications_one_by_one(start.clone(), spec, ops, repeats)
+    reset_launch_counts()
+    splices = st.splice_copies
+    got = start.clone()
+    assert stencil_cycle(got, spec, ops, repeats) is got
+    assert torch.equal(got, want)
+    napp = repeats * len(ops)
+    assert st.splice_copies - splices == napp % 2  # 0 for an even chain
+    assert launch_counts()["stencil"] == 0  # the CPU takes the plain version
+
+
+@pytest.mark.parametrize("mode", ["monolithic", "region"])
+def test_overlapped_iteration_equals_exchange_and_applications_one_by_one(mode):
+    comm = Communicator(device="cpu")
+    spec = HaloSpec(grid=(2, 2, 2), interior=PROGRAM_INTERIOR, radius=2)
+    plan = make_halo_plan(spec, comm)
+    got = from_reference(_blocks(spec, _global((12, 10, 8), 6)), spec, device="cpu")
+    want = got.clone()
+    for _ in range(2):
+        _applications_one_by_one(halo_exchange(want, spec, comm, plan=plan), spec,
+                                 (STENCIL26,), 2)
+        program_iteration = overlapped_stencil_iteration(got, spec, comm, steps=2,
+                                                         plan=plan, mode=mode)
+        assert program_iteration is got
+    assert torch.equal(got, want)
+
+
+def test_traced_iteration_walks_the_scratch_schedule_one_span_an_application():
+    from repro_torch.obs import Tracer
+
+    tracer = Tracer()
+    plain = Communicator(device="cpu")
+    traced = Communicator(device="cpu", tracer=tracer)
+    prog = build_halo_program((2, 2, 2), PROGRAM_INTERIOR, plain, steps=2)
+    tprog = build_halo_program((2, 2, 2), PROGRAM_INTERIOR, traced, steps=2)
+    g = _global((12, 10, 8), 7)
+    want = from_reference(_blocks(prog.spec, g), prog.spec, device="cpu")
+    got = want.clone()
+    splices = st.splice_copies
+    for _ in range(3):
+        prog.iteration(want, plain)
+        assert tprog.iteration(got, traced) is got
+    assert torch.equal(got, want)
+    names = [s.name for s in tracer.spans]
+    assert names.count("program_iteration") == 3 and names.count("stencil") == 6
+    assert [s.attrs["application"] for s in tracer.spans if s.name == "stencil"] == [0, 1] * 3
+    assert st.splice_copies == splices  # both schedules' s = 2 chains copy no window
 
 
 def test_program_step_refuses_another_device():

@@ -1,0 +1,198 @@
+"""The stencil kernel (``kernels/csrc/stencil.cu``) on the card, held bit
+for bit to its plain torch version run on the same card.
+
+These tests import only torch and the port, carry the ``cuda`` marker
+and skip with a reason where there is no card.  Run them there with::
+
+    PYTHONPATH=src python -m pytest tests/test_torch_stencil_cuda.py -m cuda -q
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.comm import Communicator
+from repro_torch.halo import (
+    STENCIL26,
+    HaloSpec,
+    StencilOp,
+    cycle_halo_radii,
+    from_reference,
+    halo_exchange,
+    make_halo_plan,
+    op_sequence,
+    overlapped_stencil_iteration,
+    stencil_cycle,
+)
+import repro_torch.halo.stencil as st
+from repro_torch.halo.stencil import _put, _shell_slabs, _window_of
+from repro_torch.kernels import launch_counts, reset_launch_counts
+from repro_torch.kernels.ops import stencil_window_plain, stencil_window_update
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _randn(shape, dev, seed=3, dtype=torch.float32):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return torch.randn(shape, generator=gen, device=dev, dtype=dtype)
+
+
+def _plain_cycle(local, spec, ops, repeats):
+    """Application by application, each computed by the plain version
+    and copied into ``local``: the schedule the scratch chain replaces."""
+    valid = spec.radii
+    for o in op_sequence(ops, repeats):
+        origin, shape = _window_of(spec, valid, o)
+        _put(local, origin, stencil_window_plain(local, o.offsets, o.weight, origin, shape))
+        valid = tuple(v - r for v, r in zip(valid, o.radii))
+    return local
+
+
+def _both(arr, op, origin, shape):
+    got = stencil_window_update(arr, op.offsets, op.weight, origin, shape)
+    want = stencil_window_plain(arr, op.offsets, op.weight, origin, shape)
+    torch.cuda.synchronize()
+    return got, want
+
+
+def _check_copied_rim(arr, op, origin, shape):
+    """The window grown by the radii, its rim copied from ``arr``: equal
+    to ``arr``'s cells there and to the plain update inside."""
+    r = op.radii
+    lo = tuple(o - x for o, x in zip(origin, r))
+    got = stencil_window_update(arr, op.offsets, op.weight, origin, shape, copy_rim=True)
+    want = arr[..., lo[0]:lo[0] + shape[0] + 2 * r[0], lo[1]:lo[1] + shape[1] + 2 * r[1],
+               lo[2]:lo[2] + shape[2] + 2 * r[2]].clone()
+    want[..., r[0]:r[0] + shape[0], r[1]:r[1] + shape[1], r[2]:r[2] + shape[2]] = \
+        stencil_window_plain(arr, op.offsets, op.weight, origin, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (op.radii, origin, shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(8, 36, 36, 36), (3, 23, 19, 37)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_the_26_point_update_equals_the_plain_version(shape, dtype):
+    dev = _card()
+    arr = _randn(shape, dev, dtype=dtype)
+    dims = shape[-3:]
+    for r in (1, 2, 3, 5):  # windows at every 16-byte phase of the rows
+        origin = (r, r, r)
+        win = tuple(n - 2 * r for n in dims)
+        got, want = _both(arr, STENCIL26, origin, win)
+        assert got.shape == want.shape and torch.equal(got, want), (r, dtype)
+        _check_copied_rim(arr, STENCIL26, origin, win)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("radii", [(2, 1, 1), (1, 2, 3), (3, 3, 3)])
+def test_other_radii_take_the_runtime_path_and_equal_the_plain_version(radii):
+    dev = _card()
+    op = StencilOp(radii, 0.3)
+    arr = _randn((4, 21, 26, 45), dev)
+    origin = radii
+    win = tuple(n - 2 * r for n, r in zip(arr.shape[-3:], radii))
+    got, want = _both(arr, op, origin, win)
+    assert torch.equal(got, want)
+    _check_copied_rim(arr, op, origin, win)
+    out = torch.empty((4, 30, 30, 60), device=dev)  # a strided destination
+    o = out[..., 2:2 + win[0], 1:1 + win[1], 3:3 + win[2]]
+    assert stencil_window_update(arr, op.offsets, op.weight, origin, win, out=o) is o
+    torch.cuda.synchronize()
+    assert torch.equal(o, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ops,steps", [((STENCIL26,), 1), ((STENCIL26,), 2), ((STENCIL26,), 3),
+                                       ((StencilOp((2, 1, 1)), StencilOp((1, 2, 3), 0.3)), 2)])
+def test_scratch_cycle_equals_the_plain_applications_halos_included(ops, steps):
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(20, 17, 35), radius=cycle_halo_radii(ops, steps))
+    start = _randn((8,) + spec.alloc, dev, seed=7)
+    want = _plain_cycle(start.clone(), spec, ops, steps)
+    reset_launch_counts()
+    splices = st.splice_copies
+    got = stencil_cycle(start.clone(), spec, ops, steps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert launch_counts()["stencil"] == steps * len(ops)
+    assert st.splice_copies - splices == (steps * len(ops)) % 2
+
+
+@pytest.mark.cuda
+def test_one_cell_thick_shell_slabs_equal_the_plain_version():
+    dev = _card()
+    arr = _randn((8, 22, 20, 26), dev, seed=9)
+    origin, shape = (1, 1, 1), (20, 18, 24)
+    inner_origin, inner_shape = (2, 2, 2), (18, 16, 22)
+    slabs = _shell_slabs(origin, shape, inner_origin, inner_shape)
+    assert len(slabs) == 6 and all(1 in s for _, s in slabs)
+    for o, s in slabs:
+        got, want = _both(arr, STENCIL26, o, s)
+        assert torch.equal(got, want), (o, s)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["monolithic", "region"])
+def test_overlapped_iterations_equal_exchange_and_cycle(mode):
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(18, 13, 21), radius=2)
+    comm = Communicator(device=dev)
+    plan = make_halo_plan(spec, comm)
+    start = np.random.default_rng(4).normal(size=(8,) + spec.alloc).astype(np.float32)
+    want = from_reference(start, spec, device=dev)
+    got = want.clone()
+    for _ in range(2):
+        _plain_cycle(halo_exchange(want, spec, comm, plan=plan), spec, (STENCIL26,), 2)
+        overlapped_stencil_iteration(got, spec, comm, steps=2, plan=plan, mode=mode)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_a_window_whose_offsets_pass_2_to_the_31_bytes():
+    dev = _card()
+    arr = _randn((1, 520, 1024, 1032), dev, seed=2)  # 2.2 GB, the last plane past 2^31
+    origin, shape = (1, 1, 1), (518, 1022, 1030)
+    got, want = _both(arr, STENCIL26, origin, shape)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_the_benchmark_shape_two_applications_launch_twice_and_copy_no_window():
+    """The iterate cell's state, 8 x 512^3 float32 at halo depth 2: the
+    s = 2 cycle launches the kernel twice, pays no splice copy, and leaves
+    the whole tensor, halos included, as the plain applications do."""
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(512, 512, 512), radius=2)
+    state = _randn((8,) + spec.alloc, dev, seed=31)
+    want = _plain_cycle(state.clone(), spec, (STENCIL26,), 2)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    splices = st.splice_copies
+    stencil_cycle(state, spec, STENCIL26, 2)
+    torch.cuda.synchronize()
+    assert launch_counts()["stencil"] == 2
+    assert st.splice_copies == splices
+    assert torch.equal(state, want)
+
+
+@pytest.mark.cuda
+def test_the_kernel_refuses_what_it_does_not_take():
+    dev = _card()
+    arr = _randn((2, 8, 8, 8), dev)
+    win = ((1, 1, 1), (6, 6, 6))
+    with pytest.raises(TypeError, match="float32 or float64"):
+        stencil_window_update(arr.half(), STENCIL26.offsets, 0.4, *win)
+    with pytest.raises(ValueError, match="full box"):
+        stencil_window_update(arr, STENCIL26.offsets[::-1], 0.4, *win)
+    with pytest.raises(ValueError, match="leaves"):
+        stencil_window_update(arr, STENCIL26.offsets, 0.4, (0, 1, 1), (6, 6, 6))
+    with pytest.raises(ValueError, match="overlaps"):
+        stencil_window_update(arr, STENCIL26.offsets, 0.4, *win,
+                              out=arr[..., 1:7, 1:7, 1:7])
