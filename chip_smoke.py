@@ -701,7 +701,7 @@ def phase_main(torch, dev, spec, timings):
     import repro_torch.halo.stencil as halo_stencil
     from repro_torch.comm import Communicator, FixedPolicy, policy_for_mode
     from repro_torch.halo import STENCIL26, make_halo_step, stencil_iterations
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
 
     g, start, want = global_layout(torch, spec, dev)
     torch.cuda.synchronize()
@@ -797,7 +797,7 @@ def phase_main(torch, dev, spec, timings):
           f"back to back, {timings['iteration_ms_synchronized']:.3f} synchronized each, "
           f"device idle {timings['iteration_profile']['idle_share']:.4f} of 2 iterations")
     counts = launch_counts()
-    zero = [k for k, v in counts.items() if v == 0]
+    zero = [k for k in KERNELS if counts[k] == 0]
     if zero:
         fail(f"kernels never launched on the main path: {zero}")
     print(json.dumps({"launches": counts, "launches_by_mode": per_mode}))
@@ -837,7 +837,7 @@ def phase_measure(torch, dev, spec, card):
 
     from repro_torch.comm import Communicator, H100_ANALYTIC, reschedule
     from repro_torch.halo import DIRECTIONS, halo_exchange, make_halo_plan, make_halo_types
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
     from repro_torch.measure import (calibrate_params, load_h100_params,
                                      production_communicator, time_fn)
 
@@ -850,7 +850,7 @@ def phase_measure(torch, dev, spec, card):
         torch.cuda.synchronize()
         out["calibration_s"] = time.perf_counter() - t0
         out["calibration_launches"] = launch_counts()
-        if not all(out["calibration_launches"].values()):
+        if not all(out["calibration_launches"][k] for k in KERNELS):
             fail(f"calibration never launched a kernel: {out['calibration_launches']}")
         params, model = comm.model.params, comm.model
         for name in ("rows", "dma"):
@@ -1142,7 +1142,7 @@ def phase_program(torch, dev, spec, card, measured):
     from repro_torch.comm import H100_ANALYTIC, Communicator
     from repro_torch.halo import (OVERLAP_MODES, build_halo_program, make_halo_step,
                                   overlap_region_descriptors, stencil_iterations)
-    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
     from repro_torch.measure import DecisionCache
 
     if not measured.stencil_table:
@@ -1300,7 +1300,7 @@ def phase_program(torch, dev, spec, card, measured):
     del xs, start, g
     torch.cuda.empty_cache()
     counts = launch_counts()
-    zero = [k for k, v in counts.items() if v == 0]
+    zero = [k for k in KERNELS if counts[k] == 0]
     if zero:
         fail(f"kernels never launched in the program phase: {zero}")
     out["launches"] = counts

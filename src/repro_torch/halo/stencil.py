@@ -59,7 +59,8 @@ from repro_torch.obs.trace import region
 
 #: stencil applications whose whole window was written aside and then
 #: copied into the state (:func:`stencil_apply`, the last application of
-#: an odd :func:`stencil_cycle`); readers take differences
+#: an odd :func:`stencil_cycle`, inside a ``tempi.splice`` range);
+#: readers take differences
 splice_copies = 0
 
 __all__ = [
@@ -239,7 +240,8 @@ def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None,
 
     Each application runs inside ``span(i)`` (default: one
     ``tempi.stencil`` range, :func:`~repro_torch.obs.trace.region`);
-    the copy at the end belongs to the last application."""
+    the copy at the end belongs to the last application's span, in a
+    ``tempi.splice`` range of its own inside it."""
     global splice_copies
     valid = _as_radii(valid, spec)
     need = cycle_halo_radii(op, repeats)
@@ -263,7 +265,8 @@ def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None,
                 stencil_window_update(scratch, o.offsets, o.weight, origin, shape,
                                       out=_view(local, *windows[i - 1]), copy_rim=True)
             if i == len(seq) - 1 and i % 2 == 0:
-                _put(local, origin, _view(scratch, origin, shape))
+                with region("splice"):
+                    _put(local, origin, _view(scratch, origin, shape))
                 splice_copies += 1
     return local
 
@@ -595,7 +598,9 @@ def overlapped_stencil_iteration(
     Every mode is bit-identical to ``halo_exchange`` + ``stencil_cycle``
     and computes each cell of an application once.  No application
     writes the state before every class has drained: the side stream's
-    packs read the interior cells the applications write.
+    packs read the interior cells the applications write.  The chain is
+    enqueued inside a ``tempi.interior`` range, and each application's
+    shell around its chain block inside a ``tempi.shell`` range.
 
     ``probe``, when given, records ``pending_during_interior`` (the
     exchange was still pending when the chain was enqueued),
@@ -617,7 +622,8 @@ def overlapped_stencil_iteration(
         mode = resolve_overlap_mode(spec, comm, plan, ops)
     depth = max_pipeline_depth(spec, ops, steps)
     req = ihalo_exchange(local, spec, comm, plan=plan)  # the wire, now
-    chain = stencil_interior_chain(local, spec, depth, ops)  # beside the wire
+    with region("interior"):
+        chain = stencil_interior_chain(local, spec, depth, ops)  # beside the wire
     if probe is not None:
         probe["pending_during_interior"] = not req.completed
         probe["pipeline_depth"] = depth
@@ -639,7 +645,8 @@ def overlapped_stencil_iteration(
             continue
         if k <= depth:
             origin = tuple(hr + c for hr, c in zip(spec.radii, shrink[k - 1]))
-            _apply_around(full, spec, valid, o, origin, chain[k - 1])
+            with region("shell"):
+                _apply_around(full, spec, valid, o, origin, chain[k - 1])
         else:
             stencil_apply(full, spec, valid, o)
         valid = tuple(v - r for v, r in zip(valid, o.radii))

@@ -4,6 +4,8 @@ update, with ops.py wrappers, their plain torch versions (the CPU path)
 and ref.py oracles.  The kernels are built from ``csrc/`` at first use
 (:mod:`repro_torch.kernels.build`)."""
 
+import sys
+
 # import the kernel submodules BEFORE re-exporting ops' pack/unpack
 # functions: `repro_torch.kernels.pack`/`.unpack` are also module names,
 # and a first-time submodule import would otherwise clobber the function
@@ -31,13 +33,27 @@ KERNELS = {
 
 
 def launch_counts() -> dict:
-    """Kernel launches since the last :func:`reset_launch_counts`."""
-    return {name: fn.launches for name, fn in KERNELS.items()}
+    """Kernel launches since the last :func:`reset_launch_counts`, by
+    :data:`KERNELS` name, and two counts beside them:
+    ``stencil_runtime``, the ``stencil`` launches that took the
+    runtime-radii kernel, and ``splice_copies``, the halo layer's windows
+    copied into the state
+    (:data:`repro_torch.halo.stencil.splice_copies`; 0 before that
+    module is loaded)."""
+    counts = {name: fn.launches for name, fn in KERNELS.items()}
+    counts["stencil_runtime"] = stencil_window_update.runtime_launches
+    halo = sys.modules.get("repro_torch.halo.stencil")
+    counts["splice_copies"] = halo.splice_copies if halo is not None else 0
+    return counts
 
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    stencil_window_update.runtime_launches = 0
+    halo = sys.modules.get("repro_torch.halo.stencil")
+    if halo is not None:
+        halo.splice_copies = 0
 
 
 __all__ = [

@@ -461,6 +461,8 @@ inline bool rows_aligned(long long b, long long z, long long y, int batch, long 
 
 // fast_launch's answer for a window whose shape the fast path does not take
 constexpr int kNoFit = -1;
+// launch's answer when the runtime-radii kernel ran without a launch error
+constexpr int kRanRuntime = -2;
 
 // Shape and launch the fast path for radii (1, 1, 1).  Returns the CUDA
 // error of the launch (cudaSuccess when it ran), or kNoFit if the window
@@ -557,7 +559,8 @@ int launch(const void* in, long long in_b, long long in_z, long long in_y, void*
   }
   dim3 grid(static_cast<unsigned>(tiles), static_cast<unsigned>(batch));
   any_kernel<T><<<grid, kRowThreads * p.tile_rows, static_cast<size_t>(bytes), stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  const cudaError_t err = cudaGetLastError();
+  return err != cudaSuccess ? static_cast<int>(err) : kRanRuntime;
 }
 
 }  // namespace stencil
@@ -568,8 +571,9 @@ int launch(const void* in, long long in_b, long long in_z, long long in_y, void*
 // element size (4: float32, 8: float64), `scale` = w / N and `keep` =
 // 1 - w already rounded to the element type.  With `rim` the window's
 // outer layer, radii deep, is copied from `in` unchanged and only the
-// cells inside it are computed.  Returns the launch's cudaGetLastError(),
-// or cudaErrorInvalidValue for what it does not take.
+// cells inside it are computed.  Returns the launch's cudaGetLastError()
+// (cudaSuccess: the fast path ran), -2 when the runtime-radii kernel ran
+// without error, or cudaErrorInvalidValue for what it does not take.
 extern "C" int tempi_stencil_update(const void* in, long long in_b, long long in_z,
                                     long long in_y, void* out, long long out_b,
                                     long long out_z, long long out_y, int batch, int nz,

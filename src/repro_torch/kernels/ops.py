@@ -174,7 +174,9 @@ def stencil_window_update(arr, offsets, weight, origin, shape, out=None, copy_ri
     float64, the offsets of a full box minus its centre in
     ``itertools.product`` order (every :class:`repro_torch.halo.StencilOp`),
     anything else raises.  A CPU tensor takes :func:`stencil_window_plain`.
-    Both give the same bits.  Launches are counted in ``.launches``.
+    Both give the same bits.  Launches are counted in ``.launches``, and
+    those that took the runtime-radii kernel, not the fast path for radii
+    (1, 1, 1), in ``.runtime_launches`` too.
     """
     offsets = tuple(tuple(int(c) for c in d) for d in offsets)
     radii = tuple(max(abs(d[a]) for d in offsets) for a in range(3)) if offsets else (0, 0, 0)
@@ -223,13 +225,20 @@ def stencil_window_update(arr, offsets, weight, origin, shape, out=None, copy_ri
              *region[1], *radii, int(copy_rim), es, scale, keep, arr.device.index,
              torch.cuda.current_stream(arr.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"tempi_stencil_update launch failed with CUDA error {err}")
+        if err != _RAN_RUNTIME:
+            raise RuntimeError(f"tempi_stencil_update launch failed with CUDA error {err}")
+        stencil_window_update.runtime_launches += 1
     stencil_window_update.launches += 1
     return out
 
 
-#: kernel launches of :func:`stencil_window_update`
+#: ``tempi_stencil_update``'s answer when the runtime-radii kernel ran
+_RAN_RUNTIME = -2
+
+#: kernel launches of :func:`stencil_window_update`, and of them those
+#: that took the runtime-radii kernel
 stencil_window_update.launches = 0
+stencil_window_update.runtime_launches = 0
 
 
 def stencil_window_chain(arr, stages):

@@ -43,7 +43,9 @@ to Chrome-trace JSON / text flamecharts lives in
 * :func:`region` — a ``tempi.<name>`` range on the profiler's timeline,
   always on: every recorded span opens one, and the untraced exchange
   opens one per phase (``exchange``, ``prep``, ``pack``, ``wire``, one
-  ``unpack`` per drained class, ``stencil``).  It is a host operation of
+  ``unpack`` per drained class, ``stencil``, ``splice`` around the copy
+  that closes an odd chain of applications, and in the overlapped
+  iteration ``interior`` and ``shell``).  It is a host operation of
   ``torch.profiler`` (a ``cpu_op``, not a ``user_annotation``), so a
   profile charges the device's idle gaps to the phase the host was in and
   no device-side event carries its name.  With no profiler running it

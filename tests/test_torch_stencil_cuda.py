@@ -125,6 +125,28 @@ def test_scratch_cycle_equals_the_plain_applications_halos_included(ops, steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("ops,steps", [((STENCIL26,), 2), ((STENCIL26,), 3),
+                                       ((StencilOp((2, 1, 1)), STENCIL26), 1),
+                                       ((StencilOp((2, 1, 1)),), 1)])
+def test_runtime_launches_and_splice_copies_count_only_their_own(ops, steps):
+    """``launch_counts()``: ``stencil_runtime`` rises by the launches of
+    radii other than (1, 1, 1) (windows wide enough for the fast path
+    take it), ``splice_copies`` by one on an odd chain only."""
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(20, 17, 35), radius=cycle_halo_radii(ops, steps))
+    state = _randn((8,) + spec.alloc, dev, seed=5)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    stencil_cycle(state, spec, ops, steps)
+    torch.cuda.synchronize()
+    seq = op_sequence(ops, steps)
+    counts = launch_counts()
+    assert counts["stencil"] == len(seq)
+    assert counts["stencil_runtime"] == sum(o.radii != (1, 1, 1) for o in seq)
+    assert counts["splice_copies"] == len(seq) % 2
+
+
+@pytest.mark.cuda
 def test_one_cell_thick_shell_slabs_equal_the_plain_version():
     dev = _card()
     arr = _randn((8, 22, 20, 26), dev, seed=9)
