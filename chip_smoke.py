@@ -22,7 +22,11 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            iterate cell's state (8 x 512^3 float32, halo depth 2),
            ``torch.equal`` to its plain version (the second window with
            the rim it reads copied, ``copy_rim``), each timed beside its
-           plain version and its byte bound (``[stencil]``);
+           plain version and its byte bound, and the fused pair on the
+           auto cell's state (8 x 512^3 at halo depth 3, a 518-float row
+           pitch) ``torch.equal`` to the two launches it replaces, timed
+           beside them, its plain version and its byte bound
+           (``[stencil]``);
 3. main    8 ranks on a periodic 2x2x2 grid, 256^3 float32 interior per
            rank, radius 2, all ranks in one (8, 260, 260, 260) tensor.
            One exchange under ``tempi``, ``rows``, ``dma`` and
@@ -329,12 +333,15 @@ KERNEL_INFO = {
     "unpack_dma": ("src/repro_torch/kernels/csrc/narrow.cuh", "src/repro/kernels/unpack.py:128"),
     "stencil": ("src/repro_torch/kernels/csrc/stencil.cu",
                 "none: the reference's stencil is jnp (src/repro/halo/stencil.py)"),
+    "stencil_pairs": ("src/repro_torch/kernels/csrc/stencil.cu",
+                      "none: two of the reference's jnp stencil applications"),
 }
 #: the exchange's kernels: pack and unpack, timed at the halo's shapes
 EXCHANGE_KERNELS = ("pack_rows", "pack_dma", "unpack_rows", "unpack_dma")
 #: the iterate cell's state (``bench/configs/stencil26_r2_512.json``): 8
 #: ranks of 512^3 float32 at halo depth 2, where the stencil kernel is
-#: held to its plain version and timed
+#: held to its plain version and timed; at halo depth 3, the auto cell's
+#: (``stencil26_auto_512.json``), the fused pair
 STENCIL_INTERIOR = (512, 512, 512)
 STENCIL_REPS = 5           # timed calls of the plain stencil (179 ms each at that shape)
 
@@ -627,6 +634,86 @@ def phase_stencil(torch, dev, check, card):
           "windows bit-exact to the plain version; "
           + "; ".join(f"{w['application']}: {w['ms']:.3f} ms (plain {w['plain_ms']:.3f}, "
                       f"bound {w['bound_ms']:.3f})" for w in windows) + f"; {card}")
+    return out
+
+
+def phase_stencil_pair(torch, dev, check, card):
+    """The fused pair on the auto cell's state (:data:`STENCIL_INTERIOR`,
+    8 ranks, halo depth 3, rows of 518 floats): applications 2 and 3 of
+    the s = 3 cycle read the scratch's 516^3 block and write the state's,
+    held with ``torch.equal`` to the two launches and the splice copy they
+    replace (application 2 with ``copy_rim`` into the state, application 3
+    into the scratch, its window copied back).  Times the pair, those
+    launches and the two plain updates (CUDA events) beside the pair's
+    byte bound: the block read once and written once.  Returns the
+    ``{"kernels": ...}`` line's timing fields."""
+    from repro_torch.halo import STENCIL26, HaloSpec
+    from repro_torch.kernels.ops import (stencil_window_pair, stencil_window_plain,
+                                         stencil_window_update)
+
+    spec = HaloSpec(grid=(2, 2, 2), interior=STENCIL_INTERIOR, radius=3)
+    R, n = spec.nranks, spec.interior
+    op, w = STENCIL26, STENCIL26.weight
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    scratch = torch.randn((R,) + spec.alloc, generator=gen, device=dev)
+    state = torch.randn((R,) + spec.alloc, generator=gen, device=dev)
+
+    def view(t, origin, shape):
+        (z, y, x), (nz, ny, nx) = origin, shape
+        return t[..., z:z + nz, y:y + ny, x:x + nx]
+
+    block = ((1,) * 3, tuple(m + 4 for m in n))   # application 1's window: what the pair reads
+    second = ((2,) * 3, tuple(m + 2 for m in n))  # application 2's window
+    third = ((3,) * 3, tuple(n))                  # application 3's window
+
+    def pair():
+        stencil_window_pair(scratch, op.offsets, (w, w), *second, out=view(state, *block))
+
+    def launches():
+        stencil_window_update(scratch, op.offsets, w, *second, out=view(state, *block),
+                              copy_rim=True)
+        stencil_window_update(state, op.offsets, w, *third, out=view(scratch, *third))
+        view(state, *third).copy_(view(scratch, *third))
+
+    def plain():
+        mid = view(scratch, *block).clone()
+        view(mid, (1, 1, 1), second[1]).copy_(
+            stencil_window_plain(scratch, op.offsets, w, *second))
+        view(mid, (2, 2, 2), third[1]).copy_(
+            stencil_window_plain(mid, op.offsets, w, (2, 2, 2), third[1]))
+        return mid
+
+    want = plain()
+    keep = scratch.clone()  # the launches write application 3 into the scratch
+    launches()
+    torch.cuda.synchronize()
+    if not torch.equal(view(state, *block), want):
+        fail("the two stencil launches differ from the plain updates on the auto cell's state")
+    scratch.copy_(keep)
+    del keep
+    state.normal_(generator=gen)
+    pair()
+    torch.cuda.synchronize()
+    d = (view(state, *block) - want).abs().max().item()
+    check.err["stencil_pairs"] = max(check.err["stencil_pairs"], d)
+    check.checks += 1
+    if not torch.equal(view(state, *block), want):
+        fail(f"the fused pair differs from its two launches: max |diff| {d}")
+    del want
+    torch.cuda.empty_cache()
+    timer = Timer(torch, dev)
+    es = state.element_size()
+    nbytes = 2 * es * R * math.prod(block[1])
+    out = {"ms": timer.ms(pair), "two_launches_ms": timer.ms(launches),
+           "plain_ms": timer.ms(plain, reps=STENCIL_REPS), "bytes": nbytes,
+           "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes", "ranks": R,
+           "interior": list(n), "window": list(block[1])}
+    del state, scratch, timer
+    torch.cuda.empty_cache()
+    print(f"[stencil] the fused pair on 8 x {'x'.join(map(str, spec.alloc))} float32 bit-exact "
+          f"to its two launches: {out['ms']:.3f} ms (two launches and the splice copy "
+          f"{out['two_launches_ms']:.3f}, plain {out['plain_ms']:.3f}, bound "
+          f"{out['bound_ms']:.3f}); {card}")
     return out
 
 
@@ -999,25 +1086,31 @@ class CellCount:
     """While active, counts the computed cells (all ranks; a copied rim
     is not computed) of every stencil window update the halo layer asks
     for, from the windows it passes: single updates (the plain path, the
-    shell slabs, the rim regions) and each stage of a chain (the
-    interior chain)."""
+    shell slabs, the rim regions), both updates of a fused pair and each
+    stage of a chain (the interior chain)."""
 
     def __init__(self):
         import repro_torch.halo.stencil as stencil
 
         self.stencil = stencil
-        self.orig = (stencil.stencil_window_update, stencil.stencil_window_chain)
+        self.orig = (stencil.stencil_window_update, stencil.stencil_window_pair,
+                     stencil.stencil_window_chain)
         self.cells = 0
 
     def _add(self, arr, shape):
         self.cells += arr[..., 0, 0, 0].numel() * shape[0] * shape[1] * shape[2]
 
     def __enter__(self):
-        update, chain = self.orig
+        update, pair, chain = self.orig
 
         def counted_update(arr, offsets, weight, origin, shape, **kw):
             self._add(arr, shape)
             return update(arr, offsets, weight, origin, shape, **kw)
+
+        def counted_pair(arr, offsets, weights, origin, shape, **kw):
+            self._add(arr, shape)
+            self._add(arr, [m - 2 for m in shape])
+            return pair(arr, offsets, weights, origin, shape, **kw)
 
         def counted_chain(arr, stages):
             shape = arr.shape[-3:]
@@ -1027,11 +1120,13 @@ class CellCount:
             return chain(arr, stages)
 
         self.stencil.stencil_window_update = counted_update
+        self.stencil.stencil_window_pair = counted_pair
         self.stencil.stencil_window_chain = counted_chain
         return self
 
     def __exit__(self, *exc):
-        self.stencil.stencil_window_update, self.stencil.stencil_window_chain = self.orig
+        (self.stencil.stencil_window_update, self.stencil.stencil_window_pair,
+         self.stencil.stencil_window_chain) = self.orig
 
 
 def rank_blocks(torch, spec, g):
@@ -2109,7 +2204,9 @@ def phase_obs(torch, dev, spec, card, program_window_ms):
         for it in (s for s in tr.spans if s.name == "program_iteration"):
             names = [c.name for c in kids.get(it.span_id, ())]
             ex = [c for c in kids.get(it.span_id, ()) if c.name == "exchange"]
-            if len(ex) != 1 or names.count("stencil") != prog.applications:
+            apps = sum(c.attrs.get("applications", 1) for c in kids.get(it.span_id, ())
+                       if c.name == "stencil")  # a fused pair's span holds two
+            if len(ex) != 1 or apps != prog.applications:
                 fail(f"{what}: an iteration holds {names}")
             phases = [c.name for c in kids.get(ex[0].span_id, ())]
             if phases != ["pack", "wire", "unpack"]:
@@ -4616,6 +4713,7 @@ def main() -> int:
     check = KernelCheck(torch, dev)
     phase_kernels(torch, dev, spec, check)
     stencil = phase_stencil(torch, dev, check, card)
+    stencil_pair = phase_stencil_pair(torch, dev, check, card)
     counts = phase_main(torch, dev, spec, timings)
     measure, measured = phase_measure(torch, dev, spec, card)
     program, program_window_ms = phase_program(torch, dev, spec, card, measured)
@@ -4643,8 +4741,8 @@ def main() -> int:
                **launches,
                "launches_calibration": measure["calibration_launches"][kernel],
                "launches_measured_exchanges": measure["exchange_launches"][kernel]}
-        if kernel == "stencil":
-            kernels.append({**row, **stencil})
+        if kernel in ("stencil", "stencil_pairs"):
+            kernels.append({**row, **(stencil if kernel == "stencil" else stencil_pair)})
             continue
         mine = [f for f in faces if f["kernel"] == kernel]
         kernels.append({

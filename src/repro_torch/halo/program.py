@@ -212,7 +212,9 @@ class HaloProgram:
         span hierarchy: ``program_iteration`` hosting the fused
         ``exchange`` (with its pack/wire/unpack phases, through
         :meth:`Communicator.neighbor_alltoallv`) and one ``stencil`` span
-        per application, each synchronized at its end."""
+        per application, each synchronized at its end; the fused pair that
+        ends an odd chain (:func:`repro_torch.halo.stencil.stencil_cycle`)
+        is one span with ``applications=2``."""
         if overlap:
             mode = "monolithic" if overlap is True else str(overlap)
             return overlapped_stencil_iteration(
@@ -247,13 +249,15 @@ class HaloProgram:
             pred_app = phases.get("stencil", 0.0) / napp
 
             @contextmanager
-            def span(i):
+            def span(i, applications=1):
+                # the fused pair's span holds two applications and says so
+                extra = {"applications": applications} if applications > 1 else {}
                 with tracer.span("stencil", application=i, op=i % self.cycle_len,
-                                 pred=pred_app):
+                                 pred=pred_app * applications, **extra):
                     yield
                     synchronize(local)
 
-            # the untraced path's own schedule, one span per application
+            # the untraced path's own schedule, one span per launch
             stencil_cycle(local, self.spec, self.ops, self.steps, span=span)
         return local
 

@@ -36,7 +36,10 @@ memory once; on the CPU it is the plain torch version, with the same
 arithmetic.  The reference computes the stencil in jnp, with no Pallas
 kernel.  :func:`stencil_cycle` chains its applications through one
 scratch tensor, so no application of an even-length cycle copies its
-window into the state.
+window into the state, and an odd chain of radius-1 applications ends in
+one fused launch of its last two
+(:func:`~repro_torch.kernels.ops.stencil_window_pair`), which copies none
+either.
 """
 
 from __future__ import annotations
@@ -54,13 +57,17 @@ from repro_torch.halo.exchange import (
     ihalo_exchange,
     make_halo_plan,
 )
-from repro_torch.kernels.ops import stencil_window_chain, stencil_window_update
+from repro_torch.kernels.ops import (
+    stencil_window_chain,
+    stencil_window_pair,
+    stencil_window_update,
+)
 from repro_torch.obs.trace import region
 
 #: stencil applications whose whole window was written aside and then
 #: copied into the state (:func:`stencil_apply`, the last application of
-#: an odd :func:`stencil_cycle`, inside a ``tempi.splice`` range);
-#: readers take differences
+#: an odd :func:`stencil_cycle` that does not end in the fused pair,
+#: inside a ``tempi.splice`` range); readers take differences
 splice_copies = 0
 
 __all__ = [
@@ -231,17 +238,22 @@ def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None,
     into ``local`` its window together with the rim around it, application
     1's cells that no later window covers, copied unchanged
     (``copy_rim``); and so on.  No application of an even chain copies a
-    window back.  An odd chain ends with a copy of the last window from
-    the scratch (a splice copy, counted in :data:`splice_copies`).
-    ``local`` then holds what applying each op in place would leave,
-    halos included.  The scratch
+    window back.  Any other odd chain ends with a copy of the last window
+    from the scratch (a splice copy, counted in :data:`splice_copies`).
+    An odd chain of three or more whose last two ops are radius-(1, 1, 1)
+    boxes ends instead in the fused pair
+    (:func:`~repro_torch.kernels.ops.stencil_window_pair`): its last two
+    applications read the scratch once and write ``local``, so it copies
+    nothing.  ``local`` then holds what applying each op in place would
+    leave, halos included.  The scratch
     comes from the caching allocator, which hands the same block back at
     the next call of the same shape.
 
     Each application runs inside ``span(i)`` (default: one
-    ``tempi.stencil`` range, :func:`~repro_torch.obs.trace.region`);
-    the copy at the end belongs to the last application's span, in a
-    ``tempi.splice`` range of its own inside it."""
+    ``tempi.stencil`` range, :func:`~repro_torch.obs.trace.region`), the
+    fused pair inside one ``span(i, 2)`` (applications ``i`` and ``i +
+    1``); the copy at the end belongs to the last application's span, in
+    a ``tempi.splice`` range of its own inside it."""
     global splice_copies
     valid = _as_radii(valid, spec)
     need = cycle_halo_radii(op, repeats)
@@ -255,8 +267,10 @@ def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None,
     for o in seq:
         windows.append(_window_of(spec, valid, o))
         valid = tuple(v - r for v, r in zip(valid, o.radii))
+    paired = len(seq) >= 3 and len(seq) % 2 == 1 and all(o.radii == (1, 1, 1) for o in seq[-2:])
+    singles = len(seq) - 2 if paired else len(seq)
     scratch = torch.empty_like(local)
-    for i, (o, (origin, shape)) in enumerate(zip(seq, windows)):
+    for i, (o, (origin, shape)) in enumerate(zip(seq[:singles], windows)):
         with (span or _stencil_region)(i):
             if i % 2 == 0:
                 stencil_window_update(local, o.offsets, o.weight, origin, shape,
@@ -268,10 +282,15 @@ def stencil_cycle(local, spec: HaloSpec, op: Ops, repeats: int = 1, valid=None,
                 with region("splice"):
                     _put(local, origin, _view(scratch, origin, shape))
                 splice_copies += 1
+    if paired:
+        first, second = seq[-2:]
+        with (span or _stencil_region)(singles, 2):
+            stencil_window_pair(scratch, first.offsets, (first.weight, second.weight),
+                                *windows[-2], out=_view(local, *windows[-3]))
     return local
 
 
-def _stencil_region(i: int) -> ContextManager:
+def _stencil_region(i: int, applications: int = 1) -> ContextManager:
     return region("stencil")
 
 

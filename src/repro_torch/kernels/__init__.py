@@ -17,6 +17,7 @@ from repro_torch.kernels.ops import (
     byte_view,
     pack,
     pack_block,
+    stencil_window_pair,
     stencil_window_update,
     unpack,
 )
@@ -34,14 +35,18 @@ KERNELS = {
 
 def launch_counts() -> dict:
     """Kernel launches since the last :func:`reset_launch_counts`, by
-    :data:`KERNELS` name, and two counts beside them:
+    :data:`KERNELS` name, and three counts beside them:
     ``stencil_runtime``, the ``stencil`` launches that took the
-    runtime-radii kernel, and ``splice_copies``, the halo layer's windows
-    copied into the state
+    runtime-radii kernel; ``stencil_pairs``, the launches of the fused
+    pair of stencil applications
+    (:func:`~repro_torch.kernels.ops.stencil_window_pair`, two
+    applications each, none of them in ``stencil``); and
+    ``splice_copies``, the halo layer's windows copied into the state
     (:data:`repro_torch.halo.stencil.splice_copies`; 0 before that
     module is loaded)."""
     counts = {name: fn.launches for name, fn in KERNELS.items()}
     counts["stencil_runtime"] = stencil_window_update.runtime_launches
+    counts["stencil_pairs"] = stencil_window_pair.launches
     halo = sys.modules.get("repro_torch.halo.stencil")
     counts["splice_copies"] = halo.splice_copies if halo is not None else 0
     return counts
@@ -51,6 +56,7 @@ def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     stencil_window_update.runtime_launches = 0
+    stencil_window_pair.launches = 0
     halo = sys.modules.get("repro_torch.halo.stencil")
     if halo is not None:
         halo.splice_copies = 0

@@ -51,10 +51,13 @@ _DMA_KERNEL_ARGS = _KERNEL_ARGS[:12] + [_I, _I, _I] + _KERNEL_ARGS[12:]
 #: the stencil update: (in, 3 strides, out, 3 strides, batch, nz, ny, nx,
 #: rz, ry, rx, copied rim, element bytes, w / N, 1 - w, device, stream)
 _STENCIL_ARGS = [_P, _L, _L, _L, _P, _L, _L, _L] + [_I] * 9 + [ctypes.c_double] * 2 + [_I, _P]
+#: the fused pair: (in, 3 strides, out, 3 strides, batch, nz, ny, nx,
+#: element bytes, the two updates' w / N and 1 - w, device, stream)
+_PAIR_ARGS = [_P, _L, _L, _L, _P, _L, _L, _L] + [_I] * 5 + [ctypes.c_double] * 4 + [_I, _P]
 _ENTRIES = {
     "pack": {"tempi_pack_rows": _ROW_KERNEL_ARGS, "tempi_pack_dma": _DMA_KERNEL_ARGS},
     "unpack": {"tempi_unpack_rows": _ROW_KERNEL_ARGS, "tempi_unpack_dma": _DMA_KERNEL_ARGS},
-    "stencil": {"tempi_stencil_update": _STENCIL_ARGS},
+    "stencil": {"tempi_stencil_update": _STENCIL_ARGS, "tempi_stencil_pair": _PAIR_ARGS},
 }
 
 

@@ -1,5 +1,6 @@
 // Weighted box-neighbourhood stencil update for Hopper (sm_90a), loaded
-// with ctypes from repro_torch/kernels/ops.py (stencil_window_update).
+// with ctypes from repro_torch/kernels/ops.py (stencil_window_update, and
+// stencil_window_pair for two updates in one pass).
 //
 //   out[i] = (1 - w) * u[i] + (w / N) * sum over the N offsets d of u[i + d]
 //
@@ -57,6 +58,51 @@
 // and its outer layer gets the input's cells unchanged: the stencil's
 // scratch chain (halo/stencil.py, stencil_cycle) then writes an
 // application and the rim left by the one before it in one pass.
+//
+// The fused pair (tempi_stencil_pair, pair_kernel) computes two
+// consecutive radius-(1, 1, 1) applications in one pass, for the last
+// two applications of an odd chain: it reads the scratch's block once
+// and writes the state's, and the first application's values never go
+// through device memory.  The window W it reads and writes is the first
+// application's window grown by one: its outer layer is the input
+// copied unchanged (as with a copied rim), the next layer the first
+// application, the rest the second.  The chain then ends in the state
+// with no splice copy, and passes over the state drop from four to two
+// at s = 3.  The arithmetic is the fast path's, so the pair gives the
+// bits of its two launches.  What bounds it, and what the design does:
+//   1. Registers.  Every output keeps an accumulator for each of the
+//      three planes it is fed by, and the pair has two applications in
+//      flight, so a thread computes one run of G cells in each (24
+//      accumulators); the first design, whole rows and two runs a stage,
+//      spilled at any block size and ran 11.5-18 ms at 8 x 516^3.  A
+//      block of at most 384 threads (80 registers, two blocks an SM) owns
+//      a tile of runs by rows; thread t computes the same run in both
+//      stages, the second where it is inside the tile.  The first
+//      application is recomputed on a ring of one run and one row around
+//      each tile (22 x 14 runs at 8 x 516^3: 25% more of it).
+//   2. Device-memory bytes: W read once and written once (2.62 ms at
+//      8 x 516^3 float32 by the data sheet; a windowed copy of the same
+//      bytes takes 3.8 ms on the card, a windowed fill 2.6).  Input
+//      planes are staged by 16-byte cp.async into a ring of four, two in
+//      flight; the first application's plane goes into a ring of three in
+//      shared memory, where the second reads it a step later, so the two
+//      stages share no plane within a step and one barrier a step keeps
+//      them apart.  Rows of a 518-float pitch (2,072 bytes) start at two
+//      16-byte phases in turn, so each staged row is placed at its own
+//      phase and each run starts at its row's phase: every global load
+//      and store is 16 bytes, whatever the pitch, except the head and
+//      tail of a row; stores are streamed (evict first).  Runs of
+//      neighbouring rows are then 0 or 2 cells apart: a run and its side
+//      cells are one vector and two cells, or two vectors, and a block
+//      orders its rows even ones first so that a warp's rows share a phase
+//      and take one branch.  (The vector path wants every row start of
+//      both buffers on one 8-byte phase of a float, or 16-byte of a
+//      double, and planes on 16 bytes; anything else takes single cells,
+//      same arithmetic.)
+//   3. Instructions: twice the fast path's adds, a quarter more for the
+//      recomputed ring.  On the card the pair takes about 7 ms at
+//      8 x 516^3, against 13 for the two launches and the splice copy it
+//      replaces; neither the bytes nor the adds alone account for it.
 
 #include <cuda_runtime.h>
 
@@ -85,6 +131,10 @@ struct Lane<float> {
   __device__ static __forceinline__ void store(float* dst, const float (&r)[4]) {
     *reinterpret_cast<float4*>(dst) = make_float4(r[0], r[1], r[2], r[3]);
   }
+  // a store that is not read again soon: evict first
+  __device__ static __forceinline__ void stream(float* dst, const float (&r)[4]) {
+    __stcs(reinterpret_cast<float4*>(dst), make_float4(r[0], r[1], r[2], r[3]));
+  }
 };
 
 template <>
@@ -95,6 +145,9 @@ struct Lane<double> {
   __device__ static __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
   __device__ static __forceinline__ void store(double* dst, const double (&r)[2]) {
     *reinterpret_cast<double2*>(dst) = make_double2(r[0], r[1]);
+  }
+  __device__ static __forceinline__ void stream(double* dst, const double (&r)[2]) {
+    __stcs(reinterpret_cast<double2*>(dst), make_double2(r[0], r[1]));
   }
 };
 
@@ -563,8 +616,405 @@ int launch(const void* in, long long in_b, long long in_z, long long in_y, void*
   return err != cudaSuccess ? static_cast<int>(err) : kRanRuntime;
 }
 
+// ---------------------------------------------------------------------------
+// the fused pair
+// ---------------------------------------------------------------------------
+
+constexpr int kPairThreads = 384;  // threads of a block at most
+constexpr int kPairBlocks = 2;     // blocks an SM holds
+constexpr int kPairStages = 4;     // staged input planes: the two in use and two in flight
+constexpr int kPairSharedBytes = 224 * 1024 / kPairBlocks;  // the two rings at most
+constexpr int kPairWaves = 8;      // blocks per resident slot the z slices aim for
+
+// One launch of the pair.  Pointers are at W's first cell of buffer 0,
+// strides in elements.  On the vector path row y of every plane starts
+// at 16-byte phase (phase + y * step) mod G, in elements; run j of row y
+// is its cells j * G - phase(y) .. + G.
+template <typename T>
+struct PairArgs {
+  const T* in;
+  T* out;
+  long long in_b, in_z, in_y;
+  long long out_b, out_z, out_y;
+  int nz, ny, nx;           // W
+  int in_phase, in_step;    // the input's row phases (vector path)
+  int out_phase, out_step;  // the output's
+  int runs;                 // runs a row
+  int tile_runs;            // output runs of a tile
+  int tile_rows;            // output rows of a tile
+  int tiles_x, tiles_y;     // tiles across and down a plane
+  int zchunk;               // planes a block marches
+  T scale1, keep1;          // the first application's w / N and 1 - w
+  T scale2, keep2;          // the second's
+};
+
+// a compile-time int, to hand a lambda a constant
+template <int N>
+struct Int {
+  static constexpr int value = N;
+};
+
+// w[i] = row[s + i] for i < G + 2: a run's G cells (from s + 1) and one
+// cell on each side.  On the vector path s + 1 is on a vector (one vector
+// and two cells), or (floats) two cells into one (two vectors); a warp
+// holds rows of one phase (pair_kernel's row order), so the branch is the
+// warp's.
+template <typename T, bool VEC>
+__device__ __forceinline__ void read_run(const T* row, int s, T (&w)[Lane<T>::n + 2]) {
+  using V = typename Lane<T>::V;
+  constexpr int G = Lane<T>::n;
+  if constexpr (VEC && G == 4) {
+    if ((s & 3) == 3) {
+      const float4 c = *reinterpret_cast<const float4*>(row + s + 1);
+      w[0] = row[s], w[1] = c.x, w[2] = c.y, w[3] = c.z, w[4] = c.w, w[5] = row[s + 5];
+    } else {
+      const float4 a = *reinterpret_cast<const float4*>(row + s - 1);
+      const float4 b = *reinterpret_cast<const float4*>(row + s + 3);
+      w[0] = a.y, w[1] = a.z, w[2] = a.w, w[3] = b.x, w[4] = b.y, w[5] = b.z;
+    }
+    return;
+  }
+  if constexpr (VEC && G == 2) {  // s + 1 is on a vector
+    const V c = *reinterpret_cast<const V*>(row + s + 1);
+    w[0] = row[s], w[1] = c.x, w[2] = c.y, w[3] = row[s + 3];
+    return;
+  }
+#pragma unroll
+  for (int i = 0; i < G + 2; ++i) w[i] = row[s + i];
+}
+
+// G cells from row[s]: on the vector path s is on a vector, or (floats)
+// two cells into one.
+template <typename T, bool VEC>
+__device__ __forceinline__ void read_cells(const T* row, int s, T (&u)[Lane<T>::n]) {
+  using V = typename Lane<T>::V;
+  constexpr int G = Lane<T>::n;
+  if constexpr (VEC && G == 4) {
+    if ((s & 3) == 0) {
+      const float4 c = *reinterpret_cast<const float4*>(row + s);
+      u[0] = c.x, u[1] = c.y, u[2] = c.z, u[3] = c.w;
+    } else {
+      const float2 a = *reinterpret_cast<const float2*>(row + s);
+      const float2 b = *reinterpret_cast<const float2*>(row + s + 2);
+      u[0] = a.x, u[1] = a.y, u[2] = b.x, u[3] = b.y;
+    }
+    return;
+  }
+  if constexpr (VEC && G == 2) {
+    const V c = *reinterpret_cast<const V*>(row + s);
+    u[0] = c.x, u[1] = c.y;
+    return;
+  }
+#pragma unroll
+  for (int e = 0; e < G; ++e) u[e] = row[s + e];
+}
+
+// Add one staged row (w: a run and its two side cells, row dy of the
+// three an output reads) to the accumulators of the three planes it
+// feeds: acc[(k - j) mod 3] is the output that takes it at dz = j - 1.
+// Every output takes its terms in itertools.product order: planes come
+// in z order, rows in y order, cells in x order; the centre is skipped.
+template <typename T>
+__device__ __forceinline__ void feed(T (&acc)[3][Lane<T>::n], int k, int dy,
+                                     const T (&w)[Lane<T>::n + 2]) {
+  using L = Lane<T>;
+  constexpr int G = L::n;
+#pragma unroll
+  for (int e = 0; e < G; ++e) {
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      T& a = acc[(k - j + 3) % 3][e];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        if (j == 0 && dy == 0 && dx == 0)
+          a = L::add(T(0), w[e]);
+        else if (j != 1 || dy != 1 || dx != 1)
+          a = L::add(a, w[e + dx]);
+      }
+    }
+  }
+}
+
+// The pair.  Staged input plane q is W's plane z0 - 2 + q, the middle
+// ring's plane u (the first application) W's plane z0 - 1 + u, the
+// second application's plane o W's plane z0 + o.  A tile: output runs
+// j0 .. j0 + tile_runs of rows y0 .. y0 + tile_rows; the first
+// application's runs and rows one more on each side, the input's groups
+// and rows two more.  Thread t computes run j0 - 1 + t % (tile_runs + 2)
+// of row y0 - 1 + t / (tile_runs + 2) in both stages, the second where
+// that cell is in the tile.  In both rings a row's cell x sits at x +
+// phase(row) + G - (j0 - 1) * G, so run j0 - 1 + m starts at (m + 1) * G.
+template <typename T, bool VEC>
+__global__ void __launch_bounds__(kPairThreads, kPairBlocks) pair_kernel(const PairArgs<T> p) {
+  using L = Lane<T>;
+  constexpr int G = L::n;
+  constexpr int AHEAD = kPairStages - 2;
+  constexpr int WHOLE = (1 << G) - 1;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int groups = p.tile_runs + 4;  // groups of a staged row, and of a row of the middle ring
+  const int W = groups * G;
+  const int rows_in = p.tile_rows + 4, rows_mid = p.tile_rows + 2;
+  const int plane_in = rows_in * W, plane_mid = rows_mid * W;
+  T* const ring_in = reinterpret_cast<T*>(smem);
+  T* const ring_mid = ring_in + kPairStages * plane_in;
+
+  int b = blockIdx.x;
+  const int tx = b % p.tiles_x;
+  b /= p.tiles_x;
+  const int ty = b % p.tiles_y;
+  const int z0 = b / p.tiles_y * p.zchunk;
+  const int j0 = tx * p.tile_runs, y0 = ty * p.tile_rows;
+  const int staged = min(p.nz - z0, p.zchunk) + 4;  // input planes of the block
+  const T* const in = p.in + static_cast<long long>(blockIdx.y) * p.in_b;
+  T* const out = p.out + static_cast<long long>(blockIdx.y) * p.out_b;
+  auto in_ph = [&](int y) { return VEC ? (p.in_phase + y * p.in_step) & (G - 1) : 0; };
+  auto out_ph = [&](int y) { return VEC ? (p.out_phase + y * p.out_step) & (G - 1) : 0; };
+
+  // staging: thread (row r0, group g) of the first rows_step * groups
+  // threads copies group g of rows r0, r0 + rows_step, ...; staged group
+  // g covers cells (j0 - 2 + g) * G - phase(row) .. + G
+  const int rows_step = blockDim.x / groups;
+  const int g = threadIdx.x % groups, r0 = threadIdx.x / groups;
+  auto stage = [&](int q) {
+    const int z = z0 - 2 + q;
+    if (z < 0 || z >= p.nz || r0 >= rows_step) return;
+    const T* plane = in + static_cast<long long>(z) * p.in_z;
+    T* const ring = ring_in + (q % kPairStages) * plane_in + g * G;
+    for (int r = r0; r < rows_in; r += rows_step) {
+      const int y = y0 - 2 + r;
+      if (y < 0 || y >= p.ny) continue;
+      const int x = (j0 - 2 + g) * G - in_ph(y);
+      const T* src = plane + static_cast<long long>(y) * p.in_y + x;
+      T* dst = ring + r * W;
+      if (VEC && x >= 0 && x + G <= p.nx) {
+        copy16(dst, src);
+      } else {
+#pragma unroll
+        for (int e = 0; e < G; ++e)
+          if (x + e >= 0 && x + e < p.nx) copy_one(dst + e, src + e);
+      }
+    }
+  };
+
+  // this thread's run: row y of W, its first cell x; at = where it
+  // starts in a row of either ring; flags: the cells copied unchanged
+  // into the middle ring (bits 0..), the thread has a run (bit 7), the
+  // cells that keep the first application (bits 8..), the cells stored
+  // (bits 16..; bit 16 + G: not as one vector)
+  // rows in the order 0, 2, 4, ..., 1, 3, ...: a warp's rows share a
+  // phase where rows alternate, so its reads take one branch
+  const int slot = threadIdx.x / (p.tile_runs + 2), mj = threadIdx.x % (p.tile_runs + 2);
+  const int mr = slot < (rows_mid + 1) / 2 ? 2 * slot : 2 * (slot - (rows_mid + 1) / 2) + 1;
+  const int y = y0 - 1 + mr;
+  const int x = (j0 - 1 + mj) * G - out_ph(y);
+  const int at = mr * W + (mj + 1) * G;
+  // read_run's start in the input row above (the row below: two rows
+  // on, same phase) and in the row itself; in the middle ring's row above
+  const int in_side = at - 1 + in_ph(y - 1) - out_ph(y);
+  const int in_mid = at + W - 1 + in_ph(y) - out_ph(y);
+  const int mid_side = at - W - 1 + out_ph(y - 1) - out_ph(y);
+  unsigned flags = 0;
+  {
+    if (mr < rows_mid) flags |= 1u << 7;
+    unsigned store = 0;
+    const bool out_cell = mr >= 1 && mr <= p.tile_rows && mj >= 1 && mj <= p.tile_runs &&
+                          y < p.ny;
+#pragma unroll
+    for (int e = 0; e < G; ++e) {
+      if (y == 0 || y == p.ny - 1 || x + e == 0 || x + e == p.nx - 1) flags |= 1u << e;
+      if (y <= 1 || y >= p.ny - 2 || x + e <= 1 || x + e >= p.nx - 2) flags |= 1u << (8 + e);
+      if (out_cell && x + e >= 0 && x + e < p.nx) store |= 1u << e;
+    }
+    if (store == WHOLE && !VEC) store |= 1u << G;
+    flags |= store << 16;
+  }
+  T* const dst_row = out + static_cast<long long>(y) * p.out_y + x;
+
+  for (int q = 0; q < AHEAD; ++q) {
+    if (q < staged) stage(q);
+    commit();
+  }
+  T acc1[3][G], acc2[3][G];
+  // Step q: input plane q feeds the first application, which completes its
+  // plane q - 2 into the middle ring; the middle ring's plane q - 3,
+  // written a step before, feeds the second, which completes its plane
+  // q - 5.  So the two stages share no plane within a step and one
+  // barrier a step keeps them apart.  q = base + k with k known at compile
+  // time, so that every accumulator and ring index is: plane q feeds
+  // acc1[(k - j) mod 3], the middle plane q - 3 acc2[(k - j) mod 3].
+  auto step = [&](auto kc, int q) {
+    constexpr int k = decltype(kc)::value;
+    if (q >= staged + 1) return;
+    wait_pending<AHEAD - 1>();
+    __syncthreads();
+    if (q + AHEAD < staged) stage(q + AHEAD);
+    commit();
+    if (q < staged && (flags >> 7 & 1)) {
+      // stage 1: input plane q feeds the first application's planes q, q - 1, q - 2
+      const T* const plane = ring_in + (q % kPairStages) * plane_in;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+        T w[G + 2];
+        read_run<T, VEC>(plane, dy == 1 ? in_mid : in_side + dy * W, w);
+        feed<T>(acc1, k, dy, w);
+      }
+      if (q >= 2) {  // its plane q - 2 (W's plane z0 + q - 3) is complete
+        const int z = z0 + q - 3;
+        const bool zcopy = z == 0 || z == p.nz - 1;
+        const T* const centre = ring_in + ((q - 1) % kPairStages) * plane_in;
+        T u[G], res[G];
+        read_cells<T, VEC>(centre, in_mid + 1, u);
+#pragma unroll
+        for (int e = 0; e < G; ++e)
+          res[e] = zcopy || (flags >> e & 1)
+                       ? u[e]
+                       : L::add(L::mul(acc1[(k + 1) % 3][e], p.scale1), L::mul(u[e], p.keep1));
+        L::store(ring_mid + ((k + 1) % 3) * plane_mid + at, res);
+      }
+    }
+    const unsigned store = flags >> 16;
+    if (q < 3 || !store) return;
+    // stage 2: the middle plane q - 3 feeds the second application's planes q - 3, q - 4,
+    // q - 5
+    const T* const mid = ring_mid + k * plane_mid;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      T w[G + 2];
+      read_run<T, VEC>(mid, dy == 1 ? at - 1 : mid_side + dy * W, w);
+      feed<T>(acc2, k, dy, w);
+    }
+    if (q < 5) return;
+    // its plane q - 5 (W's plane z0 + q - 5) is complete; the centre is the middle plane
+    // q - 4
+    const int z = z0 + q - 5;
+    const bool zkeep = z <= 1 || z >= p.nz - 2;
+    T u[G], res[G];
+    read_cells<T, VEC>(ring_mid + ((k + 2) % 3) * plane_mid, at, u);
+#pragma unroll
+    for (int e = 0; e < G; ++e)
+      res[e] = zkeep || (flags >> (8 + e) & 1)
+                   ? u[e]
+                   : L::add(L::mul(acc2[(k + 1) % 3][e], p.scale2), L::mul(u[e], p.keep2));
+    T* o = dst_row + static_cast<long long>(z) * p.out_z;
+    if (store == WHOLE) {
+      L::stream(o, res);
+    } else {
+#pragma unroll
+      for (int e = 0; e < G; ++e)
+        if (store >> e & 1) o[e] = res[e];
+    }
+  };
+  for (int base = 0; base <= staged; base += 3) {
+    step(Int<0>{}, base);
+    step(Int<1>{}, base + 1);
+    step(Int<2>{}, base + 2);
+  }
+}
+
+template <typename T>
+int pair_launch(const void* in, long long in_b, long long in_z, long long in_y, void* out,
+                long long out_b, long long out_z, long long out_y, int batch, int nz, int ny,
+                int nx, double scale1, double keep1, double scale2, double keep2, int device,
+                cudaStream_t stream) {
+  constexpr int G = Lane<T>::n;
+  constexpr long long es = sizeof(T);
+  const long long ia = reinterpret_cast<long long>(in), oa = reinterpret_cast<long long>(out);
+  if (batch < 1 || batch > 65535 || nz < 5 || ny < 5 || nx < 5 || ia % es || oa % es)
+    return static_cast<int>(cudaErrorInvalidValue);
+  PairArgs<T> p;
+  p.in = static_cast<const T*>(in);
+  p.out = static_cast<T*>(out);
+  p.in_b = in_b, p.in_z = in_z, p.in_y = in_y;
+  p.out_b = out_b, p.out_z = out_z, p.out_y = out_y;
+  p.nz = nz, p.ny = ny, p.nx = nx;
+  // the vector path: planes (and buffers) on 16 bytes, every row start
+  // of both on one phase modulo two elements
+  auto planes16 = [&](long long b, long long z) {
+    return (batch == 1 || (b * es) % 16 == 0) && (z * es) % 16 == 0;
+  };
+  const bool vec = planes16(in_b, in_z) && planes16(out_b, out_z) && in_y % 2 == 0 &&
+                   out_y % 2 == 0 && ia % (2 * es) == oa % (2 * es);
+  p.in_phase = static_cast<int>(ia % 16 / es);
+  p.out_phase = static_cast<int>(oa % 16 / es);
+  p.in_step = static_cast<int>((in_y % G + G) % G);
+  p.out_step = static_cast<int>((out_y % G + G) % G);
+  p.runs = (nx + 2 * G - 2) / G;
+  p.scale1 = static_cast<T>(scale1), p.keep1 = static_cast<T>(keep1);
+  p.scale2 = static_cast<T>(scale2), p.keep2 = static_cast<T>(keep2);
+  // the tile: for each split of a row into tiles, the most rows whose
+  // runs (with the recomputed ring) fit kPairThreads and whose two rings
+  // fit the shared memory; of those, the one with the fewest first-
+  // application runs a plane
+  auto bytes = [&](long long runs, long long rows) {
+    return (kPairStages * (rows + 4) + 3 * (rows + 2)) * (runs + 4) * G * es;
+  };
+  long long best = -1;
+  for (int tiles_x = 1; tiles_x <= p.runs; ++tiles_x) {
+    const int runs = (p.runs + tiles_x - 1) / tiles_x;
+    if (runs + 4 > kPairThreads) continue;
+    int rows = kPairThreads / (runs + 2) - 2;
+    rows = rows < ny ? rows : ny;
+    while (rows >= 1 && bytes(runs, rows) > kPairSharedBytes) --rows;
+    if (rows < 1) continue;
+    const long long cost = 1LL * tiles_x * ((ny + rows - 1) / rows) * (rows + 2) * (runs + 2);
+    if (best < 0 || cost < best) {
+      best = cost;
+      p.tile_runs = runs, p.tile_rows = rows;
+      p.tiles_x = (p.runs + runs - 1) / runs;
+    }
+  }
+  if (best < 0) return static_cast<int>(cudaErrorInvalidValue);
+  p.tiles_y = (ny + p.tile_rows - 1) / p.tile_rows;
+  int sms = 0;
+  cudaError_t err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long flat = 1LL * p.tiles_x * p.tiles_y * batch;
+  long long chunks = (1LL * kPairBlocks * kPairWaves * sms + flat - 1) / flat;
+  const long long thinnest = nz / 8 > 1 ? nz / 8 : 1;
+  chunks = chunks < thinnest ? chunks : thinnest;
+  p.zchunk = static_cast<int>((nz + chunks - 1) / chunks);
+  const long long blocks = 1LL * p.tiles_x * p.tiles_y * ((nz + p.zchunk - 1) / p.zchunk);
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = ((p.tile_rows + 2) * (p.tile_runs + 2) + 31) / 32 * 32;
+  const int shared = static_cast<int>(bytes(p.tile_runs, p.tile_rows));
+  auto kernel = vec ? pair_kernel<T, true> : pair_kernel<T, false>;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(batch));
+  kernel<<<grid, threads, shared, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace stencil
 }  // namespace tempi
+
+// Two radius-(1, 1, 1) updates in one pass (the fused pair): `in` and
+// `out` point at the first cell of W, the window the first update reads
+// (its own window grown by one), strides in elements.  W is written into
+// `out`: its outer layer copied from `in`, the next layer the first
+// update (`scale1`, `keep1`), the rest the second (`scale2`, `keep2`)
+// computed from the first.  Returns the launch's cudaGetLastError(), or
+// cudaErrorInvalidValue for what it does not take.
+extern "C" int tempi_stencil_pair(const void* in, long long in_b, long long in_z, long long in_y,
+                                  void* out, long long out_b, long long out_z, long long out_y,
+                                  int batch, int nz, int ny, int nx, int elem, double scale1,
+                                  double keep1, double scale2, double keep2, int device,
+                                  void* stream) {
+  if (cudaSetDevice(device) != cudaSuccess) return static_cast<int>(cudaGetLastError());
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (elem) {
+    case 4:
+      return tempi::stencil::pair_launch<float>(in, in_b, in_z, in_y, out, out_b, out_z, out_y,
+                                                batch, nz, ny, nx, scale1, keep1, scale2, keep2,
+                                                device, s);
+    case 8:
+      return tempi::stencil::pair_launch<double>(in, in_b, in_z, in_y, out, out_b, out_z, out_y,
+                                                 batch, nz, ny, nx, scale1, keep1, scale2, keep2,
+                                                 device, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // One stencil update of a window on the stream: `in` and `out` point at
 // the window's first cell of buffer 0, strides in elements, `elem` the

@@ -51,6 +51,7 @@ __all__ = [
     "shifted_window_sum",
     "stencil_window_plain",
     "stencil_window_update",
+    "stencil_window_pair",
     "stencil_window_chain",
 ]
 
@@ -193,43 +194,55 @@ def stencil_window_update(arr, offsets, weight, origin, shape, out=None, copy_ri
         out.copy_(_window(arr, *region))
         _window(out, radii, shape).copy_(new)
         return out
-    if arr.device.type != "cuda":
-        raise ValueError(f"unsupported device {arr.device}")
-    if arr.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"the stencil kernel takes float32 or float64, not {arr.dtype}")
     if not offsets or offsets != _box_offsets(radii):
         raise ValueError("the stencil kernel takes the offsets of a full box minus its "
                          f"centre, in itertools.product order; got {offsets}")
-    dims = tuple(arr.shape[-3:])
-    if any(o < 0 or o + n > d for o, n, d in zip(*read, dims)):
-        raise ValueError(f"window {origin} + {shape} with radii {radii} leaves {dims}")
-    if out is None:
-        out = _window_out(arr, *region)
-    if (out.shape != arr.shape[:-3] + region[1] or out.dtype != arr.dtype
-            or out.device != arr.device):
-        raise ValueError(f"out is {out.dtype} {tuple(out.shape)} on {out.device}; need "
-                         f"{arr.dtype} {tuple(arr.shape[:-3] + region[1])} on {arr.device}")
+    out = _kernel_out(arr, read, region, out, f"window {origin} + {shape} with radii {radii}")
     if min(shape) == 0 or out.numel() == 0:
         return out
-    src = _batched(arr, "arr")
-    dst = _batched(out, "out")
-    (rlo, rhi), (wlo, whi) = _span(_window(arr, *read)), _span(out)
-    if rlo < whi and wlo < rhi and arr.untyped_storage().data_ptr() == \
-            out.untyped_storage().data_ptr():
-        raise ValueError("out overlaps the cells the update reads")
-    es = arr.element_size()
-    first = arr.data_ptr() + es * sum(o * s for o, s in zip(region[0], src.stride()[1:]))
+    src, dst = _batched(arr, "arr"), _batched(out, "out")
     scale, keep = _factors(float(weight), len(offsets), arr.dtype)
     fn = library("stencil").tempi_stencil_update
-    err = fn(first, *src.stride()[:3], dst.data_ptr(), *dst.stride()[:3], src.shape[0],
-             *region[1], *radii, int(copy_rim), es, scale, keep, arr.device.index,
-             torch.cuda.current_stream(arr.device).cuda_stream)
+    err = fn(_first(arr, src, region[0]), *src.stride()[:3], dst.data_ptr(), *dst.stride()[:3],
+             src.shape[0], *region[1], *radii, int(copy_rim), arr.element_size(), scale, keep,
+             arr.device.index, torch.cuda.current_stream(arr.device).cuda_stream)
     if err != 0:
         if err != _RAN_RUNTIME:
             raise RuntimeError(f"tempi_stencil_update launch failed with CUDA error {err}")
         stencil_window_update.runtime_launches += 1
     stencil_window_update.launches += 1
     return out
+
+
+def _kernel_out(arr, read, region, out, what):
+    """Check a stencil kernel's operands on the card: ``arr`` float32 or
+    float64, the cells ``read`` inside it, ``out`` (a new tensor when
+    None) shaped as ``region`` and clear of the cells read.  Returns out."""
+    if arr.device.type != "cuda":
+        raise ValueError(f"unsupported device {arr.device}")
+    if arr.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"the stencil kernel takes float32 or float64, not {arr.dtype}")
+    dims = tuple(arr.shape[-3:])
+    if any(o < 0 or o + n > d for o, n, d in zip(*read, dims)):
+        raise ValueError(f"{what} leaves {dims}")
+    if out is None:
+        out = _window_out(arr, *region)
+    if (out.shape != arr.shape[:-3] + region[1] or out.dtype != arr.dtype
+            or out.device != arr.device):
+        raise ValueError(f"out is {out.dtype} {tuple(out.shape)} on {out.device}; need "
+                         f"{arr.dtype} {tuple(arr.shape[:-3] + region[1])} on {arr.device}")
+    (rlo, rhi), (wlo, whi) = _span(_window(arr, *read)), _span(out)
+    if rlo < whi and wlo < rhi and out.numel() and \
+            arr.untyped_storage().data_ptr() == out.untyped_storage().data_ptr():
+        raise ValueError("out overlaps the cells the update reads")
+    return out
+
+
+def _first(arr, src, origin) -> int:
+    """The address of ``arr``'s cell at ``origin`` (last three dimensions)
+    in its first buffer; ``src`` is arr as :func:`_batched` views it."""
+    return arr.data_ptr() + arr.element_size() * sum(
+        o * s for o, s in zip(origin, src.stride()[1:]))
 
 
 #: ``tempi_stencil_update``'s answer when the runtime-radii kernel ran
@@ -239,6 +252,58 @@ _RAN_RUNTIME = -2
 #: that took the runtime-radii kernel
 stencil_window_update.launches = 0
 stencil_window_update.runtime_launches = 0
+
+
+def stencil_window_pair(arr, offsets, weights, origin, shape, out=None):
+    """Two consecutive radius-(1, 1, 1) updates in one pass: the first
+    (weight ``weights[0]``) over the window ``arr[..., origin : origin +
+    shape]``, the second (``weights[1]``) over the first's result there,
+    in the window shrunk by one cell per side.
+
+    Writes the window grown by one cell per side, the cells the first
+    update reads, into ``out`` (a tensor of that shape, leading dimensions
+    included, clear of ``arr``'s cells; a new one when None) and returns
+    it: the outer layer holds ``arr``'s cells unchanged, the next layer
+    the first update, the rest the second.  That is what
+    ``stencil_window_update(..., copy_rim=True)`` followed by the second
+    update in place leaves.  ``offsets`` are the radius-(1, 1, 1) box's,
+    as :func:`stencil_window_update` takes them.
+
+    A CUDA tensor takes the fused kernel (``tempi_stencil_pair`` in
+    ``csrc/stencil.cu``), float32 or float64, which keeps the first
+    update's values on the chip; anything else raises.  A CPU tensor
+    takes the two plain updates in turn.  Both give the same bits.
+    Launches are counted in ``.launches``."""
+    offsets = tuple(tuple(int(c) for c in d) for d in offsets)
+    if offsets != _box_offsets((1, 1, 1)):
+        raise ValueError("the fused pair takes the radius-(1, 1, 1) box minus its centre, "
+                         f"in itertools.product order; got {offsets}")
+    w1, w2 = (float(w) for w in weights)
+    origin, shape = tuple(origin), tuple(shape)
+    inner = tuple(n - 2 for n in shape)
+    if min(inner) < 1:
+        raise ValueError(f"window {shape} leaves the second update no cell")
+    grown = (tuple(o - 1 for o in origin), tuple(n + 2 for n in shape))
+    if arr.device.type == "cpu":
+        out = stencil_window_update(arr, offsets, w1, origin, shape, out=out, copy_rim=True)
+        _window(out, (2, 2, 2), inner).copy_(
+            stencil_window_update(out, offsets, w2, (2, 2, 2), inner))
+        return out
+    out = _kernel_out(arr, grown, grown, out, f"window {origin} + {shape}, grown by one,")
+    src, dst = _batched(arr, "arr"), _batched(out, "out")
+    (s1, k1), (s2, k2) = (_factors(w, len(offsets), arr.dtype) for w in (w1, w2))
+    err = library("stencil").tempi_stencil_pair(
+        _first(arr, src, grown[0]), *src.stride()[:3], dst.data_ptr(), *dst.stride()[:3],
+        src.shape[0], *grown[1], arr.element_size(), s1, k1, s2, k2, arr.device.index,
+        torch.cuda.current_stream(arr.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"tempi_stencil_pair launch failed with CUDA error {err}")
+    stencil_window_pair.launches += 1
+    return out
+
+
+#: fused-pair launches of :func:`stencil_window_pair`
+stencil_window_pair.launches = 0
 
 
 def stencil_window_chain(arr, stages):

@@ -311,17 +311,18 @@ def validate(trace: dict) -> List[str]:
             steps = int(s.attrs.get("steps", 1) or 1)
             ex = [c for c in kids.get(s.span_id, ())
                   if c.name == "exchange"]
-            st = [c for c in kids.get(s.span_id, ())
-                  if c.name == "stencil"]
+            # a fused pair's span holds two applications
+            st = sum(int(c.attrs.get("applications", 1)) for c in kids.get(s.span_id, ())
+                     if c.name == "stencil")
             if len(ex) > 1:
                 errors.append(
                     f"program_iteration span {s.span_id}: {len(ex)} "
                     "exchanges in one iteration (expected <= 1)"
                 )
-            if ex and len(st) < steps:
+            if ex and st < steps:
                 errors.append(
                     f"program_iteration span {s.span_id}: "
-                    f"{len(st)} stencil applications < steps={steps} — "
+                    f"{st} stencil applications < steps={steps} — "
                     f"exchanges per application exceed 1/s"
                 )
     return errors

@@ -272,14 +272,20 @@ def test_wrappers_take_the_plain_version_on_the_cpu(batch):
         assert fn(d, want, geom) is d
         np.testing.assert_array_equal(d.numpy(), want_dst.numpy())
     from repro_torch.halo import STENCIL26
-    from repro_torch.kernels.ops import stencil_window_plain, stencil_window_update
+    from repro_torch.kernels.ops import (
+        stencil_window_pair,
+        stencil_window_plain,
+        stencil_window_update,
+    )
 
     arr = torch.randn((batch, 6, 5, 7), dtype=torch.float32)
     win = ((1, 1, 1), (4, 3, 5))
     assert torch.equal(stencil_window_update(arr, STENCIL26.offsets, 0.4, *win),
                        stencil_window_plain(arr, STENCIL26.offsets, 0.4, *win))
+    stencil_window_pair(arr, STENCIL26.offsets, (0.4, 0.3), *win)
     assert launch_counts() == {"pack_rows": 0, "pack_dma": 0, "unpack_rows": 0, "unpack_dma": 0,
-                               "stencil": 0, "stencil_runtime": 0, "splice_copies": 0}
+                               "stencil": 0, "stencil_runtime": 0, "stencil_pairs": 0,
+                               "splice_copies": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():

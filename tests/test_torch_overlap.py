@@ -219,12 +219,14 @@ def _plain(spec, comm, plan, x, ops, steps):
 class _CountCells:
     """Counts the computed cells (a copied rim is not computed) of every
     stencil window update the halo layer asks for, from the windows it
-    passes: single updates and each stage of a chain."""
+    passes: single updates, both updates of a fused pair and each stage
+    of a chain."""
 
     def __init__(self, monkeypatch):
         import repro_torch.halo.stencil as st
 
-        update, chain = st.stencil_window_update, st.stencil_window_chain
+        update, pair, chain = (st.stencil_window_update, st.stencil_window_pair,
+                               st.stencil_window_chain)
         self.cells = 0
 
         def cells(arr, shape):
@@ -234,6 +236,10 @@ class _CountCells:
             self.cells += cells(arr, shape)
             return update(arr, offsets, weight, origin, shape, **kw)
 
+        def counted_pair(arr, offsets, weights, origin, shape, **kw):
+            self.cells += cells(arr, shape) + cells(arr, [n - 2 for n in shape])
+            return pair(arr, offsets, weights, origin, shape, **kw)
+
         def counted_chain(arr, stages):
             shape = arr.shape[-3:]
             for _, _, radii in stages:
@@ -242,6 +248,7 @@ class _CountCells:
             return chain(arr, stages)
 
         monkeypatch.setattr(st, "stencil_window_update", counted_update)
+        monkeypatch.setattr(st, "stencil_window_pair", counted_pair)
         monkeypatch.setattr(st, "stencil_window_chain", counted_chain)
 
 

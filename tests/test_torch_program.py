@@ -281,18 +281,40 @@ def _applications_one_by_one(local, spec, ops, repeats):
     return local
 
 
+WIDE = StencilOp((2, 1, 1), 0.3)
+#: case: (cycle, repeats, whether the chain ends in the fused pair)
 SCRATCH_CASES = {
-    "26pt_s1": ((STENCIL26,), 1),
-    "26pt_s2": ((STENCIL26,), 2),
-    "26pt_s3": ((STENCIL26,), 3),
-    "pair_s2": ((StencilOp((2, 1, 1)), StencilOp((1, 2, 3), 0.3)), 2),
-    "pair_s1": ((StencilOp((2, 1, 1)), StencilOp((1, 2, 3), 0.3)), 1),
+    "26pt_s1": ((STENCIL26,), 1, False),
+    "26pt_s2": ((STENCIL26,), 2, False),
+    "26pt_s3": ((STENCIL26,), 3, True),
+    "26pt_s4": ((STENCIL26,), 4, False),
+    "26pt_s5": ((STENCIL26,), 5, True),
+    "26pt_s7": ((STENCIL26,), 7, True),
+    "pair_s2": ((StencilOp((2, 1, 1)), StencilOp((1, 2, 3), 0.3)), 2, False),
+    "pair_s1": ((StencilOp((2, 1, 1)), StencilOp((1, 2, 3), 0.3)), 1, False),
+    "wide_26_s1": ((WIDE, STENCIL26), 1, False),
+    "wide_26_s2": ((WIDE, STENCIL26), 2, False),
+    "26_wide_26_s1": ((STENCIL26, WIDE, STENCIL26), 1, False),
+    "wide_26_26_s1": ((WIDE, STENCIL26, StencilOp((1, 1, 1), 0.3)), 1, True),
 }
 
 
+@pytest.fixture
+def pair_calls(monkeypatch):
+    """The windows of the fused pairs the halo layer asks for, in order."""
+    calls, pair = [], st.stencil_window_pair
+
+    def counted(arr, offsets, weights, origin, shape, **kw):
+        calls.append((tuple(origin), tuple(shape)))
+        return pair(arr, offsets, weights, origin, shape, **kw)
+
+    monkeypatch.setattr(st, "stencil_window_pair", counted)
+    return calls
+
+
 @pytest.mark.parametrize("case", sorted(SCRATCH_CASES))
-def test_scratch_cycle_equals_the_applications_one_by_one_halos_included(case):
-    ops, repeats = SCRATCH_CASES[case]
+def test_scratch_cycle_equals_the_applications_one_by_one_halos_included(case, pair_calls):
+    ops, repeats, paired = SCRATCH_CASES[case]
     spec = HaloSpec(grid=(2, 2, 2), interior=(6, 5, 7), radius=cycle_halo_radii(ops, repeats))
     start = torch.from_numpy(
         np.random.default_rng(8).normal(size=(8,) + spec.alloc).astype(np.float32))
@@ -303,8 +325,10 @@ def test_scratch_cycle_equals_the_applications_one_by_one_halos_included(case):
     assert stencil_cycle(got, spec, ops, repeats) is got
     assert torch.equal(got, want)
     napp = repeats * len(ops)
-    assert st.splice_copies - splices == napp % 2  # 0 for an even chain
-    assert launch_counts()["stencil"] == 0  # the CPU takes the plain version
+    assert len(pair_calls) == paired
+    assert st.splice_copies - splices == napp % 2 - paired  # 0 for an even chain
+    counts = launch_counts()  # the CPU takes the plain versions and launches nothing
+    assert counts["stencil"] == counts["stencil_pairs"] == counts["stencil_runtime"] == 0
 
 
 @pytest.mark.parametrize("mode", ["monolithic", "region"])

@@ -17,6 +17,7 @@ from repro_torch.halo import (
     STENCIL26,
     HaloSpec,
     StencilOp,
+    build_halo_program,
     cycle_halo_radii,
     from_reference,
     halo_exchange,
@@ -26,9 +27,13 @@ from repro_torch.halo import (
     stencil_cycle,
 )
 import repro_torch.halo.stencil as st
-from repro_torch.halo.stencil import _put, _shell_slabs, _window_of
+from repro_torch.halo.stencil import _put, _shell_slabs, _view, _window_of
 from repro_torch.kernels import launch_counts, reset_launch_counts
-from repro_torch.kernels.ops import stencil_window_plain, stencil_window_update
+from repro_torch.kernels.ops import (
+    stencil_window_pair,
+    stencil_window_plain,
+    stencil_window_update,
+)
 
 
 def _card():
@@ -51,6 +56,40 @@ def _plain_cycle(local, spec, ops, repeats):
         _put(local, origin, stencil_window_plain(local, o.offsets, o.weight, origin, shape))
         valid = tuple(v - r for v, r in zip(valid, o.radii))
     return local
+
+
+def _unfused_cycle(local, spec, ops, repeats):
+    """The scratch chain as separate launches: application by
+    application alternating between ``local`` and a scratch, an odd
+    chain closed by a splice copy.  What the fused pair replaces."""
+    seq = op_sequence(ops, repeats)
+    windows, valid = [], spec.radii
+    for o in seq:
+        windows.append(_window_of(spec, valid, o))
+        valid = tuple(v - r for v, r in zip(valid, o.radii))
+    scratch = torch.empty_like(local)
+    for i, (o, (origin, shape)) in enumerate(zip(seq, windows)):
+        if i % 2 == 0:
+            stencil_window_update(local, o.offsets, o.weight, origin, shape,
+                                  out=_view(scratch, origin, shape))
+        else:
+            stencil_window_update(scratch, o.offsets, o.weight, origin, shape,
+                                  out=_view(local, *windows[i - 1]), copy_rim=True)
+    if len(seq) % 2:
+        _put(local, windows[-1][0], _view(scratch, *windows[-1]))
+    return local
+
+
+def _two_launches(arr, weights, origin, shape, out):
+    """What the fused pair replaces: the first update with its rim
+    copied into ``out``, the second from ``out`` into a window of its own,
+    copied back."""
+    inner = tuple(n - 2 for n in shape)
+    stencil_window_update(arr, STENCIL26.offsets, weights[0], origin, shape, out=out,
+                          copy_rim=True)
+    _view(out, (2, 2, 2), inner).copy_(
+        stencil_window_update(out, STENCIL26.offsets, weights[1], (2, 2, 2), inner))
+    return out
 
 
 def _both(arr, op, origin, shape):
@@ -120,8 +159,11 @@ def test_scratch_cycle_equals_the_plain_applications_halos_included(ops, steps):
     got = stencil_cycle(start.clone(), spec, ops, steps)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
-    assert launch_counts()["stencil"] == steps * len(ops)
-    assert st.splice_copies - splices == (steps * len(ops)) % 2
+    napp = steps * len(ops)
+    paired = napp >= 3 and napp % 2 == 1  # every op here ends a chain of radius-1 boxes
+    assert launch_counts()["stencil"] == napp - 2 * paired
+    assert launch_counts()["stencil_pairs"] == paired
+    assert st.splice_copies - splices == napp % 2 - paired
 
 
 @pytest.mark.cuda
@@ -131,7 +173,8 @@ def test_scratch_cycle_equals_the_plain_applications_halos_included(ops, steps):
 def test_runtime_launches_and_splice_copies_count_only_their_own(ops, steps):
     """``launch_counts()``: ``stencil_runtime`` rises by the launches of
     radii other than (1, 1, 1) (windows wide enough for the fast path
-    take it), ``splice_copies`` by one on an odd chain only."""
+    take it), ``stencil_pairs`` by one on an odd chain of three or more
+    radius-1 boxes, ``splice_copies`` by one on any other odd chain."""
     dev = _card()
     spec = HaloSpec(grid=(2, 2, 2), interior=(20, 17, 35), radius=cycle_halo_radii(ops, steps))
     state = _randn((8,) + spec.alloc, dev, seed=5)
@@ -140,10 +183,12 @@ def test_runtime_launches_and_splice_copies_count_only_their_own(ops, steps):
     stencil_cycle(state, spec, ops, steps)
     torch.cuda.synchronize()
     seq = op_sequence(ops, steps)
+    paired = len(seq) >= 3 and len(seq) % 2 == 1 and all(o.radii == (1, 1, 1) for o in seq[-2:])
     counts = launch_counts()
-    assert counts["stencil"] == len(seq)
+    assert counts["stencil"] == len(seq) - 2 * paired
+    assert counts["stencil_pairs"] == paired
     assert counts["stencil_runtime"] == sum(o.radii != (1, 1, 1) for o in seq)
-    assert counts["splice_copies"] == len(seq) % 2
+    assert counts["splice_copies"] == len(seq) % 2 - paired
 
 
 @pytest.mark.cuda
@@ -205,6 +250,87 @@ def test_the_benchmark_shape_two_applications_launch_twice_and_copy_no_window():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("pitch", [518, 516, 37])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("window", ["full", "narrow"])
+@pytest.mark.parametrize("batch", [1, 8])
+def test_the_fused_pair_equals_its_two_launches(pitch, dtype, window, batch):
+    """At the auto cell's 518-element row pitch (row starts at two 16-byte
+    phases in turn), an aligned pitch and an odd one: the pair's whole
+    destination, its copied rim included, carries the bits of the two
+    launches it replaces and of the two plain updates, written into a
+    view of a state as the chain writes it or into a new tensor."""
+    dev = _card()
+    arr = _randn((batch, 11, 9, pitch), dev, seed=pitch, dtype=dtype)
+    if window == "full":  # the first update's window grown by one is the whole block
+        origin, shape = (1, 1, 1), (9, 7, pitch - 2)
+    else:  # a narrow window at an odd offset
+        origin, shape = (2, 3, 5), (5, 3, 7)
+    grown = (tuple(o - 1 for o in origin), tuple(n + 2 for n in shape))
+    weights = (0.4, 0.3)
+    want = _two_launches(arr, weights, origin, shape, _view(arr.clone(), *grown).clone())
+    inner = tuple(n - 2 for n in shape)
+    plain = _view(arr, *grown).clone()
+    _view(plain, (1, 1, 1), shape).copy_(
+        stencil_window_plain(arr, STENCIL26.offsets, weights[0], origin, shape))
+    _view(plain, (2, 2, 2), inner).copy_(
+        stencil_window_plain(plain, STENCIL26.offsets, weights[1], (2, 2, 2), inner))
+    state = _randn(arr.shape, dev, seed=2, dtype=dtype)
+    reset_launch_counts()
+    got = stencil_window_pair(arr, STENCIL26.offsets, weights, origin, shape,
+                              out=_view(state, *grown))
+    fresh = stencil_window_pair(arr, STENCIL26.offsets, weights, origin, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(want, plain)
+    assert torch.equal(got, want) and torch.equal(fresh, want)
+    assert launch_counts()["stencil_pairs"] == 2 and launch_counts()["stencil"] == 0
+
+
+@pytest.mark.cuda
+def test_an_s3_program_iteration_equals_the_unfused_chain():
+    """A whole ``HaloProgram`` iteration at s = 3 (exchange, one launch,
+    the fused pair) against the exchange, three launches and the splice
+    copy, on a block whose rows have the auto cell's 518-float pitch."""
+    dev = _card()
+    comm = Communicator(device=dev)
+    program = build_halo_program((2, 2, 2), (10, 9, 512), comm, steps=3)
+    assert program.spec.alloc[-1] == 518
+    start = np.random.default_rng(8).normal(size=(8,) + program.spec.alloc).astype(np.float32)
+    got = from_reference(start, program.spec, device=dev)
+    want = got.clone()
+    reset_launch_counts()
+    for _ in range(2):
+        program.iteration(got, comm)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    for _ in range(2):
+        _unfused_cycle(halo_exchange(want, program.spec, comm, plan=program.plan),
+                       program.spec, (STENCIL26,), 3)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert (counts["stencil"], counts["stencil_pairs"], counts["splice_copies"]) == (2, 2, 0)
+
+
+@pytest.mark.cuda
+def test_the_auto_cell_shape_pays_one_launch_and_one_pair():
+    """The auto cell's state, 8 x 512^3 float32 at halo depth 3: the
+    s = 3 cycle launches the single update once and the pair once, copies
+    no window, and leaves the whole tensor, halos included, as the three
+    launches and the splice copy do."""
+    dev = _card()
+    spec = HaloSpec(grid=(2, 2, 2), interior=(512, 512, 512), radius=3)
+    state = _randn((8,) + spec.alloc, dev, seed=33)
+    want = _unfused_cycle(state.clone(), spec, (STENCIL26,), 3)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    stencil_cycle(state, spec, STENCIL26, 3)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["stencil"], counts["stencil_pairs"], counts["splice_copies"]) == (1, 1, 0)
+    assert torch.equal(state, want)
+
+
+@pytest.mark.cuda
 def test_the_kernel_refuses_what_it_does_not_take():
     dev = _card()
     arr = _randn((2, 8, 8, 8), dev)
@@ -218,3 +344,11 @@ def test_the_kernel_refuses_what_it_does_not_take():
     with pytest.raises(ValueError, match="overlaps"):
         stencil_window_update(arr, STENCIL26.offsets, 0.4, *win,
                               out=arr[..., 1:7, 1:7, 1:7])
+    pair = ((2, 2, 2), (4, 4, 4))
+    with pytest.raises(ValueError, match="radius-"):
+        stencil_window_pair(arr, StencilOp((2, 1, 1)).offsets, (0.4, 0.4), *pair)
+    with pytest.raises(ValueError, match="overlaps"):
+        stencil_window_pair(arr, STENCIL26.offsets, (0.4, 0.4), *pair,
+                            out=arr[..., 1:7, 1:7, 1:7])
+    with pytest.raises(TypeError, match="float32 or float64"):
+        stencil_window_pair(arr.half(), STENCIL26.offsets, (0.4, 0.4), *pair)

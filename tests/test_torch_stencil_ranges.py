@@ -1,9 +1,11 @@
 """The stencil layer's profiler ranges and the model's depth pick at the
 benchmark's auto cell, on the CPU.
 
-* An odd chain of applications (:func:`stencil_cycle`) opens one
-  ``tempi.splice`` range around its closing copy; an even chain opens
-  none, and every chain opens one ``tempi.stencil`` per application.
+* An odd chain of applications (:func:`stencil_cycle`) that does not
+  end in the fused pair opens one ``tempi.splice`` range around its
+  closing copy; an even chain, or one that ends in the pair, opens none.
+  Every chain opens one ``tempi.stencil`` per launch: one per
+  application, the pair's two in one.
 * The overlapped iteration opens ``tempi.interior`` around the interior
   chain and one ``tempi.shell`` per application around a chain block.
 * ``build_halo_program(steps="auto")`` with the default tables picks
@@ -55,18 +57,28 @@ def _state(spec, seed=3):
 
 @pytest.mark.parametrize("ops,steps", [((STENCIL26,), 1), ((STENCIL26,), 2), ((STENCIL26,), 3),
                                        ((STENCIL26,), 4), ((StencilOp((2, 1, 1)), STENCIL26), 1)])
-def test_only_an_odd_chain_opens_a_splice_range(ranges, ops, steps):
+def test_only_an_odd_chain_opens_a_splice_range(ranges, monkeypatch, ops, steps):
     spec = HaloSpec(grid=(2, 2, 2), interior=(7, 6, 9), radius=cycle_halo_radii(ops, steps))
     state = _state(spec)
+    pairs, pair = [], st.stencil_window_pair
+
+    def counted_pair(*args, **kw):
+        pairs.append(args)
+        return pair(*args, **kw)
+
+    monkeypatch.setattr(st, "stencil_window_pair", counted_pair)
     reset_launch_counts()
     st.stencil_cycle(state, spec, ops, steps)
     napp = len(op_sequence(ops, steps))
-    assert ranges.count("stencil") == napp
-    assert ranges.count("splice") == napp % 2
-    if napp % 2:  # the copy closes the last application's range
+    paired = napp >= 3 and napp % 2 == 1  # the chains of three or more here end in radius-1 boxes
+    assert ranges.count("stencil") == napp - paired
+    assert ranges.count("splice") == napp % 2 - paired
+    if napp % 2 and not paired:  # the copy closes the last application's range
         assert ranges[-2:] == ["stencil", "splice"]
-    assert launch_counts()["splice_copies"] == napp % 2
-    assert launch_counts()["stencil_runtime"] == 0  # the CPU runs no kernel
+    assert launch_counts()["splice_copies"] == napp % 2 - paired
+    assert len(pairs) == paired
+    counts = launch_counts()  # the CPU runs no kernel
+    assert counts["stencil_pairs"] == counts["stencil_runtime"] == 0
 
 
 @pytest.mark.parametrize("mode", ["monolithic", "region"])
