@@ -35,6 +35,7 @@ points with the same arguments.  Unpacks write in place.
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
@@ -765,6 +766,64 @@ def plan_neighbor_alltoallv(
     )
 
 
+def _send_leaves(plan, strategies, send_cts) -> list:
+    """The ``(offset, nbytes, pack_fn, encode_fn)`` leaf of each transfer
+    of a fused exchange, for
+    :func:`~repro_torch.kernels.pack.pack_compress_ragged`.  A compressor
+    (a strategy with ``encode_wire``) has its member bytes gathered by
+    the static choice's kernels and encoded into the slot; every other
+    strategy packs its wire format straight into the slot."""
+    return [(seg.offset, seg.nbytes, functools.partial(_pack_leaf, strat, ct),
+             getattr(strat, "encode_wire", None))
+            for seg, strat, ct in zip(plan.segments, strategies, send_cts)]
+
+
+def _class_leaves(comm, plan, strategies, send_cts, recv_cts) -> List[list]:
+    """Per delta class of a fused exchange, the ``(offset, nbytes,
+    decode_fn, unpack_fn)`` leaves of
+    :func:`~repro_torch.kernels.unpack.decode_unpack_ragged`.  A
+    compressor's leaf decodes the wire to member bytes and scatters them
+    with ``comm.unpack``; every other leaf hands its wire bytes to the
+    send strategy's ``unpack_wire``.  Both select at unpack time.  Under
+    ``varlen`` a single-transfer class's payload is the cut stream, read
+    at its received length."""
+    tables = []
+    for grp, class_bytes in zip(plan.groups, _class_bytes(plan)):
+        leaves = []
+        for i, off in zip(grp.transfers, grp.offsets):
+            strat, recv_ct = strategies[i], recv_cts[i]
+            nbytes = class_bytes if len(grp.transfers) == 1 else plan.segments[i].nbytes
+            decode = getattr(strat, "decode_wire", None)
+            if decode is None:
+                leaves.append((off, nbytes, None, functools.partial(
+                    strat.unpack_wire, comm, recv_ct=recv_ct, send_ct=send_cts[i])))
+            else:
+                leaves.append((off, nbytes, functools.partial(decode, n=recv_ct.size),
+                               functools.partial(comm.unpack, ct=recv_ct)))
+        tables.append(leaves)
+    return tables
+
+
+def _class_bytes(plan) -> Tuple[int, ...]:
+    """Each delta class's payload bytes: its stream length under ``varlen``, else its capacity."""
+    return plan.stream_bytes if plan.schedule == "varlen" else tuple(
+        g.nbytes for g in plan.groups)
+
+
+def _pack_leaf(strat, ct, buf, out):
+    # pack_compress_ragged asks a leaf with an encoder (out=None) for its
+    # member bytes, and any other leaf for its wire format in the slot
+    if out is None:
+        return ops.pack(buf, ct, batched=True)
+    return strat.pack(buf, ct, out=out, batched=True)
+
+
+def _record_class_event(events, stream, g):
+    # the transport's on_class hook, called right after class g's wire op
+    events[g] = torch.cuda.Event()
+    events[g].record(stream)
+
+
 class Communicator:
     """Datatype-aware communication endpoint.
 
@@ -800,12 +859,12 @@ class Communicator:
         drained delta class observes its drain latency.
     tracer: optional :class:`repro_torch.obs.Tracer`: structured
         per-phase spans on the same paths, recorded only while the tracer
-        is active (never while a CUDA graph is being captured).  The
-        blocking entry points record ``exchange`` → ``pack``/``wire``/
-        ``unpack`` spans, synchronizing the buffer's device at each phase
-        boundary (the decision signature and the model's per-phase
-        predictions ride as span attributes); planning records a ``plan``
-        span and each drained class a ``wire_class`` span.
+        is active (never while a CUDA graph is being captured).  A traced
+        call runs the untraced call's code: each phase (:meth:`_phase`)
+        is a span instead of a ``tempi.*`` range, synchronized at its end,
+        with the decision signature and the model's predictions as span
+        attributes; planning records a ``plan`` span and each drained
+        class a ``wire_class`` span.
 
     With neither attached the entry points add no synchronization and no
     timing; a program step stays free of host stream synchronizations.
@@ -864,6 +923,22 @@ class Communicator:
         """Whether this call records spans: a tracer is attached and
         active (the current stream is not capturing a CUDA graph)."""
         return self.tracer is not None and self.tracer.active
+
+    @contextlib.contextmanager
+    def _phase(self, name: str, sync: Optional[torch.Tensor] = None, **attrs):
+        """One phase of an operation, traced or not: under an active
+        tracer a ``name`` span carrying ``attrs``, ``sync``'s device
+        synchronized before it closes; else a ``tempi.<name>`` range
+        (:func:`~repro_torch.obs.trace.region`).  Yields the span, or None
+        when none records (untraced, or past the tracer's span cap)."""
+        if not self._tracing_spans():
+            with region(name):
+                yield None
+            return
+        with self.tracer.span(name, **attrs) as sp:
+            yield sp
+            if sync is not None:
+                synchronize(sync)
 
     @property
     def wire_ops(self) -> int:
@@ -936,47 +1011,31 @@ class Communicator:
 
     def sendrecv(self, src_buf, dst_buf, send_ct, perm, recv_ct=None, incount=1):
         """Blocking pack -> send -> unpack; returns ``dst_buf``, updated
-        in place.  With telemetry attached the whole call is timed against
-        the send type's fingerprint; with an active tracer it records an
-        ``exchange`` span with ``pack``/``wire``/``unpack`` children,
-        synchronizing at each phase boundary so the split is observed,
-        not attributed."""
-        if self._tracing_spans():
-            return self._sendrecv_traced(src_buf, dst_buf, send_ct, perm, recv_ct, incount)
-        if self.telemetry is None:
-            req = self.isend(src_buf, send_ct, perm, incount)
-            return self.irecv(dst_buf, recv_ct or send_ct, req).wait()
-        t0 = time.perf_counter()
-        req = self.isend(src_buf, send_ct, perm, incount)
-        out = self.irecv(dst_buf, recv_ct or send_ct, req).wait()
-        synchronize(out)  # asynchronous launches would under-report
-        self.telemetry.observe(send_ct.fingerprint, time.perf_counter() - t0)
-        return out
-
-    def _sendrecv_traced(self, src_buf, dst_buf, send_ct, perm, recv_ct, incount):
-        """:meth:`sendrecv` with per-phase spans: the work of isend +
-        irecv laid out phase by phase so each span boundary can block."""
+        in place.  One ``exchange`` :meth:`_phase` around ``pack``,
+        ``wire`` and ``unpack`` phases; traced, the spans carry the send
+        type's decision signature and the model's predictions.  With
+        telemetry attached the call is timed against the send type's
+        fingerprint, from the first pack to the synchronized unpack."""
         self._check(src_buf)
         s = self.select(send_ct, incount, wire=True)
         seg = s.wire_segment(send_ct, incount)
-        est = s.plan(self.model, send_ct, incount)
-        if self.telemetry is not None:
-            self.telemetry.register(send_ct.fingerprint, est.total, s.name)
+        pred = t_pack = t_link = t_unpack = None
+        if self.telemetry is not None or self._tracing_spans():
+            est = s.plan(self.model, send_ct, incount)
+            pred, t_pack, t_link, t_unpack = est.total, est.t_pack, est.t_link, est.t_unpack
+            if self.telemetry is not None:
+                self.telemetry.register(send_ct.fingerprint, est.total, s.name)
         t0 = time.perf_counter()
-        with self.tracer.span(
-            "exchange", fingerprint=send_ct.fingerprint, strategy=s.name,
-            wire_bytes=seg.nbytes, incount=incount, pred=est.total,
-        ):
-            with self.tracer.span("pack", pred=est.t_pack):
+        with self._phase("exchange", fingerprint=send_ct.fingerprint, strategy=s.name,
+                         wire_bytes=seg.nbytes, incount=incount, pred=pred):
+            with self._phase("pack", sync=src_buf, pred=t_pack):
                 payload = s.pack(src_buf, send_ct, incount, batched=True)
-                synchronize(payload)
-            with self.tracer.span("wire", pred=est.t_link, wire_bytes=seg.nbytes):
+            with self._phase("wire", sync=src_buf, pred=t_link, wire_bytes=seg.nbytes):
                 wire = self.transport.permute(payload, perm)
-                synchronize(wire)
-            with self.tracer.span("unpack", pred=est.t_unpack):
+            with self._phase("unpack", sync=dst_buf, pred=t_unpack):
                 out = s.unpack_wire(self, dst_buf, wire, recv_ct or send_ct, send_ct, incount)
-                synchronize(out)
         if self.telemetry is not None:
+            synchronize(out)  # asynchronous launches would under-report
             self.telemetry.observe(send_ct.fingerprint, time.perf_counter() - t0)
         return out
 
@@ -1099,32 +1158,27 @@ class Communicator:
             t_unpack += est.t_unpack
         return t_pack, self.model._price_schedule(plan, plan.schedule), t_unpack
 
-    def _drain_order(self, req: "NeighborRequest", cls: ClassRequest) -> None:
-        """Record a drained class's 1-based drain position."""
-        self.wire_class_drains[f"{req.plan.fingerprint}/c{cls.index}"] = len(req.drained)
-
-    def _observed_drain(self, tracing: bool):
-        """The drain hook of an observed exchange: the drain order, then
-        (after synchronizing the buffer's device) the class's latency
-        from issue, observed under ``<fp>/c<g>`` with telemetry and
-        recorded as a ``wire_class`` span under an active tracer."""
-        issued_at = time.perf_counter()
-
-        def on_drain(req: NeighborRequest, cls: ClassRequest) -> None:
-            self._drain_order(req, cls)
-            synchronize(req.buffer)
-            dt = time.perf_counter() - issued_at
-            key = f"{req.plan.fingerprint}/c{cls.index}"
-            if self.telemetry is not None:
-                self.telemetry.observe(key, dt)
-            if tracing:
-                self.tracer.add_manual(
-                    "wire_class", issued_at, dt, fingerprint=req.plan.fingerprint,
-                    nbytes=cls.nbytes, transfers=len(cls.transfers),
-                    drain_order=len(req.drained), **{"class": cls.index},
-                )
-
-        return on_drain
+    def _drained(self, issued_at: Optional[float], tracing: bool,
+                 req: NeighborRequest, cls: ClassRequest) -> None:
+        """The drain hook of a fused exchange: the class's 1-based drain
+        position; on an observed exchange (``issued_at``, the wire's issue
+        time, given) also, after synchronizing the buffer's device, the
+        class's latency from issue, observed under ``<fp>/c<g>`` with
+        telemetry and recorded as a ``wire_class`` span when ``tracing``."""
+        key = f"{req.plan.fingerprint}/c{cls.index}"
+        self.wire_class_drains[key] = len(req.drained)
+        if issued_at is None:
+            return
+        synchronize(req.buffer)
+        dt = time.perf_counter() - issued_at
+        if self.telemetry is not None:
+            self.telemetry.observe(key, dt)
+        if tracing:
+            self.tracer.add_manual(
+                "wire_class", issued_at, dt, fingerprint=req.plan.fingerprint,
+                nbytes=cls.nbytes, transfers=len(cls.transfers),
+                drain_order=len(req.drained), **{"class": cls.index},
+            )
 
     def ineighbor_alltoallv(
         self,
@@ -1156,13 +1210,11 @@ class Communicator:
         caller's stream has waited on its class's event, and whatever
         writes the packed cells must first drain every class.
 
-        Under an active tracer the pack and the wire are ``pack`` and
-        ``wire`` spans, each synchronized at its end; with telemetry or an
-        active tracer attached each drained class is observed
-        (:meth:`_observed_drain`).  The host's work lies in ``tempi.*``
-        ranges (:func:`~repro_torch.obs.trace.region`): ``prep`` before
-        the first pack and again after the wire, ``pack``, ``wire``, and
-        one ``unpack`` per drained class."""
+        The pack and the wire are one :meth:`_phase` each; the rest of
+        the host's work lies in ``tempi.prep`` ranges (before the first
+        pack and after the wire) and each drained class in one
+        ``tempi.unpack``.  With telemetry or an active tracer attached
+        each drained class is observed (:meth:`_drained`)."""
         with region("prep"):
             if not (len(send_cts) == len(recv_cts) == len(perms)):
                 raise ValueError("send_cts, recv_cts, perms must align")
@@ -1178,149 +1230,84 @@ class Communicator:
                 raise ValueError(
                     f"wire plan describes {len(plan.segments)} transfers, got {n} send types"
                 )
-
-            def leaf_packer(strat: Strategy, ct: CommittedType):
-                # a compressor's member bytes are gathered by the static
-                # choice's kernels and encoded into the slot; every other
-                # strategy packs its wire format straight into the slot
-                enc = getattr(strat, "encode_wire", None)
-                if enc is not None:
-                    return (lambda b, out: ops.pack(b, ct, batched=True)), enc
-                return (lambda b, out: strat.pack(b, ct, out=out, batched=True)), None
-
-            leaves = [(plan.segments[i].offset, plan.segments[i].nbytes,
-                       *leaf_packer(strategies[i], send_cts[i])) for i in range(n)]
+            leaves = _send_leaves(plan, strategies, send_cts)
             events: List[Optional[torch.cuda.Event]] = [None] * plan.ngroups
-            on_class = None
+            stream, on_class = contextlib.nullcontext(), None
             if buf.is_cuda:
                 side = self._side_stream()
                 side.wait_stream(torch.cuda.current_stream(buf.device))
                 # the side stream reads buf: keep its memory from being
                 # handed out again before those reads are done
                 buf.record_stream(side)
-
-                def on_class(g: int) -> None:
-                    events[g] = torch.cuda.Event()
-                    events[g].record(side)
-
+                stream = torch.cuda.stream(side)
+                on_class = functools.partial(_record_class_event, events, side)
             tracing = self._tracing_spans()
-            observed = self.telemetry is not None or tracing
+            t_pack = t_wire = None
             if tracing:
                 t_pack, t_wire, _ = self._phase_predictions(send_cts, strategies, plan)
-        with torch.cuda.stream(side) if buf.is_cuda else contextlib.nullcontext():
-            if tracing:
-                with self.tracer.span("pack", pred=t_pack, nbytes=plan.wire_bytes):
-                    wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
-                    synchronize(wire)
-                with self.tracer.span("wire", pred=t_wire, wire_bytes=plan.issued_bytes,
-                                      schedule=plan.schedule):
-                    group_rows = self.transport.exchange(wire, plan, on_class)
-                    synchronize(wire)
-            else:
-                with region("pack"):
-                    wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
-                with region("wire"):
-                    group_rows = self.transport.exchange(wire, plan, on_class)
+        with stream:
+            with self._phase("pack", sync=buf, pred=t_pack, nbytes=plan.wire_bytes):
+                wire = pack_compress_ragged(buf, leaves, plan.wire_bytes)
+            with self._phase("wire", sync=buf, pred=t_wire, wire_bytes=plan.issued_bytes,
+                             schedule=plan.schedule):
+                group_rows = self.transport.exchange(wire, plan, on_class)
         with region("prep"):
-            varlen = plan.schedule == "varlen"
-            if varlen:
+            sizes = _class_bytes(plan)
+            if plan.schedule == "varlen":
                 self.compress_exchanges += 1
                 self.compress_capacity_bytes += plan.wire_bytes
                 self.compress_stream_bytes += plan.effective_wire_bytes
                 if self.telemetry is not None:
                     self.telemetry.observe(f"{plan.fingerprint}/ratio", plan.stream_ratio)
-            sizes = plan.stream_bytes if varlen else tuple(g.nbytes for g in plan.groups)
             fp = plan.fingerprint
             for g, nbytes in enumerate(sizes):
                 key = f"{fp}/c{g}"
                 self.wire_class_ops[key] = self.wire_class_ops.get(key, 0) + 1
                 self.wire_class_bytes[key] = self.wire_class_bytes.get(key, 0) + nbytes
-
-            def leaf_decoder(strat, recv_ct):
-                dec = getattr(strat, "decode_wire", None)
-                return None if dec is None else (lambda part: dec(part, recv_ct.size))
-
-            def leaf_unpacker(strat, recv_ct, send_ct):
-                # a compressor's leaf receives decoded member bytes and only
-                # scatters them; otherwise unpack_wire takes the wire bytes
-                if getattr(strat, "decode_wire", None) is not None:
-                    return lambda dst, member: self.select(recv_ct, 1, wire=False).unpack(
-                        dst, member, recv_ct, 1, batched=True)
-                return lambda dst, part: strat.unpack_wire(self, dst, part, recv_ct, send_ct, 1)
-
-            def class_unpacker(grp: WireGroup, g: int):
-                # under varlen a single-transfer class's payload is the cut
-                # stream, decoded at its received length
-                leaves = [
-                    (off, sizes[g] if len(grp.transfers) == 1 else plan.segments[i].nbytes,
-                     leaf_decoder(strategies[i], recv_cts[i]),
-                     leaf_unpacker(strategies[i], recv_cts[i], send_cts[i]))
-                    for i, off in zip(grp.transfers, grp.offsets)
-                ]
-                return lambda dst, payload: decode_unpack_ragged(dst, payload, leaves)
-
-            classes = [
-                ClassRequest(g, group_rows[g], grp.transfers, sizes[g],
-                             class_unpacker(grp, g), events[g], hold=wire)
-                for g, grp in enumerate(plan.groups)
-            ]
-            on_drain = self._observed_drain(tracing) if observed else self._drain_order
-            return NeighborRequest(buf, classes, plan, on_drain)
+            tables = _class_leaves(self, plan, strategies, send_cts, recv_cts)
+            classes = [ClassRequest(g, group_rows[g], grp.transfers, sizes[g],
+                                    functools.partial(decode_unpack_ragged, leaves=tables[g]),
+                                    events[g], hold=wire)
+                       for g, grp in enumerate(plan.groups)]
+            observed = tracing or self.telemetry is not None
+            issued_at = time.perf_counter() if observed else None
+            return NeighborRequest(buf, classes, plan,
+                                   functools.partial(self._drained, issued_at, tracing))
 
     def neighbor_alltoallv(self, buf, send_cts, recv_cts, perms, plan=None,
                            strategies=None) -> torch.Tensor:
         """Blocking :meth:`ineighbor_alltoallv`; returns ``buf``, updated
-        in place.  With telemetry attached the call is timed against the
-        wire plan's fingerprint (the key the decision cache records the
-        schedule under).  Under an active tracer it records one
-        ``exchange`` span carrying the decision signature
-        (``fingerprint``, ``strategy=wire/<schedule>``, ``schedule``,
-        ``wire_bytes``, ``ngroups``, ``pred``) around ``plan`` (when
-        planned here), ``pack``, ``wire`` and ``unpack``.  Untraced, the
-        call is one ``tempi.exchange`` range
-        (:func:`~repro_torch.obs.trace.region`); the span opens it when
-        traced."""
-        if len(send_cts) > 0 and self._tracing_spans():
-            return self._neighbor_alltoallv_traced(
-                buf, send_cts, recv_cts, perms, plan, strategies)
-        with region("exchange"):
-            if self.telemetry is None or len(send_cts) == 0:
+        in place.  One ``exchange`` :meth:`_phase`; traced, its span
+        carries the decision signature (``fingerprint``,
+        ``strategy=wire/<schedule>``, ``schedule``, ``wire_bytes``,
+        ``ngroups``, ``pred``) around ``plan`` (when planned here),
+        ``pack``, ``wire`` and one ``unpack`` span around the drains.
+        With telemetry attached the call is timed against the wire plan's
+        fingerprint (the key the decision cache records the schedule
+        under), from the exchange's issue to the synchronized unpack."""
+        if len(send_cts) == 0:  # nothing to plan, move or observe
+            with region("exchange"):
                 return self.ineighbor_alltoallv(
-                    buf, send_cts, recv_cts, perms, plan, strategies
-                ).wait()
-            if plan is None:
-                strategies, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
-            t0 = time.perf_counter()
-            out = self.ineighbor_alltoallv(buf, send_cts, recv_cts, perms, plan,
-                                           strategies).wait()
-            synchronize(out)
-            self.telemetry.observe(plan.fingerprint, time.perf_counter() - t0)
-            return out
-
-    def _neighbor_alltoallv_traced(self, buf, send_cts, recv_cts, perms, plan, strategies):
-        """The blocking fused exchange under the tracer: one ``exchange``
-        span whose children decompose the call."""
-        t0 = time.perf_counter()
-        with self.tracer.span("exchange") as sp:
+                    buf, send_cts, recv_cts, perms, plan, strategies).wait()
+        with self._phase("exchange") as sp:
             if strategies is None:
                 strategies = tuple(self.select(ct, 1, wire=True) for ct in send_cts)
             if plan is None:
                 strategies, plan = self.plan_neighbor(send_cts, perms, strategies=strategies)
-            t_pack, t_wire, t_unpack = self._phase_predictions(send_cts, strategies, plan)
+            unpack = contextlib.nullcontext()
             if sp is not None:
-                sp.attrs.update(
-                    fingerprint=plan.fingerprint,
-                    strategy=f"wire/{plan.schedule}",
-                    schedule=plan.schedule,
-                    wire_bytes=plan.issued_bytes,
-                    ngroups=len(plan.groups),
-                    pred=t_pack + t_wire + t_unpack,
-                )
+                t_pack, t_wire, t_unpack = self._phase_predictions(send_cts, strategies, plan)
+                sp.attrs.update(fingerprint=plan.fingerprint, strategy=f"wire/{plan.schedule}",
+                                schedule=plan.schedule, wire_bytes=plan.issued_bytes,
+                                ngroups=len(plan.groups), pred=t_pack + t_wire + t_unpack)
+                # untraced, each drained class is its own tempi.unpack
+                unpack = self._phase("unpack", sync=buf, pred=t_unpack)
+            t0 = time.perf_counter()
             req = self.ineighbor_alltoallv(buf, send_cts, recv_cts, perms, plan, strategies)
-            with self.tracer.span("unpack", pred=t_unpack):
+            with unpack:
                 out = req.wait()
-                synchronize(out)
         if self.telemetry is not None:
+            synchronize(out)  # asynchronous launches would under-report
             self.telemetry.observe(plan.fingerprint, time.perf_counter() - t0)
         return out
 

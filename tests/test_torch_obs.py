@@ -27,13 +27,19 @@
   reference's CLI prints, apart from paths.
 * Tracer -> ``phase_aggregates`` -> ``DriftDetector.audit`` end to end,
   and ``production_communicator(telemetry=True, tracer=True)``.
-* Untraced, the exchange and the program iteration synchronize nothing;
-  nor does either with a disabled tracer attached.  Under a tracer the
-  blocking halo step records the whole ``exchange`` tree.
+* Untraced, the exchange, ``sendrecv`` and the program iteration
+  synchronize nothing; nor does either with a disabled tracer attached.
+  Traced or not, a call issues the same bytes and ops, and a blocking
+  exchange packs once and issues its wire once.  Under a tracer the
+  blocking halo step records the whole ``exchange`` tree.  The leaf
+  tables of a codec plan carry the codec's encoder and decoder, those of
+  a ``tempi`` plan none.
 * The ``tempi.*`` ranges on a CPU ``torch.profiler`` timeline: host
   ``cpu_op`` events, not user annotations; one ``tempi.exchange`` a
   blocking halo step around two ``prep``, one ``pack``, one ``wire`` and
-  one ``unpack`` a wire class; one ``tempi.stencil`` an application.
+  one ``unpack`` a wire class; one ``tempi.stencil`` an application;
+  one ``tempi.exchange`` an untraced ``sendrecv`` around ``pack``,
+  ``wire`` and ``unpack``.
 
 The reference's ``test_run_smoother_traced_exchanges_bounded_by_iterations``
 and the smoother half of ``test_tracer_aggregates_feed_audit_end_to_end``
@@ -345,6 +351,103 @@ def test_traced_exchange_equals_the_untraced_one_and_untraced_synchronizes_nothi
     assert torch.equal(got, want)
     assert calls  # the traced path synchronizes at its span boundaries
     assert plain.transport.ops == traced.transport.ops
+
+
+def _ring_sendrecv(comm):
+    src = torch.arange(96, dtype=torch.float32).view(8, 12)
+    ring = [(r, (r + 1) % 8) for r in range(8)]
+    return comm.sendrecv(src, torch.zeros_like(src), comm.commit(Vector(3, 2, 4, FLOAT)), ring)
+
+
+def test_traced_sendrecv_equals_the_untraced_one_and_untraced_synchronizes_nothing(
+        monkeypatch):
+    import repro_torch.comm.api as api
+
+    calls = []
+    monkeypatch.setattr(api, "synchronize", lambda t: calls.append(t))
+    plain = Communicator(device="cpu")
+    want = _ring_sendrecv(plain)
+    assert calls == []
+    tr = Tracer()
+    traced = Communicator(device="cpu", tracer=tr, telemetry=ExchangeTelemetry())
+    got = _ring_sendrecv(traced)
+    assert torch.equal(got, want)
+    assert calls  # the traced path synchronizes at its span boundaries
+    assert [s.name for s in tr.spans] == ["exchange", "pack", "wire", "unpack"]
+    assert (plain.transport.ops, plain.transport.bytes) == (
+        traced.transport.ops, traced.transport.bytes)
+    assert plain.stats()["model_lookups"] == traced.stats()["model_lookups"]
+
+
+def _halo_args(spec, comm):
+    types = make_halo_types(spec, comm)
+    return ([types[d][0] for d in DIRECTIONS], [types[d][1] for d in DIRECTIONS],
+            [tuple(spec.perm(d)) for d in DIRECTIONS])
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["untraced", "traced"])
+def test_each_blocking_exchange_packs_once_and_issues_its_wire_once(monkeypatch, traced):
+    import repro_torch.comm.api as api
+
+    calls = {"pack": 0, "exchange": 0}
+
+    def counting(name, fn):
+        def spy(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return spy
+
+    spec = HaloSpec(grid=GRID, interior=INTERIOR, radius=1)
+    x = _state(spec.alloc)
+    plain = Communicator(device="cpu")
+    want = plain.neighbor_alltoallv(x.clone(), *_halo_args(spec, plain))
+    monkeypatch.setattr(api, "pack_compress_ragged",
+                        counting("pack", api.pack_compress_ragged))
+    tr = Tracer() if traced else None
+    comm = Communicator(device="cpu", tracer=tr)
+    monkeypatch.setattr(comm.transport, "exchange", counting("exchange", comm.transport.exchange))
+    args = _halo_args(spec, comm)
+    for n in (1, 2):
+        got = comm.neighbor_alltoallv(x.clone(), *args)
+        assert calls == {"pack": n, "exchange": n}
+        assert torch.equal(got, want)
+    if traced:
+        assert [s.name for s in tr.spans].count("exchange") == 2
+
+
+def test_the_untraced_sendrecv_lies_in_tempi_ranges_on_the_profiler_timeline(tmp_path):
+    comm = Communicator(device="cpu")
+    ranges = _tempi_ranges(lambda: _ring_sendrecv(comm), tmp_path)
+    (ex,) = [e for e in ranges if e.name == "tempi.exchange"]
+    inner = sorted((e for e in ranges if e is not ex), key=lambda e: e.time_range.start)
+    assert all(_inside(e, ex) for e in inner)
+    assert [e.name for e in inner] == ["tempi.pack", "tempi.wire", "tempi.unpack"]
+
+
+@pytest.mark.parametrize("codec", ["int8wire", "rlewire", "tempi"])
+def test_leaf_tables_carry_the_codec_only_on_a_codec_plan(codec):
+    import repro_torch.comm.api as api
+    from repro_torch.comm.compress import Int8Wire, RleWire
+
+    comm = Communicator(device="cpu")
+    spec = HaloSpec(grid=GRID, interior=INTERIOR, radius=1)
+    send_cts, recv_cts, perms = _halo_args(spec, comm)
+    strat = {"int8wire": Int8Wire(), "rlewire": RleWire(), "tempi": None}[codec]
+    strats, plan = comm.plan_neighbor(
+        send_cts, perms, strategies=None if strat is None else [strat] * len(send_cts))
+    sends = api._send_leaves(plan, strats, send_cts)
+    tables = api._class_leaves(comm, plan, strats, send_cts, recv_cts)
+    assert [(off, nbytes) for off, nbytes, _, _ in sends] == [
+        (seg.offset, seg.nbytes) for seg in plan.segments]
+    assert len(tables) == plan.ngroups
+    assert [len(t) for t in tables] == [len(g.transfers) for g in plan.groups]
+    encoders = [enc for _, _, _, enc in sends]
+    decoders = [dec for table in tables for _, _, dec, _ in table]
+    if strat is None:
+        assert encoders == [None] * len(send_cts) and decoders == [None] * len(send_cts)
+    else:
+        assert encoders == [strat.encode_wire] * len(send_cts)
+        assert [dec.func for dec in decoders] == [strat.decode_wire] * len(send_cts)
 
 
 def test_a_disabled_tracer_synchronizes_nothing(monkeypatch):
