@@ -40,7 +40,13 @@ width on one card, through the hand-written CUDA pack/unpack kernels:
            device's idle share over 2 iterations (``torch.profiler``).  Kernel
            launch counts are zeroed just before this phase and read just
            after it; every kernel must have run, and each mode's launches
-           per exchange must match its plan; the iterations copy no
+           per exchange must match its plan.  The step replays each
+           buffer's exchange from a CUDA graph from its third call on:
+           the wrappers count the eager calls and the capture, the graph
+           keeps the captured call's launches (one exchange's, the
+           plan's), and each replay is counted as those again; one replay
+           runs the same kernels as one eager exchange under
+           ``torch.profiler``, by name and count.  The iterations copy no
            window into the state (``splice_copies``);
 4. measure the §5 model's tables calibrated on the card (full grid, 8
            ranks a launch) through ``production_communicator`` into a
@@ -198,8 +204,11 @@ line, an ``{"obs": ...}`` line, a ``{"smoother": ...}`` line, a
 ``{"serve": ...}`` line, a ``{"train": ...}`` line, a ``{"families": ...}``
 line, a ``{"recurrent": ...}`` line, a ``{"dryrun": ...}`` line, one JSON
 line ``{"kernels": [...]}``
-(``launches``: the main path's loop plus the program, dist, compress,
-tiered, obs, smoother, serve, train, families and recurrent phases),
+(``launches``: the main path's loop, the launches its CUDA graphs
+replayed (``launches_main_loop_replayed``: each graph's replays times
+its captured call's launches, which no wrapper counts), and the program,
+dist, compress, tiered, obs, smoother, serve, train, families and
+recurrent phases),
 the card's name and power
 limit, and as its last line ``{"ok": true, "device": {...}}``.  Any
 failed check ends the run with a non-zero exit and no result line.
@@ -784,20 +793,51 @@ def stencil_roll(torch, g, op):
     return (1 - op.weight) * g + (op.weight / op.nneighbors) * acc
 
 
+def replayed_launches(steps):
+    """The kernel launches the CUDA graphs of ``steps`` (halo steps)
+    replayed, by ``launch_counts()`` name: each graph's replays times
+    the launches of the call it captured (no wrapper counts a replay)."""
+    out = {}
+    for step in steps:
+        for req in step.requests.values():
+            if req.graph is not None:
+                for k, n in req.graph.launches.items():
+                    out[k] = out.get(k, 0) + req.graph.replays * n
+    return out
+
+
+def device_kernel_counts(torch, fn):
+    """The card's activities during one call of ``fn`` under
+    ``torch.profiler``, by name: their counts (the profiler names each
+    kernel a CUDA graph launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            out[e.name] = out.get(e.name, 0) + 1
+    return out
+
+
 def phase_main(torch, dev, spec, timings):
     import repro_torch.halo.stencil as halo_stencil
     from repro_torch.comm import Communicator, FixedPolicy, policy_for_mode
-    from repro_torch.halo import STENCIL26, make_halo_step, stencil_iterations
+    from repro_torch.halo import STENCIL26, halo_exchange, make_halo_step, stencil_iterations
     from repro_torch.kernels import KERNELS, launch_counts, reset_launch_counts
 
     g, start, want = global_layout(torch, spec, dev)
     torch.cuda.synchronize()
     reset_launch_counts()
-    per_mode = {}
+    per_mode, replayed_by_mode, halo_steps = {}, {}, []
     for mode in ("tempi", "rows", "dma", "baseline"):
         before = launch_counts()
         comm = Communicator(policy=policy_for_mode(mode), device=dev)
         step = make_halo_step(spec, comm, device=dev)
+        halo_steps.append(step)
         local = start.clone()
         t0 = time.perf_counter()
         step(local)
@@ -815,17 +855,36 @@ def phase_main(torch, dev, spec, timings):
             ms, exchanges = wall_ms(torch, lambda: step(local), 5), 6
         timings[f"exchange_ms_{mode}"] = ms
         per_mode[mode] = {k: launch_counts()[k] - before[k] for k in before}
+        replayed = replayed_by_mode[mode] = replayed_launches([step])
         planned = plan_launches(step.plan, comm)
-        if any(per_mode[mode][k] != exchanges * planned[k] for k in planned):
-            fail(f"{mode}: {per_mode[mode]} launches in {exchanges} exchanges; the plan "
+        # the wrappers count the eager calls and the capture; the graph
+        # holds one exchange's launches, which each replay launches again
+        (req,) = step.requests.values()
+        if req.graph is not None and \
+                any(req.graph.launches.get(k, 0) != planned[k] for k in planned):
+            fail(f"{mode}: the captured exchange launched {req.graph.launches}; the plan "
                  f"launches {planned} per exchange")
+        if any(per_mode[mode][k] + replayed.get(k, 0) != exchanges * planned[k]
+               for k in planned):
+            fail(f"{mode}: {per_mode[mode]} launches and {replayed} replayed in {exchanges} "
+                 f"exchanges; the plan launches {planned} per exchange")
+        if req.graph is not None:
+            # the profiler, not the counters: one replay runs the kernels
+            # of one eager exchange, by name and count
+            graph_kernels = device_kernel_counts(torch, lambda: step(local))
+            eager_kernels = device_kernel_counts(
+                torch, lambda: halo_exchange(local, spec, comm, plan=step.plan))
+            if graph_kernels != eager_kernels:
+                fail(f"{mode}: a replay ran {graph_kernels} on the card; an eager exchange "
+                     f"runs {eager_kernels}")
         if mode == "tempi":
             timings["tempi_launches_per_exchange"] = planned
         print(f"[main] {mode}: exchange bit-exact, schedule {step.plan.wire.schedule}, "
               f"{step.plan.wire.issued_bytes} bytes/rank issued, "
               f"strategies {sorted({s.name for s in step.plan.strategies})}, "
-              f"{ms:.3f} ms/exchange (host clock), launches {per_mode[mode]} in "
-              f"{exchanges} exchanges, per exchange {planned}")
+              f"{ms:.3f} ms/exchange (host clock), launches {per_mode[mode]} and "
+              f"{replayed} replayed from a CUDA graph in {exchanges} exchanges, per exchange "
+              f"{planned}")
         del local
 
     comm = Communicator(policy=FixedPolicy("rows"), device=dev)
@@ -844,6 +903,7 @@ def phase_main(torch, dev, spec, timings):
 
     # 5 iterations of exchange + 2 stencil applications under tempi
     step = make_halo_step(spec, device=dev)
+    halo_steps.append(step)
     local = start.clone()
     del start
     iters, steps = 5, 2
@@ -887,7 +947,9 @@ def phase_main(torch, dev, spec, timings):
     zero = [k for k in KERNELS if counts[k] == 0]
     if zero:
         fail(f"kernels never launched on the main path: {zero}")
-    print(json.dumps({"launches": counts, "launches_by_mode": per_mode}))
+    replayed = replayed_launches(halo_steps)
+    print(json.dumps({"launches": counts, "launches_by_mode": per_mode,
+                      "replayed": replayed, "replayed_by_mode": replayed_by_mode}))
 
     # stencil application alone (device time)
     timer = Timer(torch, dev)
@@ -897,7 +959,7 @@ def phase_main(torch, dev, spec, timings):
         lambda: stencil_iterations(local, spec, steps=2), reps=5)
     del local, g, timer
     torch.cuda.empty_cache()
-    return counts
+    return counts, replayed
 
 
 def region_names(plan):
@@ -4714,7 +4776,7 @@ def main() -> int:
     phase_kernels(torch, dev, spec, check)
     stencil = phase_stencil(torch, dev, check, card)
     stencil_pair = phase_stencil_pair(torch, dev, check, card)
-    counts = phase_main(torch, dev, spec, timings)
+    counts, replayed = phase_main(torch, dev, spec, timings)
     measure, measured = phase_measure(torch, dev, spec, card)
     program, program_window_ms = phase_program(torch, dev, spec, card, measured)
     dist = phase_dist(torch, dev, card)
@@ -4730,7 +4792,8 @@ def main() -> int:
     dryrun = phase_dryrun(torch, dev, card, train_ms)
     faces, shapes, program_shapes, floor, sweep = phase_timing(torch, dev, spec)
 
-    by_phase = {"main_loop": counts, "program": program, "dist": dist, "compress": compress,
+    by_phase = {"main_loop": counts, "main_loop_replayed": replayed, "program": program,
+                "dist": dist, "compress": compress,
                 "tiered": tiered, "obs": obs, "smoother": smoother, "serve": serve,
                 "train": train, "families": families, "recurrent": recurrent}
     kernels = []

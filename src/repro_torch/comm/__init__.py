@@ -10,6 +10,7 @@ from repro_torch.comm.api import (
     FixedPolicy,
     ModelPolicy,
     NeighborRequest,
+    PersistentRequest,
     Policy,
     Request,
     SendRequest,
@@ -78,6 +79,7 @@ __all__ = [
     "LocalMeshTransport",
     "ModelPolicy",
     "NeighborRequest",
+    "PersistentRequest",
     "OverlapEstimate",
     "PerfModel",
     "Policy",

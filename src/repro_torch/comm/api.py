@@ -37,7 +37,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, FrozenSet, List, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -47,7 +47,7 @@ from repro_torch.comm.perfmodel import (
     StrategyEstimate,
     SystemParams,
 )
-from repro_torch.comm.transport import LocalMeshTransport
+from repro_torch.comm.transport import RECORDERS, LocalMeshTransport
 from repro_torch.comm.wireplan import WireGroup, WirePlan, plan_wire
 from repro_torch.core.commit import CommittedType, TypeRegistry, WireSegment
 from repro_torch.core.datatypes import Datatype
@@ -56,6 +56,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels import ref as refk
 from repro_torch.kernels.geometry import PackGeometry, plan_geometry
+from repro_torch.kernels.graphs import GraphCall
 from repro_torch.kernels.pack import pack_compress_ragged, pack_dma, pack_rows
 from repro_torch.kernels.unpack import decode_unpack_ragged, unpack_dma, unpack_rows
 from repro_torch.obs.trace import region, synchronize
@@ -77,6 +78,7 @@ __all__ = [
     "SendRequest",
     "ClassRequest",
     "NeighborRequest",
+    "PersistentRequest",
     "Communicator",
     "as_communicator",
     "WirePlan",
@@ -698,6 +700,10 @@ class NeighborRequest(Request):
         #: (the communicator records the drain order there, and with
         #: telemetry or a tracer attached the class's drain latency)
         self._on_drain = on_drain
+        #: issued while a CUDA graph is captured: an event recorded on a
+        #: capturing stream cannot be queried, so classes drain in order
+        self._in_order = bool(self.classes) and self.classes[0].event is not None and \
+            torch.cuda.is_current_stream_capturing()
         if not self.classes:
             self._value = buf
 
@@ -713,14 +719,17 @@ class NeighborRequest(Request):
     def wait_any(self) -> ClassRequest:
         """Drain one class: the first whose wire op has already finished,
         else the first pending one in plan order; enqueue its unpacks
-        into :attr:`buffer` and return it.  Raises ``ValueError`` once
-        every class is drained.  Each drain is one ``tempi.unpack``
-        range (:func:`~repro_torch.obs.trace.region`)."""
+        into :attr:`buffer` and return it.  Under a CUDA graph's capture
+        no event is asked whether it finished: the first pending class
+        in plan order (the same buffer either way: the classes' receive
+        regions are disjoint).  Raises ``ValueError`` once every class
+        is drained.  Each drain is one ``tempi.unpack`` range
+        (:func:`~repro_torch.obs.trace.region`)."""
         with region("unpack"):
             pend = self.pending
             if not pend:
                 raise ValueError("wait_any() on a fully drained request")
-            pick = next((c for c in pend if c.ready()), pend[0])
+            pick = pend[0] if self._in_order else next((c for c in pend if c.ready()), pend[0])
             pick.unpack_into(self._buf)
             self.drained.append(pick.index)
             if self._on_drain is not None:
@@ -733,6 +742,99 @@ class NeighborRequest(Request):
         while self._value is _PENDING:
             self.wait_any()
         return self._value
+
+
+class PersistentRequest:
+    """The request :meth:`Communicator.neighbor_alltoallv_init` returns,
+    after MPI-4's ``MPI_Neighbor_alltoallv_init``: one blocking fused
+    exchange bound to its buffer, types, permutations, strategies and
+    wire plan, run in place by each :meth:`start`.
+
+    On the card the first start runs the eager
+    :meth:`Communicator.neighbor_alltoallv` (it loads the kernels and
+    fills the plan's caches), the second captures one call into a CUDA
+    graph (:class:`~repro_torch.kernels.graphs.GraphCall`) and launches
+    it, and every later start replays the graph inside a
+    ``tempi.exchange`` range: the same packs, wire ops and per-class
+    unpacks on the same addresses, the side stream's fork and the
+    per-class events as the graph's edges, and none of the Python.  The
+    transport's ``ops`` and ``bytes``, ``wire_class_ops``,
+    ``wire_class_bytes`` and ``wire_class_drains`` read as many exchanges
+    as were started.  A replay advances no other counter: the kernel
+    launch counts (the graph's own launches are :attr:`graph`'s
+    ``launches`` times its ``replays``), and :meth:`Communicator.stats`'
+    ``commit_hits``, ``model_lookups`` and ``model_hits``.
+
+    A start runs the eager call whenever :attr:`blockers` is not empty.
+    The buffer stays bound, and alive, as long as the request."""
+
+    def __init__(self, comm: "Communicator", buf: torch.Tensor, send_cts, recv_cts, perms,
+                 plan: WirePlan, strategies):
+        self.comm = comm
+        self.buf = buf
+        self.plan = plan
+        self._args = (tuple(send_cts), tuple(recv_cts), tuple(perms), plan, tuple(strategies))
+        self._fixed = comm._fixed_blockers(buf, plan, strategies)
+        self._keys = tuple(f"{plan.fingerprint}/c{g}" for g in range(plan.ngroups))
+        self._warm = False
+        #: the captured call, once the second start has captured it
+        self.graph: Optional[GraphCall] = None
+        #: the wire counters before and after the captured call
+        self._moved = None
+
+    @property
+    def blockers(self) -> FrozenSet[str]:
+        """Why a start now runs the eager call; empty where it may
+        capture or replay.  ``device``: the buffer is not on a card;
+        ``transport``: the transport is not ``capturable``; ``varlen``:
+        the plan's class lengths depend on the data; ``compressor``: a
+        strategy encodes or decodes its wire; ``tracer``, ``telemetry``,
+        ``recorder``: the call is observed (an active tracer, telemetry,
+        an open :func:`~repro_torch.comm.wireplan.collective_payload_bytes`),
+        which wants each phase synchronized, timed or counted."""
+        return self._fixed | self.comm._observers()
+
+    def start(self) -> torch.Tensor:
+        """Run the exchange on the bound buffer, in place; returns it."""
+        blocked = self.blockers
+        if blocked or not self._warm:
+            self._warm |= not blocked
+            return self.comm.neighbor_alltoallv(self.buf, *self._args)
+        with region("exchange"):
+            if self.graph is None:
+                before = self._read_wire()
+                self.graph = GraphCall(self._joined, self.buf.device)
+                self._moved = (before, self._read_wire())
+            else:
+                self.graph.replay()
+                self._apply_wire(*self._moved)
+        return self.buf
+
+    def _joined(self) -> None:
+        # the eager call, then the side stream joined back into the
+        # caller's: a capture may end with no forked stream's work
+        # unjoined, whatever the transport issued after a class's event
+        self.comm.neighbor_alltoallv(self.buf, *self._args)
+        torch.cuda.current_stream(self.buf.device).wait_stream(self.comm._side_stream())
+
+    def _read_wire(self):
+        comm = self.comm
+        return (comm.transport.ops, comm.transport.bytes,
+                [comm.wire_class_ops.get(k, 0) for k in self._keys],
+                [comm.wire_class_bytes.get(k, 0) for k in self._keys],
+                [comm.wire_class_drains.get(k) for k in self._keys])
+
+    def _apply_wire(self, before, after) -> None:
+        # what the captured call moved, once more: ops and bytes add up,
+        # a drain position is the one the captured call drained at
+        comm = self.comm
+        comm.transport.ops += after[0] - before[0]
+        comm.transport.bytes += after[1] - before[1]
+        for k, b_ops, a_ops, b_bytes, a_bytes, pos in zip(
+                self._keys, before[2], after[2], before[3], after[3], after[4]):
+            comm.wire_class_ops[k] = comm.wire_class_ops.get(k, 0) + a_ops - b_ops
+            comm.wire_class_bytes[k] = comm.wire_class_bytes.get(k, 0) + a_bytes - b_bytes
+            comm.wire_class_drains[k] = pos
 
 
 # ===========================================================================
@@ -939,6 +1041,34 @@ class Communicator:
             yield sp
             if sync is not None:
                 synchronize(sync)
+
+    def _fixed_blockers(self, buf: torch.Tensor, plan: WirePlan,
+                        strategies: Sequence[Strategy]) -> FrozenSet[str]:
+        """What keeps a persistent exchange of ``buf`` under ``plan`` from
+        ever being captured (:attr:`PersistentRequest.blockers`)."""
+        out = set()
+        if not buf.is_cuda:
+            out.add("device")
+        if not getattr(self.transport, "capturable", False):
+            out.add("transport")
+        if plan.schedule == "varlen":
+            out.add("varlen")
+        if any(getattr(s, "encode_wire", None) is not None
+               or getattr(s, "decode_wire", None) is not None for s in strategies):
+            out.add("compressor")
+        return frozenset(out)
+
+    def _observers(self) -> FrozenSet[str]:
+        """What observes this communicator's calls now, so that a
+        persistent exchange runs eagerly (:attr:`PersistentRequest.blockers`)."""
+        out = set()
+        if self._tracing_spans():
+            out.add("tracer")
+        if self.telemetry is not None:
+            out.add("telemetry")
+        if RECORDERS:
+            out.add("recorder")
+        return frozenset(out)
 
     @property
     def wire_ops(self) -> int:
@@ -1310,6 +1440,19 @@ class Communicator:
             synchronize(out)  # asynchronous launches would under-report
             self.telemetry.observe(plan.fingerprint, time.perf_counter() - t0)
         return out
+
+    def neighbor_alltoallv_init(self, buf, send_cts, recv_cts, perms, plan: WirePlan,
+                                strategies: Sequence[Strategy]) -> PersistentRequest:
+        """The persistent :meth:`neighbor_alltoallv` (MPI-4's
+        ``MPI_Neighbor_alltoallv_init``): bind the exchange to ``buf``,
+        its wire ``plan`` and ``strategies`` (:meth:`plan_neighbor`'s) and
+        return a :class:`PersistentRequest` whose ``start()`` runs it in
+        place, replayed from a CUDA graph from its third start on where
+        nothing blocks that."""
+        if not (len(send_cts) == len(recv_cts) == len(perms)):
+            raise ValueError("send_cts, recv_cts, perms must align")
+        self._check(buf)
+        return PersistentRequest(self, buf, send_cts, recv_cts, perms, plan, strategies)
 
     # -- collectives on datatypes ----------------------------------------
     def all_gather_packed(self, buf: torch.Tensor, ct: CommittedType,

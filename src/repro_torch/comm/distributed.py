@@ -85,10 +85,12 @@ class DistributedTransport:
     ``group`` is the process group (``None``: the default group, which
     must be initialized); ``device`` is where this process's buffers
     live: its card under NCCL (default the current card), the CPU under
-    gloo (the default there).
+    gloo (the default there).  Its collectives are not captured into CUDA
+    graphs (``capturable``).
     """
 
     native_ragged = True
+    capturable = False
     local_ranks = 1
 
     def __init__(self, group=None, device=None):

@@ -31,6 +31,10 @@ through this interface:
 ``native_ragged``
     whether a ragged all-to-all is one native op; the exact schedule
     ladder takes ``ragged`` only then.
+``capturable``
+    whether a call's wire ops may be captured into a CUDA graph and
+    replayed (:meth:`~repro_torch.comm.api.Communicator.neighbor_alltoallv_init`):
+    on-device copies may, collectives of a process group do not.
 ``local_ranks``
     how many ranks a buffer holds on its leading dimension: ``None`` on
     the local mesh, where a buffer holds every rank of the exchange, and
@@ -134,6 +138,7 @@ class LocalMeshTransport:
     """
 
     native_ragged = False
+    capturable = True
     local_ranks = None
     rank = 0
 
@@ -141,10 +146,11 @@ class LocalMeshTransport:
         self.device = torch.device(device)
         self.ops = 0    # wire ops issued
         self.bytes = 0  # bytes each rank put on the wire
-        self._ragged_index: Tuple = (None, None)
-        # a plan's row-index tensors, made on the device once: a copy
-        # from host memory on every call would synchronize the stream
-        # it runs on, so the host could not run ahead of the device
+        # a plan's index tensors, made on the device once and kept: a
+        # copy from host memory on every call would synchronize the
+        # stream it runs on, so the host could not run ahead of the
+        # device, and a CUDA graph captured under a plan reads them by
+        # address on every replay
         self._plan_index: Dict[Tuple, Tuple[torch.Tensor, ...]] = {}
 
     def _count(self, nbytes: int, primitive: str = "ppermute") -> None:
@@ -160,10 +166,18 @@ class LocalMeshTransport:
         """The plan's index tensors on ``device``, made once per plan:
         per delta class, the source rank of every row (grouped, varlen;
         under tiered, a non-representative bundle member's correction
-        hop); or the send and receive row tables (uniform)."""
+        hop); the send and receive row tables (uniform); or the flat
+        source byte of every received byte (ragged)."""
         key = (plan.fingerprint, plan.schedule, str(device))
         index = self._plan_index.get(key)
-        if index is None:
+        if index is None and plan.schedule == "ragged":
+            total = plan.wire_bytes
+            src = torch.empty((plan.nranks, total), dtype=torch.long)
+            for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
+                for r in range(plan.nranks):
+                    src[r, goff : goff + grp.nbytes] = plan.recv_rows[r][g]
+            index = self._plan_index[key] = ((src * total + torch.arange(total)).to(device),)
+        elif index is None:
             if plan.schedule in ("grouped", "varlen"):
                 tables = [[row[g] for row in plan.recv_rows] for g in range(plan.ngroups)]
             elif plan.schedule == "tiered":
@@ -311,15 +325,7 @@ class LocalMeshTransport:
         # from the rank that sends j's delta class to r.  The index holds
         # 8 bytes per wire byte, so this suits the small meshes where a
         # plan is rescheduled to ragged on purpose; it is kept per plan.
-        key, index = self._ragged_index
-        if key != (plan.fingerprint, str(wire.device)):
-            total = plan.wire_bytes
-            src = torch.empty((plan.nranks, total), dtype=torch.long)
-            for g, (goff, grp) in enumerate(zip(plan.group_offsets, plan.groups)):
-                for r in range(plan.nranks):
-                    src[r, goff : goff + grp.nbytes] = plan.recv_rows[r][g]
-            index = (src * total + torch.arange(total)).to(wire.device)
-            self._ragged_index = ((plan.fingerprint, str(wire.device)), index)
+        (index,) = self._index(plan, wire.device)
         got = wire.reshape(-1)[index.reshape(-1)].view(plan.nranks, -1)
         self._count(plan.wire_bytes, "ragged_all_to_all")
         return [

@@ -285,7 +285,7 @@ def test_wrappers_take_the_plain_version_on_the_cpu(batch):
     stencil_window_pair(arr, STENCIL26.offsets, (0.4, 0.3), *win)
     assert launch_counts() == {"pack_rows": 0, "pack_dma": 0, "unpack_rows": 0, "unpack_dma": 0,
                                "stencil": 0, "stencil_runtime": 0, "stencil_pairs": 0,
-                               "splice_copies": 0}
+                               "splice_copies": 0, "graph_captures": 0, "graph_replays": 0}
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take():
