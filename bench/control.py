@@ -4,12 +4,14 @@ The control is the reference in the program's place, computed one
 precision below the configuration's float32: the state in bfloat16 with
 the stencil's factors rounded to bfloat16 too (``--control bf16``) or
 kept in float32, as a bfloat16 torch stencil computes (``--control
-bf16_state``).  A fault (``--fault``, :mod:`bench.faults`) is planted in
-the program under a run of the cell.  Each prints the numbers the cell
-compares, which must come out above the cell's limits.
+bf16_state``); each loop of ``bench/loops/`` computes it in its own
+``control``, which returns the numbers its ``judge`` compares.  A fault
+(``--fault``, :mod:`bench.faults`) is planted in the program under a run
+of the cell.  Each prints the numbers the cell compares, which must come
+out above the cell's limits.
 
     python bench/control.py --workload stencil26.iterate --seeds 11,12,13 --control bf16 --passes 356
-    python bench/control.py --workload stencil26.iterate --seeds 11,12,13 --fault stale_halo --seconds 51
+    python bench/control.py --workload stencil26.overlap --seeds 11,12,13 --fault stale_halo --seconds 51
 
 ``--passes`` is the number of cycle passes a full run of the cell
 judges (its ``judged`` line); exchange cells need none.  The benchmark's
@@ -20,6 +22,7 @@ own runs never run this; ``bench/test_bench_control.py`` and
 from __future__ import annotations
 
 import argparse
+import importlib
 import json
 import sys
 from pathlib import Path
@@ -34,39 +37,19 @@ for _p in (str(ROOT), str(ROOT / "src")):
 
 import torch  # noqa: E402
 
-from bench import reference  # noqa: E402
+from bench.reference import CONTROLS  # noqa: E402
 
 __all__ = ["CONTROLS", "control_numbers"]
-
-#: control name -> (state dtype, factor dtype)
-CONTROLS = {"bf16": (torch.bfloat16, torch.bfloat16),
-            "bf16_state": (torch.bfloat16, torch.float32)}
 
 
 def control_numbers(config: Dict, loop: str, seed: int, passes: int, device,
                     control: str = "bf16", buffers: int = 1) -> Dict[str, float]:
-    """The numbers a cell compares, for the control's output."""
-    dtype, coef_dtype = CONTROLS[control]
-    grid, n = tuple(config["grid"]), tuple(config["interior"])
-    ops = [(tuple(o["radii"]), float(o["weight"])) for o in config["ops"]]
-    if loop == "iterate":
-        low = reference.global_field(seed, grid, n, device).to(dtype)
-        out = reference.stencil_direct(low, ops, passes, dtype, coef_dtype)
-        del low
-        pz, py, px = grid
-        interiors = torch.stack([
-            out[cz * n[0]:(cz + 1) * n[0], cy * n[1]:(cy + 1) * n[1], cx * n[2]:(cx + 1) * n[2]]
-            for cz in range(pz) for cy in range(py) for cx in range(px)]).float()
-        del out
-        return reference.judge_iterate(interiors, seed, grid, ops, passes)
-    radii = (config["radius"],) * 3
-    ranks = list(range(grid[0] * grid[1] * grid[2]))
-    blocks = []
-    for b in range(buffers):
-        g = reference.global_field(seed, grid, n, device, buffer=b).to(dtype).float()
-        blocks.append(torch.stack([reference.expected_block(g, grid, r, radii) for r in ranks]))
-        del g
-    return reference.judge_exchange(torch.stack(blocks), ranks, seed, grid, n, radii)
+    """The numbers a cell compares, for the control's output: the
+    ``control`` of the cell's loop (``bench/loops/<loop>.py``), which
+    knows what its ``judge`` compares."""
+    mod = importlib.import_module(f"bench.loops.{loop}")
+    return mod.control(config, {"loop": loop, "buffers": buffers}, seed, passes, device,
+                       control)
 
 
 def main() -> int:

@@ -11,13 +11,18 @@ completed; ``exchange_p95_ms`` the 95th percentile of every exchange's
 host-clock time.  What is judged is every cell of every rank's block in
 every buffer, halo shells included, after the last call: the shells
 start stale, so they must hold their buffer's periodic global field
-(:func:`bench.reference.judge_exchange`).
+(:func:`bench.reference.judge_exchange`).  Its control is each buffer's
+blocks rebuilt by the reference from the field rounded to a precision
+below float32 (:data:`bench.reference.CONTROLS`) and judged alike; it
+makes no call, so it takes no passes.
 """
 
 from __future__ import annotations
 
 import time
 from typing import Dict, List
+
+import torch
 
 from bench import reference, timing
 from bench.system import System
@@ -50,3 +55,20 @@ def end_to_end(stats: Dict) -> Dict[str, float]:
 def judge(system: System, output, seed: int) -> Dict[str, float]:
     return reference.judge_exchange(output, system.ranks, seed, system.grid, system.interior,
                                     system.radii)
+
+
+def control(config: Dict, traffic: Dict, seed: int, passes: int, device,
+            control: str) -> Dict[str, float]:
+    """:func:`judge`'s numbers for every rank's block in each of the
+    traffic's ``buffers``, halos included, built from the global field
+    rounded to the control's state precision."""
+    dtype, _ = reference.CONTROLS[control]
+    grid, n = tuple(config["grid"]), tuple(config["interior"])
+    radii = (config["radius"],) * 3
+    ranks = list(range(grid[0] * grid[1] * grid[2]))
+    blocks = []
+    for b in range(traffic["buffers"]):
+        g = reference.global_field(seed, grid, n, device, buffer=b).to(dtype).float()
+        blocks.append(torch.stack([reference.expected_block(g, grid, r, radii) for r in ranks]))
+        del g
+    return reference.judge_exchange(torch.stack(blocks), ranks, seed, grid, n, radii)

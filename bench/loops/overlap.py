@@ -7,8 +7,8 @@ chain block (``make_program_step(..., overlap=traffic["overlap"])``).
 
 The system is :mod:`bench.loops.iterate`'s, built the same way, with
 its step swapped for the overlapped one; the window, the end-to-end
-metrics and the judge are that loop's own, so the two loops' cells
-read the same clocks against the same reference.
+metrics, the judge and the control are that loop's own, so the two
+loops' cells read the same clocks against the same reference.
 """
 
 from __future__ import annotations
@@ -16,10 +16,10 @@ from __future__ import annotations
 from typing import Dict
 
 from bench.loops import iterate
-from bench.loops.iterate import end_to_end, judge, window
+from bench.loops.iterate import control, end_to_end, judge, window
 from bench.system import System
 
-__all__ = ["build", "window", "end_to_end", "judge"]
+__all__ = ["build", "window", "end_to_end", "judge", "control"]
 
 
 def build(config: Dict, traffic: Dict, device, seed: int) -> System:

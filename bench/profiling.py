@@ -10,6 +10,13 @@ result's ``device``/``breakdown`` take.
 * ``idle_gaps``: the gaps between busy intervals, each charged to what
   the host was doing at the gap's middle: the innermost host operation
   running then, or ``host (no op)`` where none was.
+* ``device_s_by_range``: the device seconds of each operation, by the
+  innermost ``tempi.*`` range of the program's around its launch, or
+  ``(no range)`` outside every range.  A device operation's ``id`` is
+  its correlation id, which the CUDA call that launched it (a host event
+  named ``cu*``) shares; that call's ``cpu_parent`` chain gives the
+  range.  The device side's own copies of the ranges (user annotations)
+  are left out.  Absent where no device operation links to a launch.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from typing import Callable, Dict, List, Tuple
 
 import torch
 
-__all__ = ["PACK_UNPACK_KERNELS", "device_seconds", "profile_window", "top"]
+__all__ = ["PACK_UNPACK_KERNELS", "device_seconds", "profile_window", "reduce_events", "top"]
 
 #: the kernels of ``repro_torch/kernels/csrc/`` that pack and unpack
 PACK_UNPACK_KERNELS = ("rows_warp_kernel", "rows_flat_kernel", "narrow_kernel",
@@ -30,6 +37,10 @@ PACK_UNPACK_KERNELS = ("rows_warp_kernel", "rows_flat_kernel", "narrow_kernel",
 _MAX_GAPS = 5000
 #: host operations looked back through for one that spans a gap's middle
 _LOOK_BACK = 256
+#: the program's host ranges (``repro_torch.obs.trace.region``)
+_RANGE = "tempi."
+#: ``device_s_by_range``'s key for operations launched outside every range
+NO_RANGE = "(no range)"
 
 
 def _merge(spans: List[Tuple[float, float]]) -> Tuple[float, List[Tuple[float, float]]]:
@@ -77,16 +88,43 @@ def profile_window(run: Callable[[], Dict], device: torch.device) -> Dict:
         t0 = time.perf_counter()
         stats = run()
         window_s = time.perf_counter() - t0
-    dev_spans, host = [], []
+    return dict(reduce_events(prof.events()), stats=stats, window_s=window_s)
+
+
+def _range_of(launch) -> str:
+    """The innermost ``tempi.*`` range around a host event."""
+    e = launch.cpu_parent
+    while e is not None and not e.name.startswith(_RANGE):
+        e = e.cpu_parent
+    return NO_RANGE if e is None else e.name
+
+
+def reduce_events(events) -> Dict:
+    """A profile's events (``torch.profiler``'s ``FunctionEvent`` objects,
+    their ``cpu_parent`` links built) reduced to every output of
+    :func:`profile_window` but ``stats`` and ``window_s``."""
+    dev_spans, host, ops, launches = [], [], [], {}
     device_s: Dict[str, float] = {}
-    for e in prof.events():
+    for e in events:
         a, b = e.time_range.start, e.time_range.end
         if e.device_type == torch.autograd.DeviceType.CUDA:
             dev_spans.append((a, b))
-            device_s[e.name] = device_s.get(e.name, 0.0) + (b - a) * 1e-6
+            seconds = (b - a) * 1e-6
+            device_s[e.name] = device_s.get(e.name, 0.0) + seconds
+            if not getattr(e, "is_user_annotation", False):
+                ops.append((e.id, seconds))
         else:
             host.append((a, b, e.name))
-    out = {"stats": stats, "window_s": window_s, "device_s": device_s}
+            if e.name.startswith("cu"):
+                launches[e.id] = e
+    out = {"device_s": device_s}
+    by_range: Dict[str, float] = {}
+    for op_id, seconds in ops:
+        if op_id in launches:
+            key = _range_of(launches[op_id])
+            by_range[key] = by_range.get(key, 0.0) + seconds
+    if by_range:
+        out["device_s_by_range"] = by_range
     if dev_spans:
         dev_spans.sort()
         busy_us, gaps = _merge(dev_spans)

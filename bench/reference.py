@@ -17,8 +17,9 @@ periodic global field that the ranks' interiors tile (rank ``r`` at
   The smoothing shrinks the field, so the gap is judged against the
   largest value that survives (:func:`judge_iterate`).
 * :func:`stencil_direct` applies the ops one by one in a given dtype:
-  the comparison's controls in bfloat16, and a cross-check of
-  :func:`stencil_fft` in float64.
+  the comparison's controls in bfloat16 (:data:`CONTROLS`, which each
+  loop's ``control`` of ``bench/loops/`` puts in the program's place),
+  and a cross-check of :func:`stencil_fft` in float64.
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ import torch
 from bench.inputs import interior, rank_coords
 
 __all__ = [
+    "CONTROLS",
     "Op",
     "assemble",
     "coefficients",
@@ -45,6 +47,11 @@ __all__ = [
 
 #: one stencil op: (radii (rz, ry, rx), weight)
 Op = Tuple[Tuple[int, int, int], float]
+
+#: the comparison's controls, one precision below the configuration's
+#: float32: control name -> (state dtype, factor dtype)
+CONTROLS = {"bf16": (torch.bfloat16, torch.bfloat16),
+            "bf16_state": (torch.bfloat16, torch.float32)}
 
 
 def global_field(seed: int, grid: Sequence[int], n: Sequence[int], device,
